@@ -9,14 +9,16 @@ Phases:
    CUDA device and TF32 off;
 2. build every CUDA kernel from ``runlmc_tpu_torch/hopper/csrc`` (one
    ``nvcc`` per source, all at once);
-3. build the model of the slice — ``InterpolatedLLGP`` on an
+3. build the model of the slices — ``InterpolatedLLGP`` on an
    fx2007-shaped synthetic problem (D=13 outputs, n=3113 training and
    150 held-out points, Q=1 RBF of rank 2, m=[234] -> 238 grid points,
    Dm=3094) in float64 on the card — and hold each hand kernel against
-   its plain PyTorch version on the card at the shapes of that path,
-   with times (CUDA events), the library call's time where one PyTorch
-   call computes the same function, and the least time the card could
-   take (bytes over 3.35 TB/s, operations over the peak rate);
+   its plain PyTorch version on the card at the shapes of those paths
+   (K1's backward on a seeded asymmetric (3094, 3094) cotangent), with
+   times (CUDA events and profiler device time), the library call's time
+   where one PyTorch call computes the same function, and the least time
+   the card could take (bytes over 3.35 TB/s, operations over the peak
+   rate);
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -27,7 +29,25 @@ Phases:
    reaches only when the float32 rung stalls) on the same right-hand
    sides, read the counters: the float64 CG passes must have launched
    and the residual must be within tolerance;
-6. print the kernel table as one JSON line (each row's ``launches``
+6. guard: reset the counters, run the 'auto' objective's held-out-block
+   validation guard (``_validate_exact_objective``: a twin trained with
+   the exact objective for at most 10 AdaDelta steps, then ``predict`` on
+   the held-out blocks), read the counters: every kernel of
+   ``hopper.TRAIN_PATH`` and ``hopper.PREDICT_PATH`` must have launched,
+   and the guard's z^2 and zero-variance share must be finite;
+7. train: a fresh model with ``objective='exact'`` (as bench.py pins
+   fx2007), counters reset, ``optimize(AdaDelta(min_grad_ratio=0.2))``
+   to its stopping rule, counters read: every kernel of
+   ``hopper.TRAIN_PATH`` must have launched, gradient norms and
+   parameters must be finite and the objective still exact; one chunk is
+   profiled; then ``predict`` on the held-out points must certify its
+   residual within tolerance (SMSE and NLPD printed, on synthetic data);
+8. card vs CPU: from the same parameters, the first gradient and one
+   chunk of float32 exact training (``CPU_CHUNK_STEPS`` steps) agree
+   within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
+   (counters reset and read: ``hopper.MODEL_PRECISION_PATH`` must have
+   launched) agrees within ``MODEL_RTOL``;
+9. print the kernel table as one JSON line (each row's ``launches``
    counted on its own path, named in ``path``), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +74,17 @@ TOLERANCE = 1e-8
 # magnitude: both solves are certified to an absolute residual of
 # TOLERANCE, and the f32 inner cycles round differently on each device
 PREDICT_RTOL = 1e-6
+# CPU vs card agreement of exact-objective training, relative to the
+# largest magnitude: float32 factorizations round differently on each
+# device (cuSOLVER vs LAPACK); float64 ones agree to about the
+# conditioning times float64 rounding
+TRAIN_RTOL = 1e-3
+MODEL_RTOL = 1e-8
+# steps of the CPU side's training chunks (the card runs the same): a
+# full-width float64 step takes seconds on the CPU
+CPU_CHUNK_STEPS = 3
+# the benchmark's optimizer settings for fx2007 (bench.py:74-75)
+OPT_KW = {"min_grad_ratio": 0.2}
 
 
 def require(cond, msg):
@@ -119,6 +150,44 @@ def device_profile(fn, reps=1):
     return (total / reps if total > 0 else None), rows, wall_ms
 
 
+# device kernels by the layer of the kernel table they belong to; the
+# library-routed layers (K2-K5) are told apart by their cuBLAS and
+# cuSOLVER kernel names (cuSOLVER's Cholesky also launches GEMMs, which
+# count under K2/K4)
+LAYERS = (
+    ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k),
+    ("K1", lambda k: "kuu_dense_kernel" in k),
+    ("K7", lambda k: "cross_kernel_kernel" in k),
+    ("K9", lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
+    ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
+    ("K5 triangular solves", lambda k: "trsm" in k or "trsv" in k),
+    ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
+                                                   "syrk"))),
+    ("K2/K4 GEMM and GEMV", lambda k: "gemm" in k or "gemv" in k),
+)
+
+
+def by_layer(rows, per=1):
+    """Profile rows summed by layer: {layer: {launches, device_ms}}, each
+    divided by ``per`` (steps in the profiled window)."""
+    out = {}
+    for key, count, ms in rows:
+        layer = next((name for name, hit in LAYERS if hit(key)),
+                     "elementwise, reductions, copies")
+        acc = out.setdefault(layer, [0, 0.0])
+        acc[0] += count
+        acc[1] += ms
+    return {k: {"launches": v[0] / per, "device_ms": v[1] / per}
+            for k, v in sorted(out.items(), key=lambda kv: -kv[1][1])}
+
+
+def print_layers(layers):
+    for name, v in layers.items():
+        print("  %-32s %8.4f ms  %7.1f launches" % (name, v["device_ms"],
+                                                    v["launches"]),
+              flush=True)
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
@@ -164,7 +233,9 @@ def main():
     from runlmc_tpu_torch.hopper import build, cg, cross, interp, kuu
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
     from runlmc_tpu_torch.models.interpolated_llgp import RUNG_MAXITER
+    from runlmc_tpu_torch.ops.bttb import bttb_index_map
     from runlmc_tpu_torch.utils.carry import cast_params, from_reference_params
+    from runlmc_tpu_torch.utils.evaluation import nlpd, smse
 
     # ------------------------------------------------------------ phase 1
     card = card_line()
@@ -210,6 +281,8 @@ def main():
         device_ms = device_profile(fn, reps=10)[0]
         plain_device_ms = device_profile(plain_fn, reps=10)[0]
         library_ms = cuda_time(library_fn) if library_fn else None
+        library_device_ms = (device_profile(library_fn, reps=10)[0]
+                             if library_fn else None)
         bms, by = bound_ms(moved, flops, dtype)
         row = {
             "name": name, "dtype": str(dtype).replace("torch.", ""),
@@ -217,13 +290,15 @@ def main():
             "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "library_device_ms": library_device_ms,
             "bound_ms": bms, "bound_by": by,
         }
         print("kernel %-15s %-7s rel err %.3e (tol %.0e)  %.4f ms (device "
-              "%s)  plain %.4f ms (device %s)  library %s  bound %.4f ms (%s)"
+              "%s)  plain %.4f ms (device %s)  library %s (device %s)  "
+              "bound %.4f ms (%s)"
               % (name, row["dtype"], rel_err, tol, ms, _ms(device_ms),
-                 plain_ms, _ms(plain_device_ms), _ms(library_ms), bms, by),
-              flush=True)
+                 plain_ms, _ms(plain_device_ms), _ms(library_ms),
+                 _ms(library_device_ms), bms, by), flush=True)
         require(rel_err <= tol, "%s %s disagrees with its plain version"
                 % (name, row["dtype"]))
         rows.append(row)
@@ -250,6 +325,49 @@ def main():
                lambda: kuu.kuu_dense(tops, B, sizes),
                lambda: kuu.kuu_dense_plain(tops, B, sizes),
                nbytes(out, tops, B), 2.0 * out.numel() * tops.shape[0])
+
+    # K1 backward: the cotangent of K_UU summed over BTTB offsets, in f32
+    # (each training step) and f64 (after escalation), on a seeded
+    # asymmetric cotangent. The library route: one index_add_ of G into
+    # H through a full (Dm, Dm) offset map, then the same two products.
+    for dtype in (torch.float32, torch.float64):
+        p = cast_params(model.params, dtype)
+        gd = model.grid_data[0] if dtype == torch.float64 else \
+            model.grid_data32[0]
+        tops = spec.eval_kernels_stacked(p, gd.dists, gd.plan.kidxs)
+        B = spec.coreg_mats(p, gd.plan.kidxs)
+        sizes = gd.plan.sizes
+        Q, m = tops.shape
+        D = B.shape[1]
+        G = randn(D * m, D * m, dtype=dtype)
+        got = kuu.kuu_dense_bwd(tops, B, sizes, G)
+        want = kuu.kuu_dense_bwd_plain(tops, B, sizes, G)
+        idx = torch.as_tensor(bttb_index_map(sizes), dtype=torch.int64,
+                              device=dev)
+        ar = torch.arange(D, device=dev)
+        full = (ar[:, None, None, None] * (D * m) + ar[None, None, :, None]
+                * m + idx[None, :, None, :]).reshape(-1)
+        H_lib = torch.zeros(D * D * m, dtype=dtype, device=dev)
+
+        def library(G=G, tops=tops, B=B, full=full, H_lib=H_lib, D=D, m=m):
+            H = H_lib.zero_().index_add_(0, full, G.reshape(-1))
+            H = H.view(D, D, m)
+            return (torch.einsum("qde,deo->qo", B, H),
+                    torch.einsum("qo,deo->qde", tops, H))
+
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        require(errors(library(), want)[1] <= tol,
+                "the index_add_ route disagrees with the plain backward")
+        record("kuu_dense_bwd", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/kuu_dense_bwd.cu",
+               "runlmc_tpu/lmc/grid.py:538", got, want, tol,
+               lambda tops=tops, B=B, sizes=sizes, G=G:
+               kuu.kuu_dense_bwd(tops, B, sizes, G),
+               lambda tops=tops, B=B, sizes=sizes, G=G:
+               kuu.kuu_dense_bwd_plain(tops, B, sizes, G),
+               nbytes(G, tops, B, *got), G.numel() + 4.0 * Q * D * D * m,
+               library_fn=library)
+        del G, full, H_lib, got, want
 
     # K7: K_*X of the prediction path (f64), then a mixed table of all
     # five kernel kinds on a 2-D input
@@ -424,6 +542,9 @@ def main():
               "-" if idle is None else "%.3f" % idle), flush=True)
     for key, count, ms in breakdown[:12]:
         print("  %9.4f ms %5d x  %s" % (ms, count, key[:90]), flush=True)
+    predict_layers = by_layer(breakdown)
+    print("predict device time by layer:", flush=True)
+    print_layers(predict_layers)
 
     lens = [len(t) for t in txs]
     require([len(a) for a in mu] == lens and [len(a) for a in var] == lens,
@@ -445,11 +566,12 @@ def main():
                    for a, b in zip(mu, mu_c) if len(b))
     var_err = max(float(np.max(np.abs(a - b))) / float(np.max(np.abs(b)))
                   for a, b in zip(var, var_c) if len(b))
-    smse = [float(np.mean((a - b) ** 2) / np.var(b))
-            for a, b in zip(mu, tys) if len(b)]
+    smse_untrained = [float(np.mean((a - b) ** 2) / np.var(b))
+                      for a, b in zip(mu, tys) if len(b)]
     print("card vs CPU (CPU run %.1f s): mean rel err %.3e, variance rel "
           "err %.3e (tol %g); SMSE per held-out output %s"
-          % (cpu_s, mean_err, var_err, PREDICT_RTOL, smse), flush=True)
+          % (cpu_s, mean_err, var_err, PREDICT_RTOL, smse_untrained),
+          flush=True)
     require(mean_err <= PREDICT_RTOL and var_err <= PREDICT_RTOL,
             "card and CPU predictions disagree")
 
@@ -478,9 +600,169 @@ def main():
             % (esc_worst, TOLERANCE))
 
     # ------------------------------------------------------------ phase 6
+    guard_opt = T.AdaDelta(max_it=10, **OPT_KW)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    z2, zfrac = model._validate_exact_objective(guard_opt)
+    torch.cuda.synchronize()
+    guard_s = time.time() - t0
+    guard_launches = hopper.launch_counts()
+    print("guard (twin trained <= 10 steps, held-out predict): %.3f s, "
+          "z^2 %.6g, zero-variance share %.6g, launches %s"
+          % (guard_s, z2, zfrac, json.dumps(guard_launches)), flush=True)
+    require(np.isfinite(z2) and np.isfinite(zfrac),
+            "guard statistics are not finite")
+    for name in hopper.TRAIN_PATH + hopper.PREDICT_PATH:
+        require(guard_launches[name] > 0,
+                "kernel %s never launched in the guard" % name)
+
+    # ------------------------------------------------------------ phase 7
+    tm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                            tolerance=TOLERANCE, seed=SEED,
+                            objective="exact", device=dev)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    info = tm.optimize(T.AdaDelta(**OPT_KW))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    train_launches = hopper.launch_counts()
+    step_ms = 1e3 * info["device_seconds"] / info["device_steps"]
+    print("train (exact objective, AdaDelta min_grad_ratio=0.2): n_iter "
+          "%d (%d device steps), %.3f s wall, %.3f ms per step, max solve "
+          "error %.3e, exact_precision %s, launches %s"
+          % (info["n_iter"], info["device_steps"], train_s, step_ms,
+             info["max_solve_error"], tm.exact_precision,
+             json.dumps(train_launches)), flush=True)
+    for name in hopper.TRAIN_PATH:
+        require(train_launches[name] > 0,
+                "kernel %s never launched in training" % name)
+    require(np.all(np.isfinite(info["grad_norms"])), "non-finite gradients")
+    require(np.all(np.isfinite(tm.param_array)), "non-finite parameters")
+    require(tm.objective == "exact", "training left the exact objective")
+
+    x_now = tm.param_array
+    z0 = np.zeros_like(x_now)
+    chunk_ms, chunk_rows, chunk_wall = device_profile(
+        lambda: tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW)))
+    chunk_idle = None if chunk_ms is None else 1 - chunk_ms / chunk_wall
+    print("one training chunk (%d steps, exact_precision %s) under the "
+          "profiler: device busy %s of %.3f ms wall (idle share %s); top "
+          "device kernels:" % (tm.chunk_len, tm.exact_precision,
+                               _ms(chunk_ms), chunk_wall,
+                               "-" if chunk_idle is None
+                               else "%.3f" % chunk_idle), flush=True)
+    for key, count, ms in chunk_rows[:12]:
+        print("  %9.4f ms %5d x  %s" % (ms, count, key[:90]), flush=True)
+    step_layers = by_layer(chunk_rows, per=tm.chunk_len)
+    print("training step device time by layer (per step):", flush=True)
+    print_layers(step_layers)
+    # least times of the library-routed layers per call, from this cell's
+    # shapes (one group, float32): K2 the capacitance assembly, K3 the
+    # two Cholesky factorizations (K_UU and C), K4 one W or W^T apply of
+    # one vector, K5 one solve with C on 1 (training) and 151 (predict)
+    # columns. A training step runs each forward once and its backward,
+    # about twice the forward's operations, through the same libraries.
+    gd0 = tm.grid_data[0]
+    Dg, mg = len(xss), int(np.prod(gd0.plan.sizes))
+    dmg, ng = Dg * mg, len(tm.data.y)
+    f32 = torch.float32
+    layer_bounds = {
+        "K2 capacitance": bound_ms(
+            (Dg * mg * mg + 2 * dmg * dmg) * 4,
+            2.0 * Dg * mg * mg * dmg + 2.0 * dmg ** 3, f32),
+        "K3 Cholesky (K_UU and C)": bound_ms(
+            4 * dmg * dmg * 4, 2 * dmg ** 3 / 3.0, f32),
+        "K4 W apply (one vector)": bound_ms(
+            (ng * mg + ng + dmg) * 4, 2.0 * ng * mg, f32),
+        "K4 W apply (151 vectors)": bound_ms(
+            (ng * mg + 151 * (ng + dmg)) * 4, 2.0 * ng * mg * 151, f32),
+        "K5 solve with C (1 column)": bound_ms(
+            (dmg * dmg + 2 * dmg) * 4, 2.0 * dmg * dmg, f32),
+        "K5 solve with C (151 columns)": bound_ms(
+            (dmg * dmg + 2 * dmg * 151) * 4, 2.0 * dmg * dmg * 151, f32),
+    }
+    for name, (bms, by) in layer_bounds.items():
+        print("bound %-30s %.4f ms (%s)" % (name, bms, by), flush=True)
+
+    t0 = time.time()
+    mu_t, var_t = tm.predict(txs)
+    torch.cuda.synchronize()
+    trained_predict_s = time.time() - t0
+    trained_res = tm.prediction_report["explained-variance"]
+    require(all(np.all(np.isfinite(a)) for a in mu_t + var_t),
+            "non-finite predictions after training")
+    require(trained_res["residual"] <= TOLERANCE,
+            "trained model's certified residual %g > %g"
+            % (trained_res["residual"], TOLERANCE))
+    trained_smse = smse(tys, mu_t, yss)
+    trained_nlpd = nlpd(tys, mu_t, var_t)
+    print("trained predict: %.3f s, report %s; on the synthetic "
+          "fx2007-shaped data: SMSE %.6g, NLPD %.6g"
+          % (trained_predict_s, json.dumps(trained_res), trained_smse,
+             trained_nlpd), flush=True)
+
+    # ------------------------------------------------------------ phase 8
+    t0 = time.time()
+    gm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                            tolerance=TOLERANCE, seed=SEED,
+                            objective="exact", device=dev)
+    cm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                            tolerance=TOLERANCE, seed=SEED,
+                            objective="exact", device="cpu")
+    x0 = np.asarray(params, dtype=float)
+    z0 = np.zeros_like(x0)
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        require(np.all(np.isfinite(a)) and np.all(np.isfinite(b)),
+                "non-finite training output")
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    g_card = gm._exact_grad(torch.as_tensor(x0, device=dev))[0].cpu()
+    g_cpu = cm._exact_grad(torch.as_tensor(x0))[0]
+    grad_err = rel(g_card.numpy(), g_cpu.numpy())
+    opt = T.AdaDelta(**OPT_KW)
+    f32_card = gm._chunk(x0, z0, z0, z0, opt, n_steps=CPU_CHUNK_STEPS)
+    f32_cpu = cm._chunk(x0, z0, z0, z0, opt, n_steps=CPU_CHUNK_STEPS)
+    f32_err = rel(f32_card[0][-1], f32_cpu[0][-1])
+    gm.exact_precision = cm.exact_precision = "model"
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    f64_card = gm._chunk(x0, z0, z0, z0, opt, n_steps=CPU_CHUNK_STEPS)
+    torch.cuda.synchronize()
+    mp_launches = hopper.launch_counts()
+    f64_cpu = cm._chunk(x0, z0, z0, z0, opt, n_steps=CPU_CHUNK_STEPS)
+    f64_err = rel(f64_card[0][-1], f64_cpu[0][-1])
+    print("card vs CPU training (%.1f s; %d-step chunks): first gradient "
+          "rel err %.3e, f32 chunk parameters %.3e (tol %g), "
+          "model-precision chunk parameters %.3e (tol %g); "
+          "model-precision launches %s"
+          % (time.time() - t0, CPU_CHUNK_STEPS, grad_err, f32_err,
+             TRAIN_RTOL, f64_err, MODEL_RTOL, json.dumps(mp_launches)),
+          flush=True)
+    for name in hopper.MODEL_PRECISION_PATH:
+        require(mp_launches[name] > 0,
+                "kernel %s never launched at model precision" % name)
+    require(grad_err <= TRAIN_RTOL and f32_err <= TRAIN_RTOL,
+            "card and CPU float32 training disagree")
+    require(f64_err <= MODEL_RTOL,
+            "card and CPU model-precision training disagree")
+
+    # ------------------------------------------------------------ phase 9
     for row in rows:
         key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
-        if key in hopper.PREDICT_PATH:
+        row["train_launches"] = train_launches[key]
+        if row["name"] == "kuu_dense_bwd":
+            if key in hopper.TRAIN_PATH:
+                row["path"], row["launches"] = "train", train_launches[key]
+            else:
+                require(key in hopper.MODEL_PRECISION_PATH,
+                        "%s is on no path" % key)
+                row["path"] = "train (model precision)"
+                row["launches"] = mp_launches[key]
+        elif key in hopper.PREDICT_PATH:
             row["path"], row["launches"] = "predict", launches[key]
         else:
             require(key in hopper.ESCALATION_PATH, "%s is on no path" % key)
@@ -496,11 +778,36 @@ def main():
         "predict_breakdown": [
             {"name": k, "calls": c, "device_ms": t} for k, c, t in breakdown
         ],
+        "predict_layers": predict_layers,
         "launches": launches, "report": res,
         "escalation": {"s": esc_s, "iterations": esc_iters,
                        "residual": esc_worst, "launches": esc_launches},
         "card_vs_cpu": {"mean_rel_err": mean_err, "var_rel_err": var_err},
-        "smse": smse,
+        "smse": smse_untrained,
+        "guard": {"s": guard_s, "z2": z2, "zero_var_frac": zfrac,
+                  "launches": guard_launches},
+        "train": {
+            "n_iter": info["n_iter"], "device_steps": info["device_steps"],
+            "wall_s": train_s, "ms_per_step": step_ms,
+            "max_solve_error": info["max_solve_error"],
+            "exact_precision": tm.exact_precision,
+            "launches": train_launches, "grad_norms": info["grad_norms"],
+            "chunk_device_ms": chunk_ms, "chunk_profiled_ms": chunk_wall,
+            "chunk_idle_share": chunk_idle,
+            "step_layers": step_layers,
+            "layer_bounds_ms": {k: v[0] for k, v in layer_bounds.items()},
+            "chunk_breakdown": [
+                {"name": k, "calls": c, "device_ms": t}
+                for k, c, t in chunk_rows
+            ],
+            "predict_s": trained_predict_s, "report": trained_res,
+            "smse_synthetic": trained_smse, "nlpd_synthetic": trained_nlpd,
+        },
+        "card_vs_cpu_train": {
+            "steps": CPU_CHUNK_STEPS, "grad_rel_err": grad_err,
+            "f32_param_rel_err": f32_err, "model_param_rel_err": f64_err,
+            "model_precision_launches": mp_launches,
+        },
     }
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -29,6 +29,7 @@ from runlmc_tpu_torch.kernels import (  # noqa: E402
 )
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec  # noqa: E402
 from runlmc_tpu_torch.models import InterpolatedLLGP, MultiGP  # noqa: E402
+from runlmc_tpu_torch.models.optimization import AdaDelta  # noqa: E402
 
 __all__ = [
     "RBF",
@@ -39,4 +40,5 @@ __all__ = [
     "LMCKernelSpec",
     "MultiGP",
     "InterpolatedLLGP",
+    "AdaDelta",
 ]

@@ -6,6 +6,7 @@ for CUDA tensors and counts the launch by dtype (``wrapper.launches``,
 PyTorch version beside it.
 
   K1  kuu.kuu_dense               CUDA  csrc/kuu_dense.cu
+  K1 backward  kuu.kuu_dense_bwd  CUDA  csrc/kuu_dense_bwd.cu
   K6  cg.cg_update_xr / cg_update_p  Triton  triton_cg.py
   K7  cross.cross_kernel          CUDA  csrc/cross_kernel.cu
   K9  interp.interp_gather / interp_scatter  CUDA  csrc/interp.cu
@@ -15,11 +16,11 @@ from runlmc_tpu_torch.hopper import build
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
 from runlmc_tpu_torch.hopper.cross import cross_kernel
 from runlmc_tpu_torch.hopper.interp import interp_gather, interp_scatter
-from runlmc_tpu_torch.hopper.kuu import kuu_dense
+from runlmc_tpu_torch.hopper.kuu import kuu_dense, kuu_dense_bwd
 
 WRAPPERS = (
-    kuu_dense, cross_kernel, interp_gather, interp_scatter, cg_update_xr,
-    cg_update_p,
+    kuu_dense, kuu_dense_bwd, cross_kernel, interp_gather, interp_scatter,
+    cg_update_xr, cg_update_p,
 )
 
 
@@ -35,6 +36,12 @@ PREDICT_PATH = (
 # The float64 CG passes, which run only on the certified solve's
 # escalation rung (CG preconditioned by the float64 Woodbury factor).
 ESCALATION_PATH = ("cg_update_xr/f64", "cg_update_p/f64")
+# The launches of an exact-objective training step with its float32
+# factorization (exact_precision='f32'): K_UU forward and backward.
+TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32")
+# The same once training has escalated to exact_precision='model' on a
+# float64 model.
+MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64")
 
 
 def reset_launches():

@@ -1,14 +1,24 @@
-"""K1: the dense LMC grid kernel K_UU of one active-dim group.
+"""K1: the dense LMC grid kernel K_UU of one active-dim group, and its
+backward.
 
     K_UU[(d,i),(e,j)] = sum_q B_q[d,e] * tops_q[off(i,j)],
     off(i,j) = sum_p |i_p - j_p| * stride_p
 
 Replaces runlmc_tpu/lmc/grid.py:537-547 (``build_group_state``, dense
 branch: an index-map gather of a (Q, m, m) stack, then an einsum with
-B). The CUDA kernel (``csrc/kuu_dense.cu``) works out each element's
-BTTB offset from the two flat grid indices and reads no index map; it
-is bound by its (Dm)^2 output write. :func:`kuu_dense_plain` is the
-plain PyTorch version, which the wrapper runs for CPU tensors.
+B) and XLA's autodiff of it. The forward CUDA kernel
+(``csrc/kuu_dense.cu``) works out each element's BTTB offset from the
+two flat grid indices and reads no index map; it is bound by its (Dm)^2
+output write. The backward kernel (``csrc/kuu_dense_bwd.cu``) sums the
+cotangent G over the pairs of each offset,
+
+    H[d,e,o] = sum_{off(i,j)=o} G[(d,i),(e,j)],
+
+bound by its (Dm)^2 read of G; ``d tops = einsum(B, H)`` and
+``d B = einsum(tops, H)`` are two small products, (Q, D^2) x (D^2, m),
+left to torch. :class:`KUUDense` joins the two as one autograd
+function. :func:`kuu_dense_plain` and :func:`kuu_dense_bwd_plain` are
+the plain PyTorch versions, which the wrappers run for CPU tensors.
 """
 
 import ctypes
@@ -68,3 +78,66 @@ def kuu_dense(tops, B, sizes):
 
 
 kuu_dense.launches = build.counter()
+
+
+def kuu_dense_bwd_plain(tops, B, sizes, G):
+    """Plain version of the backward: torch autograd through
+    :func:`kuu_dense_plain` (the gather's transpose is a scatter-add)."""
+    with torch.enable_grad():
+        t = tops.detach().requires_grad_(True)
+        b = B.detach().requires_grad_(True)
+        return torch.autograd.grad(kuu_dense_plain(t, b, sizes), (t, b), G)
+
+
+def kuu_dense_bwd(tops, B, sizes, G):
+    """``(d tops, d B)`` from the cotangent ``G`` (D*m, D*m) of
+    :func:`kuu_dense`'s output; the CUDA kernel computes the offset sums
+    H (D, D, m) for CUDA tensors."""
+    if build.use_plain("kuu_dense_bwd", G):
+        return kuu_dense_bwd_plain(tops, B, sizes, G)
+    Q, m = tops.shape
+    D = B.shape[1]
+    n0, n1, n2 = _sizes3(sizes)
+    if D * D > 65535:
+        raise ValueError("kuu_dense_bwd: D = %d exceeds the kernel's grid" % D)
+    if (n0 * n1 * n2 != m or B.shape != (Q, D, D)
+            or G.shape != (D * m, D * m) or G.dtype != tops.dtype
+            or B.dtype != tops.dtype or tops.device != G.device
+            or B.device != G.device):
+        raise ValueError("kuu_dense_bwd: tops %s, B %s, G %s, sizes %s "
+                         "disagree" % (tuple(tops.shape), tuple(B.shape),
+                                       tuple(G.shape), sizes))
+    G = G.contiguous()
+    build.require_cuda("kuu_dense_bwd", G)
+    H = torch.empty((D, D, m), dtype=G.dtype, device=G.device)
+    sfx = build.suffix("kuu_dense_bwd", G.dtype)
+    fn = build.function(
+        "kuu_dense_bwd", "kuu_dense_bwd_" + sfx,
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
+    build.check(fn(build.ptr(G), build.ptr(H), D, m, n0, n1, n2,
+                   build.stream_ptr()), "kuu_dense_bwd")
+    kuu_dense_bwd.launches[sfx] += 1
+    return (torch.einsum("qde,deo->qo", B, H),
+            torch.einsum("qo,deo->qde", tops, H))
+
+
+kuu_dense_bwd.launches = build.counter()
+
+
+class KUUDense(torch.autograd.Function):
+    """K_UU with its hand-written backward: forward :func:`kuu_dense`,
+    backward :func:`kuu_dense_bwd`."""
+
+    @staticmethod
+    def forward(ctx, tops, B, sizes):
+        ctx.save_for_backward(tops, B)
+        ctx.sizes = sizes
+        return kuu_dense(tops, B, sizes)
+
+    @staticmethod
+    def backward(ctx, G):
+        tops, B = ctx.saved_tensors
+        dtops, dB = kuu_dense_bwd(tops, B, ctx.sizes, G)
+        return (dtops if ctx.needs_input_grad[0] else None,
+                dB if ctx.needs_input_grad[1] else None, None)

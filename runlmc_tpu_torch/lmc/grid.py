@@ -3,7 +3,8 @@ grid mode (parity: runlmc_tpu/lmc/grid.py).
 
 Dense mode materializes each active-dim group's grid kernel
 K_UU = sum_q B_q (x) T_q as one (Dm, Dm) matrix per parameter setting,
-through kernel K1 (runlmc_tpu_torch/hopper/kuu.py), and applies W and
+through kernel K1 and its backward (runlmc_tpu_torch/hopper/kuu.py),
+and applies W and
 W^T through per-output dense interpolation blocks (plain matmuls). Its
 matvecs are then one GEMM per group, in any dtype — on the H100 in
 native f64. Groups above ``DENSE_MAX_GRID`` points use the fft mode,
@@ -16,7 +17,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from runlmc_tpu_torch.hopper.kuu import kuu_dense
+from runlmc_tpu_torch.hopper.kuu import KUUDense
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.ops.interpolation import (
     Interp,
@@ -202,12 +203,13 @@ class GroupState:
 
 def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     """Evaluate the kernels on the grid and materialize K_UU through
-    kernel K1 (parity: grid.py:524-547, dense branch)."""
+    kernel K1 (parity: grid.py:524-547, dense branch); gradients reach
+    ``tops`` and ``B`` through K1's backward kernel."""
     tops = spec.eval_kernels_stacked(raw_params, gd.dists, gd.plan.kidxs)
     B = spec.coreg_mats(raw_params, gd.plan.kidxs)
     return GroupState(
         interp=gd.interp, W_blocks=gd.W_blocks,
-        KUU_dense=kuu_dense(tops, B, gd.plan.sizes),
+        KUU_dense=KUUDense.apply(tops, B, gd.plan.sizes),
     )
 
 

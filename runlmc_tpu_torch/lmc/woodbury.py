@@ -1,5 +1,5 @@
 """Direct Woodbury factorization of the dense-grid SKI covariance
-(parity: runlmc_tpu/lmc/woodbury.py:60-310, 363-412).
+(parity: runlmc_tpu/lmc/woodbury.py:60-412).
 
 With the grid kernel materialized (grid.py), write
 
@@ -14,9 +14,11 @@ and Woodbury gives a closed-form inverse and determinant:
 The capacitance assembly is plain large matmuls and the factorizations
 and triangular solves are ``torch.linalg.cholesky_ex`` and
 ``torch.cholesky_solve`` (cuBLAS / cuSOLVER on the card), as the JAX
-package leaves them to XLA. The float32 factor preconditions the
-prediction solves (:func:`woodbury_pcg`); the model-dtype factor is the
-escalation rung.
+package leaves them to XLA. Everything here is differentiable by
+torch autograd, which the exact training objective
+(likelihood.exact_ski_mll) runs through. The float32 factor
+preconditions the prediction solves (:func:`woodbury_pcg`); the
+model-dtype factor is the escalation rung.
 """
 
 from typing import NamedTuple, Tuple
@@ -26,22 +28,34 @@ import torch
 from runlmc_tpu_torch.lmc.grid import w_apply, wt_apply
 from runlmc_tpu_torch.ops.solvers import batched_cg
 
+# Default of chol_jittered's Jacobi equilibration (parity:
+# woodbury.py:57). ``equilibrate=None`` anywhere below means this value;
+# the model flips it only as a rescue rung.
+EQUILIBRATE_DEFAULT = True
 
-def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=True):
+
+def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
     """Cholesky of ``A + delta * diag-scale`` with escalating jitter and
     Jacobi equilibration (parity: woodbury.py:60-124).
 
     ``equilibrate=True`` factorizes S A S (S = diag(A)^-1/2) and returns
     the de-scaled factor S^-1 chol(S A S); the jitter is then relative to
     the unit diagonal. Otherwise the jitter is relative to
-    |mean(diag(A))|.
+    |mean(diag(A))|. ``None`` means ``EQUILIBRATE_DEFAULT``.
 
     Scale selection: the first scale whose factorization succeeds —
     ``cholesky_ex`` reports ``info == 0`` and the factor is finite — and
     otherwise the last scale. (The JAX package keeps the first scale
     whose factor is finite; XLA's Cholesky returns NaNs where LAPACK and
     cuSOLVER report ``info > 0``.) Reading ``info`` costs one host sync
-    per tried scale."""
+    per tried scale.
+
+    Differentiable: the returned factor is the one Cholesky at the
+    chosen scale; failed attempts are dropped, so none of them sends a
+    cotangent (the JAX package's rule, woodbury.py:78-87). The scale
+    ``s`` and the jitter's reference ``d`` stay in the graph, as there."""
+    if equilibrate is None:
+        equilibrate = EQUILIBRATE_DEFAULT
     eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
     if equilibrate:
         d0 = torch.diagonal(A)
@@ -108,7 +122,7 @@ class DeviceWoodbury(NamedTuple):
 
 def build_device_woodbury(
     groups, noise_eps, noise_n, wtw, jitter=(1e-6, 1e-4, 1e-2, 1e-1),
-    c_jitter=(0.0, 1e-6, 1e-3, 1e-1),
+    c_jitter=(0.0, 1e-6, 1e-3, 1e-1), equilibrate=None,
 ):
     """Factor the SKI covariance (parity: woodbury.py:208-310).
 
@@ -117,13 +131,15 @@ def build_device_woodbury(
     :param noise_n: (n,) per-data-point noise.
     :param wtw: per-group (D, m_g, m_g) stacked per-output grams.
     :param jitter: escalating relative jitter scales for the K_UU
-        Cholesky factors; ``c_jitter`` the same for C. Both factors are
-        Jacobi-equilibrated, the JAX package's default; its
-        flipped-equilibration rescue rung exists for emulated f64 on the
-        TPU and is not ported.
+        Cholesky factors; ``c_jitter`` the same for C.
+    :param equilibrate: Jacobi equilibration of both factorizations
+        (:func:`chol_jittered`); ``None`` means ``EQUILIBRATE_DEFAULT``.
+        The model flips it when a float32 factorization breaches and the
+        flipped one certifies (parity: woodbury.py:232-246).
     """
     dtype = noise_n.dtype
-    Fs = tuple(chol_jittered(g.KUU_dense, scales=jitter) for g in groups)
+    Fs = tuple(chol_jittered(g.KUU_dense, scales=jitter,
+                             equilibrate=equilibrate) for g in groups)
     inv_eps = (1.0 / noise_eps).to(dtype)
 
     def diag_block(F, G):
@@ -162,7 +178,7 @@ def build_device_woodbury(
                 rows[a][b] = rows[b][a].T
         C = torch.cat([torch.cat(r, dim=1) for r in rows], dim=0)
     C = C + torch.eye(C.shape[0], dtype=dtype, device=C.device)
-    L_C = chol_jittered(C, scales=c_jitter)
+    L_C = chol_jittered(C, scales=c_jitter, equilibrate=equilibrate)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L_C))) + torch.sum(
         torch.log(noise_n)
     )
@@ -170,6 +186,33 @@ def build_device_woodbury(
         Fs=Fs, L_C=L_C, noise_n=noise_n,
         W_blocks=tuple(g.W_blocks for g in groups), logdet=logdet,
     )
+
+
+def kinv_diag(wb: DeviceWoodbury):
+    """diag(K^-1) from the factorization (parity: woodbury.py:313-337):
+    [K^-1]_ii = 1/d_i - ||L_C^-1 V_i||^2 / d_i^2 with V = [W_g F_g]_g,
+    materialized once as an (n, k) matrix (K5's triangular solve)."""
+    parts = []
+    for blocks, F in zip(wb.W_blocks, wb.Fs):
+        m = blocks[0].shape[1]
+        parts.append(torch.cat(
+            [b @ F[d * m:(d + 1) * m] for d, b in enumerate(blocks)], dim=0
+        ))  # (n, k_g), rows in data order
+    V = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    T = torch.linalg.solve_triangular(wb.L_C, V.T, upper=False)
+    s = torch.sum(T * T, dim=0)
+    d = wb.noise_n
+    return 1.0 / d - s / (d * d)
+
+
+def loo_zsq(wb: DeviceWoodbury, y):
+    """Mean squared leave-one-out standardized residual of the factorized
+    GP, mean(alpha_i^2 / [K^-1]_ii) with alpha = K^-1 y (parity:
+    woodbury.py:340-360): about 1 for a calibrated fit, >> 1 for an
+    overconfident one."""
+    alpha = wb.solve(y)
+    diag = torch.clamp(kinv_diag(wb), min=torch.finfo(y.dtype).tiny)
+    return torch.mean(alpha * alpha / diag)
 
 
 def woodbury_precond(wb: DeviceWoodbury):

@@ -1,29 +1,37 @@
-"""InterpolatedLLGP — the SKI LMC multi-output GP, prediction path
-(parity: runlmc_tpu/models/interpolated_llgp.py).
+"""InterpolatedLLGP — the SKI LMC multi-output GP: exact-objective
+training and 'on-the-fly' prediction (parity:
+runlmc_tpu/models/interpolated_llgp.py).
 
-This slice of the port serves a model whose parameters were set — by
-``param_array``, carried across from a JAX model or set by hand — and
-predicts with the 'on-the-fly' variance method: one certified batched
-solve of K_SKI against [y; K_*X], preconditioned by a float32 Woodbury
-factor. Training (``optimize``) comes in the next slice.
+Training (:meth:`InterpolatedLLGP.optimize`) runs AdaDelta on the exact
+marginal likelihood of the factorized SKI model, differentiated by
+torch autograd through a direct Woodbury factorization built every
+step in float32 (or at the model dtype after an escalation). Steps run
+on the device in chunks of ``chunk_len``; the host replays the
+reference's stopping rule once per chunk. Prediction is one certified
+batched solve of K_SKI against [y; K_*X], preconditioned by a float32
+Woodbury factor.
 
 The device path runs the hand kernels of runlmc_tpu_torch/hopper/: K1
-builds each grid kernel K_UU, K7 the cross-covariance K_*X, K6 fuses
-the CG updates of the solve, and K9 interpolates the predictive mean.
+builds each grid kernel K_UU and its backward carries the gradient to
+the kernel and coregionalization parameters, K7 the cross-covariance
+K_*X, K6 fuses the CG updates of the solve, and K9 interpolates the
+predictive mean.
 """
 
 import logging
 import math
+import time
 
 import numpy as np
 import torch
 
+import runlmc_tpu_torch.lmc.woodbury as wbm
 from runlmc_tpu_torch.config import DEFAULT_DTYPE, resolve_device
 from runlmc_tpu_torch.lmc import likelihood as lk
 from runlmc_tpu_torch.lmc.grid import build_kski, make_grids, to_dense_f32
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
-from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury, woodbury_pcg
 from runlmc_tpu_torch.models.multigp import MultiGP
+from runlmc_tpu_torch.models.optimization import AdaDelta
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import (
     cast_params,
@@ -35,8 +43,30 @@ from runlmc_tpu_torch.utils.carry import (
 _LOG = logging.getLogger(__name__)
 
 # The calibrated f32-factorization residual threshold of the 'auto'
-# objective (runlmc_tpu/models/interpolated_llgp.py:64).
+# objective's probe and of the exact objective's in-training escalation
+# (runlmc_tpu/models/interpolated_llgp.py:64).
 EXACT_RESIDUAL_THRESHOLD = 0.25
+
+# The 'auto' objective's held-out-block validation guard
+# (interpolated_llgp.py:86-104): demote when the twin's held-out z^2 or
+# its zero-variance share exceeds these; the twin trains at most
+# VALIDATION_GUARD_MAX_IT steps on data with ~VALIDATION_HOLDOUT_FRAC
+# of each output held out in two contiguous blocks.
+VALIDATION_ZSQ_THRESHOLD = 50.0
+VALIDATION_ZEROVAR_THRESHOLD = 0.05
+VALIDATION_HOLDOUT_FRAC = 0.06
+VALIDATION_GUARD_MAX_IT = 60
+
+# Jitter ladders of the exact objective's float32 factorizations (parity:
+# interpolated_llgp.py:537-538)
+F32_JITTER = (1e-6, 1e-4, 1e-2)
+F32_C_JITTER = (0.0, 1e-6, 1e-3)
+
+STOCHASTIC_SLICE = (
+    "the stochastic training objective (Hutchinson trace-estimator "
+    "surrogate with MINRES solves) comes with slice 3 of the PyTorch "
+    "port; this slice trains with the exact objective only"
+)
 
 # Iteration budget of one certified-solve rung: the JAX package's 30
 # host-driven rounds of at most 100 iterations each
@@ -60,11 +90,21 @@ class InterpolatedLLGP(MultiGP):
         ``NotImplementedError`` (fft mode comes in a later slice)
     :param objective: 'auto' | 'exact' | 'stochastic' — the training
         objective. 'auto' probes the f32 Woodbury factorization residual
-        at the initial parameters and picks 'exact' when it certifies
-        below ``EXACT_RESIDUAL_THRESHOLD``.
+        at the initial parameters (and, on a breach, once more with the
+        Jacobi equilibration flipped) and picks 'exact' when it
+        certifies below ``EXACT_RESIDUAL_THRESHOLD``; an auto-selected
+        'exact' runs the held-out-block validation guard before its
+        first training. Training with 'stochastic' comes in slice 3.
+    :param exact_precision: 'f32' | 'model' — the dtype of the exact
+        objective's per-step factorization (training escalates 'f32' to
+        'model' on a residual breach)
+    :param metrics: per-step diagnostics against the exact dense
+        gradient; not ported yet (raises ``NotImplementedError``)
     :param device: ``None`` = the CUDA device (raises without one); pass
         ``"cpu"`` to run the kernels' plain PyTorch versions
     """
+
+    VALIDATION_GUARD_MAX_IT = VALIDATION_GUARD_MAX_IT
 
     def __init__(
         self,
@@ -75,6 +115,7 @@ class InterpolatedLLGP(MultiGP):
         hi=None,
         m=None,
         name="lmc",
+        metrics=False,
         prediction="on-the-fly",
         tolerance=1e-4,
         functional_kernel=None,
@@ -82,12 +123,28 @@ class InterpolatedLLGP(MultiGP):
         dtype=None,
         grid_mode="auto",
         objective="auto",
+        exact_precision="f32",
         device=None,
     ):
         self.device = resolve_device(device)
         super().__init__(Xs, Ys, normalize=normalize, name=name)
         if functional_kernel is None:
             raise ValueError("functional_kernel must be provided")
+        # raw observations and constructor arguments: the validation
+        # guard builds a twin model on block-held-out data
+        self._raw_Ys = [np.asarray(Y, dtype=float) for Y in Ys]
+        self._ctor = dict(
+            normalize=normalize, lo=lo, hi=hi, m=m, tolerance=tolerance,
+            seed=seed, dtype=dtype, grid_mode=grid_mode,
+            exact_precision=exact_precision,
+            functional_kernel=functional_kernel, device=device,
+        )
+        if metrics:
+            raise NotImplementedError(
+                "metrics=True needs exact_mll's gradient through kernel "
+                "K7's backward, which is queued for slice 4 of the "
+                "PyTorch port"
+            )
         if prediction != "on-the-fly":
             raise NotImplementedError(
                 "prediction=%r: the 'exact' and 'precompute' variance "
@@ -95,12 +152,16 @@ class InterpolatedLLGP(MultiGP):
             )
         if objective not in ("auto", "exact", "stochastic"):
             raise ValueError("unknown objective %r" % (objective,))
+        if exact_precision not in ("f32", "model"):
+            raise ValueError("unknown exact_precision %r" % (exact_precision,))
         self.prediction = prediction
         self.spec: LMCKernelSpec = functional_kernel.with_input_dim(
             self.input_dim
         )
         self.dtype = dtype or DEFAULT_DTYPE
         self.tolerance = float(tolerance)
+        # optimizer steps per device chunk (interpolated_llgp.py:207-213)
+        self.chunk_len = 10
 
         dev = self.device
         self.data = lk.flatten_data(self.Xs, self.Ys)
@@ -127,14 +188,35 @@ class InterpolatedLLGP(MultiGP):
         self.n_params = int(ravel_params(self.params).numel())
 
         self.objective = objective
+        # 'f32': the per-step factorization runs in float32; 'model': at
+        # the model dtype with tight jitter (small-noise regimes)
+        self.exact_precision = exact_precision
+        # Jacobi-equilibration mode of the Woodbury factorizations (None
+        # = woodbury.EQUILIBRATE_DEFAULT); flipped at most once, as a
+        # rescue rung, when the float32 factorization breaches and the
+        # flipped one certifies (interpolated_llgp.py:366-381)
+        self._equilibrate = None
+        self._equilibrate_flip_tried = False
+        self._auto_exact_guard = False
         if objective == "auto":
-            res = float(lk.f32_factorization_residual(
-                self.spec, self.params, self.grid_data32, self.data.lens,
-                self.y,
-            ))
+            res = self._probe_residual(self.params, None)
+            if res > EXACT_RESIDUAL_THRESHOLD:
+                flipped = not wbm.EQUILIBRATE_DEFAULT
+                res_flip = self._probe_residual(self.params, flipped)
+                if res_flip <= EXACT_RESIDUAL_THRESHOLD:
+                    _LOG.info(
+                        "objective='auto': default-equilibration probe "
+                        "residual %.2e breaches but the flipped mode "
+                        "certifies at %.2e — using exact with "
+                        "equilibrate=%s", res, res_flip, flipped,
+                    )
+                    self._equilibrate = flipped
+                    self._equilibrate_flip_tried = True
+                    res = res_flip
             self.objective = (
                 "exact" if res <= EXACT_RESIDUAL_THRESHOLD else "stochastic"
             )
+            self._auto_exact_guard = self.objective == "exact"
             _LOG.info(
                 "objective='auto': f32 factorization probe residual %.2e "
                 "(threshold %g) -> %s objective",
@@ -166,6 +248,15 @@ class InterpolatedLLGP(MultiGP):
         flat = torch.tensor(np.asarray(x), dtype=self.dtype)
         self.set_params(unravel_params(flat, self.params))
 
+    def _probe_residual(self, params, equilibrate):
+        """The float32 factorization residual at ``params``; NaN reads as
+        a breach."""
+        res = float(lk.f32_factorization_residual(
+            self.spec, params, self.grid_data32, self.data.lens, self.y,
+            equilibrate=equilibrate,
+        ))
+        return res if math.isfinite(res) else float("inf")
+
     # ----------------------------------------------------------- operators
 
     def _kski(self):
@@ -193,9 +284,10 @@ class InterpolatedLLGP(MultiGP):
             noise32 = self.spec.noise(
                 cast_params(self.params, torch.float32)
             )
-            self._cache["woodbury32"] = build_device_woodbury(
+            self._cache["woodbury32"] = wbm.build_device_woodbury(
                 K32.groups, noise32, K32.noise_n,
                 tuple(gd.WtW for gd in self.grid_data32),
+                equilibrate=self._equilibrate,
             )
         return self._cache["woodbury32"]
 
@@ -204,14 +296,12 @@ class InterpolatedLLGP(MultiGP):
         rung (parity: interpolated_llgp.py:706-729)."""
         if "woodbury" not in self._cache:
             K = self._kski()
-            if self.dtype == torch.float64:
-                tight, c_tight = (1e-12, 1e-9, 1e-6), (0.0, 1e-12, 1e-9)
-            else:
-                tight, c_tight = (1e-6, 1e-4, 1e-2), (0.0, 1e-6, 1e-3)
-            self._cache["woodbury"] = build_device_woodbury(
+            tight, c_tight = self._model_ladders()
+            self._cache["woodbury"] = wbm.build_device_woodbury(
                 K.groups, self.spec.noise(self.params), K.noise_n,
                 tuple(gd.WtW for gd in self.grid_data),
                 jitter=tight, c_jitter=c_tight,
+                equilibrate=self._equilibrate,
             )
         return self._cache["woodbury"]
 
@@ -239,8 +329,9 @@ class InterpolatedLLGP(MultiGP):
             # NaN compares False vs thresholds: treat as a breach
             return w if math.isfinite(w) else float("inf")
 
-        res = woodbury_pcg(K.matvec, self._woodbury32(), rhs, tol=tol,
-                           maxiter=budget, inner_matvec=self._kski32().matvec)
+        res = wbm.woodbury_pcg(K.matvec, self._woodbury32(), rhs, tol=tol,
+                               maxiter=budget,
+                               inner_matvec=self._kski32().matvec)
         x, worst = res.x, _worst(res)
         iters = int(torch.max(res.iterations))
         escalated = worst > tol
@@ -250,8 +341,8 @@ class InterpolatedLLGP(MultiGP):
                 "(tolerance %g) — escalating to the model-dtype "
                 "factorization", what, worst, tol,
             )
-            res2 = woodbury_pcg(K.matvec, self._woodbury(), rhs, tol=tol,
-                                maxiter=budget)
+            res2 = wbm.woodbury_pcg(K.matvec, self._woodbury(), rhs,
+                                    tol=tol, maxiter=budget)
             w2 = _worst(res2)
             iters += int(torch.max(res2.iterations))
             if w2 <= worst:
@@ -274,6 +365,253 @@ class InterpolatedLLGP(MultiGP):
             sols, _ = self._solve_certified(self.y[None], "alpha")
             self._cache["alpha"] = sols[0]
         return self._cache["alpha"]
+
+    # ------------------------------------------------------------ training
+
+    def _model_ladders(self):
+        """(K_UU jitter, C jitter) of a model-dtype factorization (parity:
+        interpolated_llgp.py:541-546, 711-720)."""
+        if self.dtype == torch.float64:
+            return (1e-12, 1e-9, 1e-6), (0.0, 1e-12, 1e-9)
+        return F32_JITTER, F32_C_JITTER
+
+    def _exact_ladders(self):
+        """(compute dtype, grid data, K_UU jitter, C jitter) of the exact
+        objective's factorization (parity: interpolated_llgp.py:535-546)."""
+        if self.exact_precision == "f32":
+            return torch.float32, self.grid_data32, F32_JITTER, F32_C_JITTER
+        return (self.dtype, self.grid_data) + self._model_ladders()
+
+    def _exact_grad(self, x_flat):
+        """Gradient of the negative exact MLL at the flat parameters
+        ``x_flat`` (a model-dtype tensor on the device), in
+        ``ravel_params`` order and the model dtype, with the objective's
+        detached aux (parity: interpolated_llgp.py:525-566). Autograd runs
+        through the per-step Woodbury factorization and K1's backward."""
+        cdtype, gd, jitter, c_jitter = self._exact_ladders()
+        with torch.enable_grad():
+            xc = x_flat.detach().to(cdtype).requires_grad_(True)
+            params = unravel_params(xc, cast_params(self.params, cdtype))
+            mll, aux = lk.exact_ski_mll(
+                self.spec, params, gd, self.data.lens, self.y.to(cdtype),
+                jitter=jitter, c_jitter=c_jitter,
+                equilibrate=self._equilibrate,
+            )
+            (g,) = torch.autograd.grad(-mll, xc)
+        return g.to(x_flat.dtype), aux
+
+    def _chunk(self, x0, gms0, sms0, stp0, optimizer, n_steps=None):
+        """``n_steps`` (default ``chunk_len``) AdaDelta iterations on the
+        device from the host state ``(x0, gms0, sms0, stp0)`` (parity:
+        interpolated_llgp.py:656-703): the gradient, the climin-style
+        update at the model dtype and the per-step gradient norms stay
+        on the device, and the stacked per-step outputs
+        ``(xs, gmss, smss, steps, grad_norms, solve_errors)`` cross to
+        the host once, as numpy. A Python loop: the host reads of each
+        Cholesky's ``info`` (woodbury.chol_jittered) rule out capturing
+        it as one CUDA graph for now."""
+        dev, dt = self.device, self.dtype
+        hp = torch.tensor(
+            [optimizer.step_rate, optimizer.decay, optimizer.momentum,
+             optimizer.offset], dtype=dt, device=dev,
+        )
+        step_rate, decay, momentum, offset = hp
+        x, gms, sms, stp = (torch.as_tensor(np.asarray(a), dtype=dt,
+                                            device=dev)
+                            for a in (x0, gms0, sms0, stp0))
+        outs = []
+        for _ in range(self.chunk_len if n_steps is None else n_steps):
+            step1 = stp * momentum
+            x1 = x - step1
+            g, aux = self._exact_grad(x1)
+            gms = decay * gms + (1.0 - decay) * g * g
+            step2 = (torch.sqrt(sms + offset) / torch.sqrt(gms + offset)
+                     * g * step_rate)
+            x = x1 - step2
+            stp = step1 + step2
+            sms = decay * sms + (1.0 - decay) * stp * stp
+            outs.append((x, gms, sms, stp, torch.max(torch.abs(g)),
+                         aux.solve_error.to(dt)))
+        return tuple(torch.stack(col).cpu().numpy() for col in zip(*outs))
+
+    def optimize(self, optimizer=None, state=None, **kwargs):
+        """Train the parameters with an :class:`AdaDelta` (extra kwargs
+        construct the default one) on the exact objective (parity:
+        interpolated_llgp.py:930-1456, exact branches).
+
+        An auto-selected exact objective first runs the held-out-block
+        validation guard. Steps run on the device in chunks
+        (:meth:`_chunk`) and the host replays the stopping rule
+        (``AdaDelta.minimize_chunked``). A chunk whose worst factorized
+        solve residual exceeds ``EXACT_RESIDUAL_THRESHOLD`` escalates
+        the remaining steps: float32 factorizations to the model dtype
+        where that is float64, then, on a further breach, the Jacobi
+        equilibration flip if the flipped float32 probe certifies. Where
+        the JAX package would demote to the stochastic objective, this
+        raises ``NotImplementedError`` (slice 3).
+
+        ``state``: an earlier ``info['state']`` to resume from; an
+        ``rng_key`` in it is ignored (the exact objective draws no
+        probes). Returns the info dict of the optimizer plus
+        ``device_seconds``, ``device_steps``, ``mean_solve_iters``,
+        ``max_solve_error`` and ``rescued_chunks``."""
+        if optimizer is None:
+            optimizer = AdaDelta(**kwargs)
+        if self.objective != "exact":
+            raise NotImplementedError(STOCHASTIC_SLICE)
+        if self._auto_exact_guard and state is None:
+            self._auto_exact_guard = False  # run once
+            t0 = time.time()
+            z2v, zfrac = self._validate_exact_objective(optimizer)
+            _LOG.info(
+                "objective='auto': held-out-block validation guard took "
+                "%.1fs (one capped twin training run)", time.time() - t0,
+            )
+            if (z2v > VALIDATION_ZSQ_THRESHOLD
+                    or zfrac > VALIDATION_ZEROVAR_THRESHOLD):
+                raise NotImplementedError(
+                    "objective='auto': the exact objective fails the "
+                    "held-out-block calibration check (z^2 %.3g > %g or "
+                    "zero-variance fraction %.2f > %g), where the JAX "
+                    "package demotes to the stochastic objective; %s"
+                    % (z2v, VALIDATION_ZSQ_THRESHOLD, zfrac,
+                       VALIDATION_ZEROVAR_THRESHOLD, STOCHASTIC_SLICE)
+                )
+            _LOG.info(
+                "objective='auto': exact objective validates on held-out "
+                "blocks (z^2 %.3g, zero-var %.2f)", z2v, zfrac,
+            )
+
+        stats = {"steps": 0, "seconds": 0.0, "errors": []}
+
+        def run_chunk(x, gms, sms, step, start_iter):
+            del start_iter  # the exact objective draws no probes
+            t0 = time.time()
+            xs, gmss, smss, steps, gns, errs = self._chunk(
+                x, gms, sms, step, optimizer)
+            stats["seconds"] += time.time() - t0
+            stats["steps"] += len(gns)
+            stats["errors"].extend(np.asarray(errs, float))
+            worst = float(np.max(errs))
+            if not math.isfinite(worst):
+                worst = float("inf")  # NaN residual: a breach
+            if worst > EXACT_RESIDUAL_THRESHOLD:
+                self._escalate(worst, xs[-1])
+            return xs, gmss, smss, steps, gns
+
+        x_opt, info = optimizer.minimize_chunked(self.param_array, run_chunk,
+                                                 state=state)
+        info["device_seconds"] = stats["seconds"]
+        info["device_steps"] = stats["steps"]
+        info["mean_solve_iters"] = 0.0  # direct solves
+        info["max_solve_error"] = float(np.max(stats["errors"]))
+        info["rescued_chunks"] = 0
+        _LOG.info(
+            "optimize: %d device steps in %.2fs (%.1f ms/step; worst "
+            "residual %.2e)", stats["steps"], stats["seconds"],
+            1e3 * stats["seconds"] / max(stats["steps"], 1),
+            info["max_solve_error"],
+        )
+        self.param_array = x_opt
+        return info
+
+    def _escalate(self, worst, x_last):
+        """The exact objective's escalation ladder after a chunk whose
+        worst residual ``worst`` breached, at the chunk's last
+        parameters ``x_last`` (parity: interpolated_llgp.py:1296-1412)."""
+        if self.exact_precision == "f32" and self.dtype == torch.float64:
+            # float64 is native on the card: factorize at the model dtype
+            _LOG.warning(
+                "exact-objective residual %e exceeded the calibrated %g "
+                "threshold — escalating training to "
+                "exact_precision='model' for the remaining steps",
+                worst, EXACT_RESIDUAL_THRESHOLD,
+            )
+            self.exact_precision = "model"
+            return
+        if not self._equilibrate_flip_tried:
+            self._equilibrate_flip_tried = True
+            cur = (self._equilibrate if self._equilibrate is not None
+                   else wbm.EQUILIBRATE_DEFAULT)
+            x = torch.as_tensor(np.asarray(x_last), dtype=self.dtype)
+            res_flip = self._probe_residual(
+                unravel_params(x, self.params), not cur)
+            if res_flip <= EXACT_RESIDUAL_THRESHOLD:
+                _LOG.warning(
+                    "exact-objective residual %e exceeded the calibrated "
+                    "%g threshold, but the equilibration-flipped "
+                    "factorization certifies at %e — flipping equilibrate "
+                    "to %s and keeping the exact objective",
+                    worst, EXACT_RESIDUAL_THRESHOLD, res_flip, not cur,
+                )
+                self._equilibrate = not cur
+                self._bump()
+                return
+        raise NotImplementedError(
+            "exact-objective residual %e exceeded the calibrated %g "
+            "threshold with exact_precision=%r and no certifying "
+            "equilibration flip, where the JAX package switches to the "
+            "stochastic objective; %s"
+            % (worst, EXACT_RESIDUAL_THRESHOLD, self.exact_precision,
+               STOCHASTIC_SLICE)
+        )
+
+    def _validation_split(self):
+        """Per-output train/validation split with two CONTIGUOUS held-out
+        blocks per output, at the 1/3 and 2/3 positions, about
+        ``VALIDATION_HOLDOUT_FRAC`` of the points (parity:
+        interpolated_llgp.py:1458-1477)."""
+        Xs_tr, Ys_tr, Xs_va, Ys_va = [], [], [], []
+        for X, Y in zip(self.Xs, self._raw_Ys):
+            n_i = len(X)
+            blk = max(1, int(n_i * VALIDATION_HOLDOUT_FRAC / 2))
+            mask = np.ones(n_i, dtype=bool)
+            for pos in (n_i // 3, (2 * n_i) // 3):
+                mask[pos:pos + blk] = False
+            Xs_tr.append(np.asarray(X)[mask])
+            Ys_tr.append(Y[mask])
+            Xs_va.append(np.asarray(X)[~mask])
+            Ys_va.append(Y[~mask])
+        return Xs_tr, Ys_tr, Xs_va, Ys_va
+
+    def _validate_exact_objective(self, optimizer):
+        """Train a twin with the exact objective on the block-reduced
+        data, with the main run's AdaDelta settings capped at
+        ``VALIDATION_GUARD_MAX_IT`` steps, and predict the held-out
+        blocks. Returns ``(z2, zero_var_frac)``: the mean standardized
+        squared error (about 1 when calibrated) and the share of
+        held-out variances clamped to zero (parity:
+        interpolated_llgp.py:1479-1526)."""
+        Xs_tr, Ys_tr, Xs_va, Ys_va = self._validation_split()
+        twin = InterpolatedLLGP(Xs_tr, Ys_tr, objective="exact",
+                                name=self.name + "-guard", **self._ctor)
+        twin.optimize(optimizer=AdaDelta(
+            step_rate=optimizer.step_rate, decay=optimizer.decay,
+            momentum=optimizer.momentum, offset=optimizer.offset,
+            max_it=min(optimizer.max_it, self.VALIDATION_GUARD_MAX_IT),
+            min_grad_ratio=optimizer.min_grad_ratio,
+            permitted_drops=optimizer.permitted_drops,
+        ))
+        mus, vs = twin.predict(Xs_va)
+        z2s, n_zero, n_tot = [], 0, 0
+        for mu, v, yv in zip(mus, vs, Ys_va):
+            n_tot += len(v)
+            zero = v <= 0
+            n_zero += int(zero.sum())
+            ok = ~zero
+            if ok.any():
+                z2s.append(((yv[ok] - mu[ok]) ** 2) / v[ok])
+        z2 = float(np.mean(np.concatenate(z2s))) if z2s else float("inf")
+        return z2, n_zero / max(n_tot, 1)
+
+    def loo_zsq(self):
+        """Mean squared leave-one-out standardized residual of the
+        current fit (about 1 when calibrated; woodbury.loo_zsq), from the
+        model-dtype factorization where the model is float64 and the
+        float32 one otherwise (parity: interpolated_llgp.py:1528-1543)."""
+        wb = (self._woodbury() if self.dtype == torch.float64
+              else self._woodbury32())
+        return float(wbm.loo_zsq(wb, self.y.to(wb.dtype)))
 
     # ---------------------------------------------------------- prediction
 

@@ -112,6 +112,49 @@ def test_cg_passes(dev, dtype):
     assert torch.equal(k[4], q[4]) and torch.equal(k[5], q[5])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes", [(37,), (6, 7), (3, 4, 5)])
+def test_kuu_dense_bwd(dev, dtype, sizes):
+    g = torch.Generator().manual_seed(4)
+    m = int(np.prod(sizes))
+    tops = torch.rand(2, m, generator=g, dtype=dtype).to(dev)
+    B = torch.randn(2, 3, 3, generator=g, dtype=dtype).to(dev)
+    G = torch.randn(3 * m, 3 * m, generator=g, dtype=dtype).to(dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = dict(kuu.kuu_dense_bwd.launches)
+    got = kuu.kuu_dense_bwd(tops, B, sizes, G)
+    before[sfx] += 1
+    assert kuu.kuu_dense_bwd.launches == before
+    for a, b in zip(got, kuu.kuu_dense_bwd_plain(tops, B, sizes, G)):
+        _close(a, b, dtype)
+
+
+def test_training_chunk_matches_cpu(dev):
+    """Two exact-objective steps at the model dtype on the card and on
+    the CPU from the same parameters; the float64 forward and backward
+    K1 kernels launch."""
+    rng = np.random.RandomState(1)
+    Xs = [np.sort(rng.uniform(0, 5, 40)) for _ in range(2)]
+    Ys = [np.sin(X) + 0.1 * rng.randn(40) for X in Xs]
+    spec = T.LMCKernelSpec.create(D=2, lmc_kernels=[T.RBF()], lmc_ranks=[1])
+    kw = dict(functional_kernel=spec, m=[20], objective="exact",
+              exact_precision="model")
+    mg = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    mc = T.InterpolatedLLGP(Xs, Ys, device="cpu", **kw)
+    x0 = mc.param_array + 0.1 * np.cos(np.arange(mc.n_params))
+    z = np.zeros_like(x0)
+    opt = T.AdaDelta()
+    hopper.reset_launches()
+    out_g = mg._chunk(x0, z, z, z, opt, n_steps=2)
+    counts = hopper.launch_counts()
+    for name in hopper.MODEL_PRECISION_PATH:
+        assert counts[name] > 0, name
+    out_c = mc._chunk(x0, z, z, z, opt, n_steps=2)
+    for a, b in zip(out_g, out_c):
+        np.testing.assert_allclose(a, b, rtol=1e-8,
+                                   atol=1e-10 * max(np.abs(b).max(), 1.0))
+
+
 def test_model_predict_launches_every_kernel(dev):
     rng = np.random.RandomState(0)
     Xs = [np.sort(rng.uniform(0, 5, 40)) for _ in range(2)]
