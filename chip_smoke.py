@@ -18,7 +18,16 @@ Phases:
    times (CUDA events and profiler device time), the library call's time
    where one PyTorch call computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the peak
-   rate);
+   rate); then build the fft-mode model of slice 3 — ``InterpolatedLLGP``
+   on a weather-shaped synthetic problem (D=4 sensors, n=15768, SLFM
+   rank 2 plus a frozen-scale RBF per sensor, m=[2500] -> 2504 grid
+   points, Dm=10016 past ``DENSE_MAX_GRID``, one 'slfm' fft group whose
+   float32 preconditioner twin keeps the fine grid) with
+   ``objective='stochastic'``, print its groups and the device memory of
+   its grid artifacts, and hold K10 (float64 and float32 'slfm' at
+   (16, 4, 4097) on the model's own symbols; 'sum' and 'bt' at a small
+   shape), K10's backward (float64) and K12 (float64, (16, 15768))
+   against their plain versions;
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -47,7 +56,24 @@ Phases:
    within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
    (counters reset and read: ``hopper.MODEL_PRECISION_PATH`` must have
    launched) agrees within ``MODEL_RTOL``;
-9. print the kernel table as one JSON line (each row's ``launches``
+9. stochastic training of the weather model: counters reset,
+   ``optimize(AdaDelta())`` to its stopping rule, counters read: every
+   kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
+   and parameters finite, the objective still stochastic and the worst
+   solve residual within ``_gradient_adopt_bound``; one chunk profiled;
+10. ``predict`` the two held-out windows: every certified residual
+   within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
+   (SMSE and NLPD printed, on synthetic data);
+11. the certified solve's plain float64 MINRES rung on its own (16
+   right-hand sides): ``hopper.MINRES_PATH`` must have launched; then
+   one rung-1 rescue step (plain MINRES in ``_chunk``) must be finite;
+12. one stochastic chunk of the same data on weather's headline dense
+   grid (m=[500], Dm=2016): ``hopper.DENSE_STOCHASTIC_PATH`` launched;
+13. card vs CPU on the reduced problem of bench.py:146 (every 20th
+   point, m=[64], fft mode, tolerance 1e-10, the same fed probes): the
+   first gradient and one 3-step chunk's parameters within
+   ``STOCH_RTOL``;
+14. print the kernel table as one JSON line (each row's ``launches``
    counted on its own path, named in ``path``), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +111,29 @@ MODEL_RTOL = 1e-8
 CPU_CHUNK_STEPS = 3
 # the benchmark's optimizer settings for fx2007 (bench.py:74-75)
 OPT_KW = {"min_grad_ratio": 0.2}
+# the weather configuration past the dense cap (bench.py:78-111 at
+# m=2500, benchmarks/profile_m2500.py): the grid, and the headline
+# dense-mode grid of the dense stochastic phase
+WEATHER_M = [2500]
+WEATHER_DENSE_M = [500]
+# card vs CPU of stochastic training on the reduced weather problem of
+# bench.py:146 (every 20th point, m=[64], fft mode) at tolerance
+# STOCH_TOL: the solves certify to that absolute residual on both sides,
+# so the gradients and parameters agree to far below it
+STOCH_SUBSAMPLE = 20
+STOCH_M = [64]
+STOCH_TOL = 1e-10
+STOCH_RTOL = 1e-6
+
+
+def weather_spec(T, D):
+    """The weather configuration's kernel (bench.py:84-94): SLFM rank 2
+    plus a frozen-scale RBF per output."""
+    return T.LMCKernelSpec.create(
+        D=D, slfm_kernels=[T.RBF(name="slfm0"), T.RBF(name="slfm1")],
+        indep_gp=[T.Scaled(inner=T.RBF(name="rbf%d" % i),
+                           trainable_scale=False) for i in range(D)],
+    )
 
 
 def require(cond, msg):
@@ -155,6 +204,10 @@ def device_profile(fn, reps=1):
 # cuSOLVER kernel names (cuSOLVER's Cholesky also launches GEMMs, which
 # count under K2/K4)
 LAYERS = (
+    ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
+    ("K10", lambda k: "fourier_fwd_kernel" in k),
+    ("K12", lambda k: k == "minres_kernel"),
+    ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
     ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k),
     ("K1", lambda k: "kuu_dense_kernel" in k),
     ("K7", lambda k: "cross_kernel_kernel" in k),
@@ -229,10 +282,14 @@ def main():
 
     import runlmc_tpu_torch as T
     from runlmc_tpu_torch import config, hopper
-    from runlmc_tpu_torch.datasets import fx2007_synthetic
+    from runlmc_tpu_torch.datasets import fx2007_synthetic, weather_synthetic
     from runlmc_tpu_torch.hopper import build, cg, cross, interp, kuu
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
-    from runlmc_tpu_torch.models.interpolated_llgp import RUNG_MAXITER
+    from runlmc_tpu_torch.models.interpolated_llgp import (
+        KRYLOV_CYCLE,
+        RUNG_MAXITER,
+    )
+    from runlmc_tpu_torch.ops.solvers import batched_minres
     from runlmc_tpu_torch.ops.bttb import bttb_index_map
     from runlmc_tpu_torch.utils.carry import cast_params, from_reference_params
     from runlmc_tpu_torch.utils.evaluation import nlpd, smse
@@ -501,6 +558,125 @@ def main():
                                             pAp_k, rn_k, tol),
                nbytes(rk, z, p) + nbytes(p), 4.0 * p.numel())
 
+    # the fft-mode model of slice 3: weather-shaped, m=2500 (fft grid of
+    # 2504 points, Dm=10016 past DENSE_MAX_GRID), stochastic objective
+    wx, wy, wtx, wty, _ = weather_synthetic(SEED)
+    wspec = weather_spec(T, len(wx))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    wm = T.InterpolatedLLGP(wx, wy, functional_kernel=wspec, m=WEATHER_M,
+                            objective="stochastic", seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wbuild_s = time.time() - t0
+    wmem_mb = (torch.cuda.memory_allocated() - mem0) / 1e6
+    wgroups = [{"mode": g.plan.mode, "rep": g.plan.rep,
+                "sizes": list(g.plan.sizes), "Dm": g.interp.ncols,
+                "W_blocks": g.W_blocks is not None}
+               for g in wm.grid_data]
+    wtwin = [list(g.plan.sizes) for g in wm.precond_data32]
+    print("weather model: n=%d, groups %s, preconditioner twin sizes %s, "
+          "objective %s, built in %.2f s, grid artifacts %.1f MB on the card"
+          % (len(wm.data.y), json.dumps(wgroups), wtwin, wm.objective,
+             wbuild_s, wmem_mb), flush=True)
+    require(all(g["mode"] == "fft" and g["rep"] == "slfm" for g in wgroups),
+            "the weather model's grid is not an fft 'slfm' group")
+    require(wm.objective == "stochastic", "weather objective")
+
+    # K10 at the weather shapes: the model's own 'slfm' symbols (float64
+    # operator and float32 inner twin) on 16 seeded operand spectra
+    from runlmc_tpu_torch.hopper import fourier, minres
+
+    wgs = {torch.float64: wm._kski().groups[0],
+           torch.float32: wm._kski32().groups[0]}
+    nrhs = wm.n_probes + 1
+    cplx = {torch.float64: torch.complex128, torch.float32: torch.complex64}
+    for dtype in (torch.float64, torch.float32):
+        gs = wgs[dtype]
+        Dw, Fw = gs.diag_That.shape
+        R = gs.That_rep.shape[0]
+        vf = randn(nrhs, Dw, Fw, dtype=cplx[dtype])
+        kargs = ("slfm", vf, gs.A, gs.That_rep, gs.diag_That)
+        out = fourier.fourier_contract(*kargs)
+        want = fourier.fourier_contract_plain(*kargs)
+        record("fourier_contract", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/fourier.cu",
+               "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(out),
+               torch.view_as_real(want),
+               1e-12 if dtype == torch.float64 else 1e-5,
+               lambda kargs=kargs: fourier.fourier_contract(*kargs),
+               lambda kargs=kargs: fourier.fourier_contract_plain(*kargs),
+               nbytes(vf, out, gs.A, gs.That_rep, gs.diag_That),
+               (8.0 * Dw * R + 6.0 * R + 8.0 * Dw) * nrhs * Fw)
+    # 'sum' and 'bt' at a small shape, both dtypes
+    for dtype in (torch.float64, torch.float32):
+        vs = randn(5, 3, 257, dtype=cplx[dtype])
+        for rep, rargs in (
+                ("sum", (randn(2, 3, 3, dtype=dtype),
+                         randn(2, 257, dtype=cplx[dtype]), None)),
+                ("bt", (None, randn(3, 3, 257, dtype=cplx[dtype]), None))):
+            err = errors(torch.view_as_real(
+                fourier.fourier_contract(rep, vs, *rargs)),
+                torch.view_as_real(
+                    fourier.fourier_contract_plain(rep, vs, *rargs)))[1]
+            print("kernel fourier_contract %s %s (5, 3, 257): rel err %.3e"
+                  % (rep, str(dtype).replace("torch.", ""), err), flush=True)
+            require(err <= (1e-12 if dtype == torch.float64 else 1e-5),
+                    "fourier_contract %s disagrees" % rep)
+    # K10 backward at float64: the surrogate's gradient; the library
+    # route is one batched complex GEMM over the frequencies
+    gs = wgs[torch.float64]
+    Dw, Fw = gs.diag_That.shape
+    vf = randn(nrhs, Dw, Fw, dtype=torch.complex128)
+    Gc = randn(nrhs, Dw, Fw, dtype=torch.complex128)
+    got = fourier.fourier_contract_bwd(Gc, vf)
+    want = fourier.fourier_contract_bwd_plain(Gc, vf)
+    Gp, vp = Gc.permute(2, 1, 0), vf.conj().permute(2, 0, 1)
+
+    def library_bwd():
+        return torch.matmul(Gp, vp)
+
+    require(errors(torch.view_as_real(library_bwd().permute(1, 2, 0)),
+                   torch.view_as_real(want))[1] <= 1e-12,
+            "the batched-GEMM route disagrees with the plain K10 backward")
+    record("fourier_contract_bwd", torch.float64, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/fourier.cu",
+           "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(got),
+           torch.view_as_real(want), 1e-12,
+           lambda: fourier.fourier_contract_bwd(Gc, vf),
+           lambda: fourier.fourier_contract_bwd_plain(Gc, vf),
+           nbytes(Gc, vf, got), 8.0 * nrhs * Dw * Dw * Fw,
+           library_fn=library_bwd)
+    del vf, Gc, got, want, Gp, vp
+
+    # K12: one MINRES iteration's update of a (16, n) float64 state, as
+    # on the plain-MINRES rung of the weather model's certified solve
+    wn = len(wm.data.y)
+    mvecs = [randn(nrhs, wn) for _ in range(6)]
+    mscal = [torch.rand(nrhs, generator=gen, dtype=torch.float64).to(dev)
+             + 0.1 for _ in range(6)]
+    mact = (torch.rand(nrhs, generator=gen) < 0.8).to(dev, torch.int32)
+    mtol = torch.full((1,), 1e-8, dtype=torch.float64, device=dev)
+
+    def mstate():
+        return ([t.clone() for t in mvecs + mscal]
+                + [mact.clone(), torch.zeros_like(mact)])
+
+    mk, mp_ = mstate(), mstate()
+    minres.minres_update(*mk, mtol)
+    minres.minres_update_plain(*mp_, mtol)
+    torch.cuda.synchronize()
+    require(torch.equal(mk[12], mp_[12]) and torch.equal(mk[13], mp_[13]),
+            "minres_update masks disagree")
+    ms_k, ms_p = mstate(), mstate()
+    record("minres_update", torch.float64, "triton",
+           "runlmc_tpu_torch/hopper/triton_minres.py",
+           "runlmc_tpu/ops/solvers.py:96", mk[1:12], mp_[1:12], 1e-12,
+           lambda: minres.minres_update(*ms_k, mtol),
+           lambda: minres.minres_update_plain(*ms_p, mtol),
+           11 * nbytes(mvecs[0]), 19.0 * mvecs[0].numel())
+    del mvecs, mk, mp_, ms_k, ms_p
+
     # ------------------------------------------------------------ phase 4
     model.param_array = params  # fresh caches: the run builds everything
     hopper.reset_launches()
@@ -751,10 +927,190 @@ def main():
             "card and CPU model-precision training disagree")
 
     # ------------------------------------------------------------ phase 9
+    # stochastic training of the weather fft model to its stopping rule
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    winfo = wm.optimize(T.AdaDelta())
+    torch.cuda.synchronize()
+    wtrain_s = time.time() - t0
+    st_launches = hopper.launch_counts()
+    wstep_ms = 1e3 * winfo["device_seconds"] / winfo["device_steps"]
+    adopt = wm._gradient_adopt_bound
+    print("train (stochastic objective, fft, AdaDelta defaults): n_iter %d "
+          "(%d device steps), %.3f s wall, %.3f ms per step, mean solve "
+          "iters %.2f, max solve error %.3e (adopt bound %.3g), rescued "
+          "chunks %d, launches %s"
+          % (winfo["n_iter"], winfo["device_steps"], wtrain_s, wstep_ms,
+             winfo["mean_solve_iters"], winfo["max_solve_error"], adopt,
+             winfo["rescued_chunks"], json.dumps(st_launches)), flush=True)
+    for name in hopper.STOCHASTIC_PATH:
+        require(st_launches[name] > 0,
+                "kernel %s never launched in stochastic training" % name)
+    require(np.all(np.isfinite(winfo["grad_norms"])), "non-finite gradients")
+    require(np.all(np.isfinite(wm.param_array)), "non-finite parameters")
+    require(wm.objective == "stochastic", "training left the stochastic "
+            "objective")
+    require(winfo["max_solve_error"] <= adopt, "training solves above the "
+            "adopt bound")
+    wx_now = wm.param_array
+    wz = np.zeros_like(wx_now)
+    wchunk_ms, wchunk_rows, wchunk_wall = device_profile(
+        lambda: wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED))
+    wchunk_idle = None if wchunk_ms is None else 1 - wchunk_ms / wchunk_wall
+    print("one stochastic chunk (%d steps) under the profiler: device busy "
+          "%s of %.3f ms wall (idle share %s); top device kernels:"
+          % (wm.chunk_len, _ms(wchunk_ms), wchunk_wall,
+             "-" if wchunk_idle is None else "%.3f" % wchunk_idle),
+          flush=True)
+    for key, count, ms in wchunk_rows[:12]:
+        print("  %9.4f ms %5d x  %s" % (ms, count, key[:90]), flush=True)
+    wstep_layers = by_layer(wchunk_rows, per=wm.chunk_len)
+    print("stochastic step device time by layer (per step):", flush=True)
+    print_layers(wstep_layers)
+
+    # ----------------------------------------------------------- phase 10
+    # predict the two held-out windows with the trained fft model
+    hopper.reset_launches()
+    t0 = time.time()
+    wmu, wvar = wm.predict(wtx)
+    torch.cuda.synchronize()
+    wpredict_s = time.time() - t0
+    fp_launches = hopper.launch_counts()
+    wreport = dict(wm.prediction_report)
+    print("predict (fft, %d held-out points): %.3f s, report %s, launches %s"
+          % (sum(len(t) for t in wtx), wpredict_s, json.dumps(wreport),
+             json.dumps(fp_launches)), flush=True)
+    for name in hopper.FFT_PREDICT_PATH:
+        require(fp_launches[name] > 0,
+                "kernel %s never launched in the fft predict" % name)
+    require(all(np.all(np.isfinite(a)) for a in wmu + wvar),
+            "non-finite fft predictions")
+    for what, rep in wreport.items():
+        require(rep["residual"] <= wm.tolerance, "%s: certified residual %g "
+                "> %g" % (what, rep["residual"], wm.tolerance))
+    wsmse = smse(wty, wmu, wy)
+    wnlpd = nlpd(wty, wmu, wvar)
+    print("on the synthetic weather-shaped data: SMSE %.6g, NLPD %.6g"
+          % (wsmse, wnlpd), flush=True)
+
+    # ----------------------------------------------------------- phase 11
+    # the plain float64 MINRES rung of the certified solve, on its own,
+    # then one step of the training rescue's first rung
+    wrhs = torch.cat([wm.y[None], wm._probes(SEED, 0)], 0)
+    wK = wm._kski()
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    mres = batched_minres(wK.matvec, wrhs, tol=wm.tolerance,
+                          maxiter=RUNG_MAXITER, cycle=KRYLOV_CYCLE,
+                          stall_ratio=0.999)
+    mres_worst = float(torch.max(mres.error))
+    mres_iters = int(torch.max(mres.iterations))
+    torch.cuda.synchronize()
+    mres_s = time.time() - t0
+    mr_launches = hopper.launch_counts()
+    print("MINRES rung (plain float64, %d rhs): %.3f s, %d iterations, "
+          "residual %.3e (tolerance %g), launches %s"
+          % (wrhs.shape[0], mres_s, mres_iters, mres_worst, wm.tolerance,
+             json.dumps(mr_launches)), flush=True)
+    for name in hopper.MINRES_PATH:
+        require(mr_launches[name] > 0,
+                "kernel %s never launched on the MINRES rung" % name)
+    t0 = time.time()
+    rsc = wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), n_steps=1,
+                    run_seed=SEED, rescue=True)
+    rescue_s = time.time() - t0
+    require(all(np.all(np.isfinite(a)) for a in rsc),
+            "non-finite rescue step")
+    print("rescue rung-1 step (plain MINRES, budget %d): %.3f s, %d "
+          "iterations, residual %.3e" % (min(4 * wn, 500), rescue_s,
+                                         int(rsc[5][0]), float(rsc[6][0])),
+          flush=True)
+
+    # ----------------------------------------------------------- phase 12
+    # the same objective on a dense grid (weather's headline m=500)
+    dm_ = T.InterpolatedLLGP(wx, wy, functional_kernel=wspec,
+                             m=WEATHER_DENSE_M, objective="stochastic",
+                             seed=SEED, device=dev)
+    require(all(g.plan.mode == "dense" for g in dm_.grid_data),
+            "the m=500 grid is not dense")
+    dx0 = dm_.param_array
+    dz = np.zeros_like(dx0)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    dout = dm_._chunk(dx0, dz, dz, dz, T.AdaDelta(), run_seed=SEED)
+    torch.cuda.synchronize()
+    dense_s = time.time() - t0
+    ds_launches = hopper.launch_counts()
+    print("dense stochastic chunk (m=500, Dm=%d, %d steps): %.3f s, solve "
+          "iters %s, residuals max %.3e, launches %s"
+          % (dm_.grid_data[0].interp.ncols, len(dout[0]), dense_s,
+             np.asarray(dout[5]).tolist(), float(np.max(dout[6])),
+             json.dumps(ds_launches)), flush=True)
+    for name in hopper.DENSE_STOCHASTIC_PATH:
+        require(ds_launches[name] > 0,
+                "kernel %s never launched in the dense stochastic chunk"
+                % name)
+    require(all(np.all(np.isfinite(a)) for a in dout),
+            "non-finite dense stochastic chunk")
+    del dm_
+
+    # ----------------------------------------------------------- phase 13
+    # card vs CPU, stochastic objective on fft grids, with fed probes
+    t0 = time.time()
+    sx = [x[::STOCH_SUBSAMPLE] for x in wx]
+    sy = [y[::STOCH_SUBSAMPLE] for y in wy]
+    skw = dict(functional_kernel=wspec, m=STOCH_M, grid_mode="fft",
+               objective="stochastic", tolerance=STOCH_TOL, seed=SEED)
+    sg = T.InterpolatedLLGP(sx, sy, device=dev, **skw)
+    sc = T.InterpolatedLLGP(sx, sy, device="cpu", **skw)
+    sn = len(sc.data.y)
+
+    def fed(run_seed, it):
+        r = np.random.RandomState(1000 + it)
+        return np.where(r.uniform(size=(sc.n_probes, sn)) < 0.5, -1.0, 1.0)
+
+    sg.probe_stream = sc.probe_stream = fed
+    sx0 = sc.param_array + 0.1 * np.sin(np.arange(sc.n_params))
+    sz = np.zeros_like(sx0)
+    g_card = sg._stochastic_grad(torch.as_tensor(sx0, device=dev),
+                                 sg._probes(0, 0))[0].cpu().numpy()
+    g_cpu = sc._stochastic_grad(torch.as_tensor(sx0),
+                                sc._probes(0, 0))[0].numpy()
+    sgrad_err = rel(g_card, g_cpu)
+    s_card = sg._chunk(sx0, sz, sz, sz, T.AdaDelta(), n_steps=CPU_CHUNK_STEPS)
+    s_cpu = sc._chunk(sx0, sz, sz, sz, T.AdaDelta(), n_steps=CPU_CHUNK_STEPS)
+    sparam_err = rel(s_card[0][-1], s_cpu[0][-1])
+    print("card vs CPU stochastic training (n=%d, m=%s fft, tolerance %g, "
+          "fed probes; %.1f s): first gradient rel err %.3e, %d-step chunk "
+          "parameters %.3e (tol %g); residuals card %s CPU %s"
+          % (sn, STOCH_M, STOCH_TOL, time.time() - t0, sgrad_err,
+             CPU_CHUNK_STEPS, sparam_err, STOCH_RTOL,
+             np.asarray(s_card[6]).tolist(), np.asarray(s_cpu[6]).tolist()),
+          flush=True)
+    require(sgrad_err <= STOCH_RTOL and sparam_err <= STOCH_RTOL,
+            "card and CPU stochastic training disagree")
+
+    # ------------------------------------------------------------ phase 14
     for row in rows:
         key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
         row["train_launches"] = train_launches[key]
-        if row["name"] == "kuu_dense_bwd":
+        row["stochastic_launches"] = st_launches[key]
+        row["predict_fft_launches"] = fp_launches[key]
+        if key == "fourier_contract/f32":
+            # the float32 inner cycles, in training and in the fft predict
+            require(key in hopper.FFT_PREDICT_PATH, "%s is on no path" % key)
+            row["path"], row["launches"] = "predict (fft)", fp_launches[key]
+        elif row["name"].startswith("fourier_contract"):
+            require(key in hopper.STOCHASTIC_PATH, "%s is on no path" % key)
+            row["path"] = "train (stochastic, fft)"
+            row["launches"] = st_launches[key]
+        elif row["name"] == "minres_update":
+            require(key in hopper.MINRES_PATH, "%s is on no path" % key)
+            row["path"], row["launches"] = "minres rung", mr_launches[key]
+        elif row["name"] == "kuu_dense_bwd":
             if key in hopper.TRAIN_PATH:
                 row["path"], row["launches"] = "train", train_launches[key]
             else:
@@ -807,6 +1163,42 @@ def main():
             "steps": CPU_CHUNK_STEPS, "grad_rel_err": grad_err,
             "f32_param_rel_err": f32_err, "model_param_rel_err": f64_err,
             "model_precision_launches": mp_launches,
+        },
+        "weather": {
+            "n": len(wm.data.y), "groups": wgroups, "twin_sizes": wtwin,
+            "build_s": wbuild_s, "grid_artifacts_mb": wmem_mb,
+            "train": {
+                "n_iter": winfo["n_iter"],
+                "device_steps": winfo["device_steps"], "wall_s": wtrain_s,
+                "ms_per_step": wstep_ms,
+                "mean_solve_iters": winfo["mean_solve_iters"],
+                "max_solve_error": winfo["max_solve_error"],
+                "adopt_bound": adopt,
+                "rescued_chunks": winfo["rescued_chunks"],
+                "launches": st_launches, "grad_norms": winfo["grad_norms"],
+                "chunk_device_ms": wchunk_ms,
+                "chunk_profiled_ms": wchunk_wall,
+                "chunk_idle_share": wchunk_idle,
+                "step_layers": wstep_layers,
+                "chunk_breakdown": [
+                    {"name": k, "calls": c, "device_ms": t}
+                    for k, c, t in wchunk_rows
+                ],
+            },
+            "predict": {"s": wpredict_s, "report": wreport,
+                        "launches": fp_launches,
+                        "smse_synthetic": wsmse, "nlpd_synthetic": wnlpd},
+            "minres_rung": {"s": mres_s, "iterations": mres_iters,
+                            "residual": mres_worst,
+                            "launches": mr_launches},
+            "rescue_step": {"s": rescue_s, "iterations": float(rsc[5][0]),
+                            "residual": float(rsc[6][0])},
+            "dense_stochastic": {"s": dense_s,
+                                 "steps": int(len(dout[0])),
+                                 "launches": ds_launches},
+            "card_vs_cpu": {"n": sn, "grad_rel_err": sgrad_err,
+                            "param_rel_err": sparam_err,
+                            "steps": CPU_CHUNK_STEPS},
         },
     }
     out_dir = os.path.join(HERE, "chiprun_out")

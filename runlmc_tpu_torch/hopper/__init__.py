@@ -10,17 +10,26 @@ PyTorch version beside it.
   K6  cg.cg_update_xr / cg_update_p  Triton  triton_cg.py
   K7  cross.cross_kernel          CUDA  csrc/cross_kernel.cu
   K9  interp.interp_gather / interp_scatter  CUDA  csrc/interp.cu
+  K10 fourier.fourier_contract    CUDA  csrc/fourier.cu
+  K10 backward  fourier.fourier_contract_bwd  CUDA  csrc/fourier.cu
+  K12 minres.minres_update        Triton  triton_minres.py
 """
 
 from runlmc_tpu_torch.hopper import build
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
 from runlmc_tpu_torch.hopper.cross import cross_kernel
+from runlmc_tpu_torch.hopper.fourier import (
+    fourier_contract,
+    fourier_contract_bwd,
+)
 from runlmc_tpu_torch.hopper.interp import interp_gather, interp_scatter
 from runlmc_tpu_torch.hopper.kuu import kuu_dense, kuu_dense_bwd
+from runlmc_tpu_torch.hopper.minres import minres_update
 
 WRAPPERS = (
     kuu_dense, kuu_dense_bwd, cross_kernel, interp_gather, interp_scatter,
-    cg_update_xr, cg_update_p,
+    cg_update_xr, cg_update_p, fourier_contract, fourier_contract_bwd,
+    minres_update,
 )
 
 
@@ -42,6 +51,31 @@ TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32")
 # The same once training has escalated to exact_precision='model' on a
 # float64 model.
 MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64")
+# One stochastic-objective training step of a model with an fft group:
+# the Fourier contraction of the float64 operator (outer residuals and
+# the surrogate) and of the float32 inner CG cycles, its float64
+# backward (the surrogate's gradient), K_UU of the float32 dense
+# preconditioner twin and the float32 CG passes.
+STOCHASTIC_PATH = (
+    "fourier_contract/f64", "fourier_contract/f32",
+    "fourier_contract_bwd/f64", "kuu_dense/f32", "cg_update_xr/f32",
+    "cg_update_p/f32",
+)
+# An 'on-the-fly' predict of a model with an fft group.
+FFT_PREDICT_PATH = (
+    "fourier_contract/f64", "fourier_contract/f32", "cross_kernel/f64",
+    "interp_gather/f64", "interp_scatter/f64", "cg_update_xr/f32",
+    "cg_update_p/f32",
+)
+# The plain float64 MINRES rung of the certified solve of a model with
+# an fft group.
+MINRES_PATH = ("minres_update/f64",)
+# A stochastic-objective step of an all-dense model: K_UU and its
+# backward at the model dtype, the float32 factor and CG passes.
+DENSE_STOCHASTIC_PATH = (
+    "kuu_dense/f64", "kuu_dense_bwd/f64", "kuu_dense/f32",
+    "cg_update_xr/f32", "cg_update_p/f32",
+)
 
 
 def reset_launches():

@@ -1,0 +1,190 @@
+// K10: the Fourier-space coregionalization contraction of an fft-mode grid
+// group, and its backward.
+//
+// Forward, for operand spectra v (B, D, F) and the three representations
+// of K_UU = sum_q B_q (x) T_q (F frequencies of the rfftn of the circulant
+// embedding):
+//
+//   rep 0 'sum'   g[b,d,f] = sum_q T[q,f] sum_e B[q,d,e] v[b,e,f]
+//   rep 1 'bt'    g[b,d,f] = sum_e S[d,e,f] v[b,e,f]
+//   rep 2 'slfm'  g[b,d,f] = sum_r A[d,r] T[r,f] sum_e A[e,r] v[b,e,f]
+//                            + K[d,f] v[b,d,f]
+//
+// with B (Q, D, D) and A (D, R) real, T, S and K complex. Backward: the
+// batch outer product of the cotangent G of g with the saved operand,
+//
+//   H[d,e,f] = sum_b G[b,d,f] * conj(v[b,e,f]),
+//
+// from which hopper/fourier.py forms every parameter cotangent with small
+// einsums. The operand's cotangent is the forward with the conjugated,
+// transposed symbol.
+//
+// Replaces runlmc_tpu/lmc/grid.py:390-404 (three XLA einsums between
+// the operand rfftn and the cropped irfftn) and XLA's autodiff of them.
+//
+// Bound on the card: bytes. At the weather m=2500 shape (D = 4, R = 2,
+// F = 4097, B = 16 training right-hand sides) the forward reads v and
+// writes g, 2 x 4.2 MB in complex128, against a few hundred operations per
+// (b, f): about 2.6 us at 3.35 TB/s. The backward reads G and v (8.4 MB)
+// and writes H (1.0 MB).
+//
+// Design: one thread per (b, f) for the forward, one per (d, e, f) for the
+// backward; neighbouring threads take neighbouring frequencies, so every
+// read and write of a warp is coalesced. The forward loops over the output
+// d and recomputes each output's sum from v (D^2 reads of v per thread,
+// served by L1; 'slfm' recomputes the rank projection per output, D^2 R
+// multiply-adds), which needs no per-thread arrays and so takes any D, Q
+// and R. The real matrices B or A sit in shared memory. The backward loops
+// over b in a fixed order: deterministic, no atomics.
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ float2 cmake(float re, float im) {
+    return make_float2(re, im);
+}
+__device__ __forceinline__ double2 cmake(double re, double im) {
+    return make_double2(re, im);
+}
+
+// a * b
+template <typename C>
+__device__ __forceinline__ C cmul(C a, C b) {
+    return cmake(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// a * conj(b)
+template <typename C>
+__device__ __forceinline__ C cmulc(C a, C b) {
+    return cmake(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+
+template <typename C, typename T>
+__device__ __forceinline__ C cscale(C a, T s) {
+    return cmake(a.x * s, a.y * s);
+}
+
+template <typename C>
+__device__ __forceinline__ C cadd(C a, C b) {
+    return cmake(a.x + b.x, a.y + b.y);
+}
+
+constexpr int kThreads = 128;
+
+template <typename T, typename C>
+__global__ void fourier_fwd_kernel(int rep, const C* __restrict__ v,
+                                   C* __restrict__ g,
+                                   const T* __restrict__ mat,
+                                   const C* __restrict__ sym,
+                                   const C* __restrict__ diag, int nb,
+                                   int D, int K, int F) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* smat = reinterpret_cast<T*>(smem_raw);
+    const int nmat = rep == 0 ? K * D * D : (rep == 2 ? D * K : 0);
+    for (int i = threadIdx.x; i < nmat; i += blockDim.x) smat[i] = mat[i];
+    __syncthreads();
+    const int f = blockIdx.x * blockDim.x + threadIdx.x;
+    if (f >= F) return;
+    const int64_t dF = (int64_t)D * F;
+    for (int b = blockIdx.y; b < nb; b += gridDim.y) {
+        const C* vb = v + (int64_t)b * dF + f;
+        C* gb = g + (int64_t)b * dF + f;
+        for (int d = 0; d < D; ++d) {
+            C acc = cmake(T(0), T(0));
+            if (rep == 0) {
+                for (int q = 0; q < K; ++q) {
+                    const T* Bqd = smat + ((int64_t)q * D + d) * D;
+                    C s = cmake(T(0), T(0));
+                    for (int e = 0; e < D; ++e) {
+                        s = cadd(s, cscale(vb[(int64_t)e * F], Bqd[e]));
+                    }
+                    acc = cadd(acc, cmul(sym[(int64_t)q * F + f], s));
+                }
+            } else if (rep == 1) {
+                const C* Sd = sym + (int64_t)d * dF + f;
+                for (int e = 0; e < D; ++e) {
+                    acc = cadd(acc, cmul(Sd[(int64_t)e * F], vb[(int64_t)e * F]));
+                }
+            } else {
+                for (int r = 0; r < K; ++r) {
+                    C p = cmake(T(0), T(0));
+                    for (int e = 0; e < D; ++e) {
+                        p = cadd(p, cscale(vb[(int64_t)e * F], smat[e * K + r]));
+                    }
+                    p = cmul(p, sym[(int64_t)r * F + f]);
+                    acc = cadd(acc, cscale(p, smat[d * K + r]));
+                }
+                acc = cadd(acc, cmul(diag[(int64_t)d * F + f], vb[(int64_t)d * F]));
+            }
+            gb[(int64_t)d * F] = acc;
+        }
+    }
+}
+
+template <typename T, typename C>
+__global__ void fourier_bwd_kernel(const C* __restrict__ G,
+                                   const C* __restrict__ v,
+                                   C* __restrict__ H, int nb, int D, int F) {
+    const int f = blockIdx.x * blockDim.x + threadIdx.x;
+    if (f >= F) return;
+    const int de = blockIdx.y;  // d * D + e
+    const int d = de / D;
+    const int e = de - d * D;
+    const int64_t dF = (int64_t)D * F;
+    C acc = cmake(T(0), T(0));
+    for (int b = 0; b < nb; ++b) {
+        acc = cadd(acc, cmulc(G[(int64_t)b * dF + (int64_t)d * F + f],
+                              v[(int64_t)b * dF + (int64_t)e * F + f]));
+    }
+    H[(int64_t)de * F + f] = acc;
+}
+
+template <typename T, typename C>
+int launch_fwd(int rep, const C* v, C* g, const T* mat, const C* sym,
+               const C* diag, int nb, int D, int K, int F, void* stream) {
+    const int nmat = rep == 0 ? K * D * D : (rep == 2 ? D * K : 0);
+    const size_t smem = (size_t)nmat * sizeof(T);
+    dim3 grid((unsigned)((F + kThreads - 1) / kThreads),
+              (unsigned)runlmc::grid_y(nb));
+    fourier_fwd_kernel<T, C><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        rep, v, g, mat, sym, diag, nb, D, K, F);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, typename C>
+int launch_bwd(const C* G, const C* v, C* H, int nb, int D, int F,
+               void* stream) {
+    dim3 grid((unsigned)((F + kThreads - 1) / kThreads), (unsigned)(D * D));
+    fourier_bwd_kernel<T, C><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        G, v, H, nb, D, F);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fourier_fwd_f32(int rep, const float2* v, float2* g,
+                               const float* mat, const float2* sym,
+                               const float2* diag, int nb, int D, int K,
+                               int F, void* stream) {
+    return launch_fwd<float, float2>(rep, v, g, mat, sym, diag, nb, D, K, F,
+                                     stream);
+}
+
+extern "C" int fourier_fwd_f64(int rep, const double2* v, double2* g,
+                               const double* mat, const double2* sym,
+                               const double2* diag, int nb, int D, int K,
+                               int F, void* stream) {
+    return launch_fwd<double, double2>(rep, v, g, mat, sym, diag, nb, D, K,
+                                       F, stream);
+}
+
+extern "C" int fourier_bwd_f32(const float2* G, const float2* v, float2* H,
+                               int nb, int D, int F, void* stream) {
+    return launch_bwd<float, float2>(G, v, H, nb, D, F, stream);
+}
+
+extern "C" int fourier_bwd_f64(const double2* G, const double2* v, double2* H,
+                               int nb, int D, int F, void* stream) {
+    return launch_bwd<double, double2>(G, v, H, nb, D, F, stream);
+}

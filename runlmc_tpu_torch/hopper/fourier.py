@@ -1,0 +1,212 @@
+"""K10: the Fourier-space coregionalization contraction of an fft-mode
+grid group, and its backward.
+
+For operand spectra ``vf`` (B, D, F) (the rfftn of the zero-padded
+operand, complex64 or complex128) the forward computes g (B, D, F):
+
+    'sum'   g[b,d,f] = sum_q sum_e B[q,d,e] T[q,f] vf[b,e,f]
+    'bt'    g[b,d,f] = sum_e S[d,e,f] vf[b,e,f]
+    'slfm'  g[b,d,f] = sum_r A[d,r] T[r,f] sum_e A[e,r] vf[b,e,f]
+                       + K[d,f] vf[b,d,f]
+
+with ``mat`` the real B (Q, D, D) or A (D, R), ``sym`` the complex T
+(Q or R, F) or S (D, D, F), and ``diag`` the complex K (D, F) of 'slfm'.
+Replaces runlmc_tpu/lmc/grid.py:390-404 and XLA's autodiff of it. The
+CUDA kernels are in ``csrc/fourier.cu`` (design and bound there).
+
+The backward kernel computes the batch outer product
+
+    H[d,e,f] = sum_b G[b,d,f] * conj(vf[b,e,f])
+
+of the cotangent G of g; every parameter cotangent is a small einsum of
+H. Torch's complex gradients follow the conjugate Wirtinger convention:
+for g = S vf the cotangent of S is G conj(vf), and a real parameter
+takes the real part. The operand's cotangent is the forward with the
+conjugated, transposed symbol. :class:`FourierContract` joins the two
+as one autograd function. :func:`fourier_contract_plain` and
+:func:`fourier_contract_bwd_plain` are the plain PyTorch versions,
+which the wrappers run for CPU tensors.
+"""
+
+import ctypes
+
+import torch
+
+from runlmc_tpu_torch.hopper import build
+
+REPS = {"sum": 0, "bt": 1, "slfm": 2}
+_SMEM_LIMIT = 48 * 1024
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def fourier_contract_plain(rep, vf, mat, sym, diag=None):
+    """Plain version: the einsums of the XLA code."""
+    if rep == "sum":
+        return torch.einsum("qde,qf,bef->bdf", mat.to(vf.dtype), sym, vf)
+    if rep == "bt":
+        return torch.einsum("def,bef->bdf", sym, vf)
+    if rep == "slfm":
+        A = mat.to(vf.dtype)
+        proj = torch.einsum("dr,bdf->brf", A, vf) * sym
+        return torch.einsum("dr,brf->bdf", A, proj) + diag * vf
+    raise ValueError("unknown representation %r" % (rep,))
+
+
+def _real_suffix(what, t):
+    if t.dtype not in _REAL:
+        raise ValueError("%s: complex64 or complex128 only, got %s"
+                         % (what, t.dtype))
+    return build.suffix(what, _REAL[t.dtype])
+
+
+def fourier_contract(rep, vf, mat, sym, diag=None):
+    """g (B, D, F) from ``vf`` (B, D, F) and the symbol of ``rep``; the
+    CUDA kernel for CUDA tensors."""
+    if build.use_plain("fourier_contract", vf):
+        return fourier_contract_plain(rep, vf, mat, sym, diag)
+    if rep not in REPS:
+        raise ValueError("unknown representation %r" % (rep,))
+    sfx = _real_suffix("fourier_contract", vf)
+    nb, D, F = vf.shape
+    if rep == "sum":
+        K = mat.shape[0]
+        ok = mat.shape == (K, D, D) and sym.shape == (K, F)
+        nmat = K * D * D
+    elif rep == "bt":
+        K = 0
+        ok = sym.shape == (D, D, F)
+        nmat = 0
+    else:
+        K = mat.shape[1]
+        ok = (mat.shape == (D, K) and sym.shape == (K, F)
+              and diag is not None and diag.shape == (D, F))
+        nmat = D * K
+    tensors = [vf, sym] + ([mat] if rep != "bt" else []) + (
+        [diag] if rep == "slfm" else [])
+    if (not ok or sym.dtype != vf.dtype
+            or (rep != "bt" and mat.dtype != _REAL[vf.dtype])
+            or (rep == "slfm" and diag.dtype != vf.dtype)):
+        raise ValueError("fourier_contract: %s operand %s and symbol %s "
+                         "disagree" % (rep, tuple(vf.shape),
+                                       tuple(sym.shape)))
+    if nmat * vf.element_size() // 2 > _SMEM_LIMIT:
+        raise ValueError("fourier_contract: the %s coregionalization "
+                         "matrices exceed the kernel's shared memory" % rep)
+    # a conjugated view (``sym.conj()`` of the operand's cotangent) only
+    # sets a bit: the kernel reads memory, so materialize it
+    tensors = [t.resolve_conj().contiguous() for t in tensors]
+    vf, sym = tensors[0], tensors[1]
+    mat = tensors[2] if rep != "bt" else None
+    diag = tensors[3] if rep == "slfm" else None
+    build.require_cuda("fourier_contract", *tensors)
+    g = torch.empty_like(vf)
+    fn = build.function(
+        "fourier", "fourier_fwd_" + sfx,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+    )
+    if nb:
+        build.check(fn(REPS[rep], build.ptr(vf), build.ptr(g),
+                       None if mat is None else build.ptr(mat),
+                       build.ptr(sym),
+                       None if diag is None else build.ptr(diag),
+                       nb, D, K, F, build.stream_ptr()), "fourier_contract")
+        fourier_contract.launches[sfx] += 1
+    return g
+
+
+fourier_contract.launches = build.counter()
+
+
+def fourier_contract_bwd_plain(G, vf):
+    return torch.einsum("bdf,bef->def", G, vf.conj())
+
+
+def fourier_contract_bwd(G, vf):
+    """H (D, D, F) = sum_b G[b,d,f] conj(vf[b,e,f]); the CUDA kernel for
+    CUDA tensors."""
+    if build.use_plain("fourier_contract_bwd", G):
+        return fourier_contract_bwd_plain(G, vf)
+    sfx = _real_suffix("fourier_contract_bwd", G)
+    nb, D, F = G.shape
+    if vf.shape != G.shape or vf.dtype != G.dtype:
+        raise ValueError("fourier_contract_bwd: cotangent %s and operand %s "
+                         "disagree" % (tuple(G.shape), tuple(vf.shape)))
+    if D * D > 65535:
+        raise ValueError("fourier_contract_bwd: D = %d exceeds the kernel's "
+                         "grid" % D)
+    G, vf = G.resolve_conj().contiguous(), vf.resolve_conj().contiguous()
+    build.require_cuda("fourier_contract_bwd", G, vf)
+    H = torch.empty((D, D, F), dtype=G.dtype, device=G.device)
+    fn = build.function(
+        "fourier", "fourier_bwd_" + sfx,
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    )
+    build.check(fn(build.ptr(G), build.ptr(vf), build.ptr(H), nb, D, F,
+                   build.stream_ptr()), "fourier_contract_bwd")
+    fourier_contract_bwd.launches[sfx] += 1
+    return H
+
+
+fourier_contract_bwd.launches = build.counter()
+
+
+def symbol_grads(rep, H, mat, sym):
+    """Cotangents of ``(mat, sym, diag)`` from H (D, D, F)."""
+    if rep == "sum":
+        dmat = torch.einsum("qf,def->qde", sym.conj(), H).real
+        dsym = torch.einsum("qde,def->qf", mat.to(H.dtype), H)
+        return dmat, dsym, None
+    if rep == "bt":
+        return None, H, None
+    A = mat.to(H.dtype)
+    dsym = torch.einsum("dr,er,def->rf", A, A, H)
+    tc = sym.conj()
+    dmat = (torch.einsum("rf,er,kef->kr", tc, A, H)
+            + torch.einsum("rf,dr,dkf->kr", tc, A, H)).real
+    ddiag = torch.diagonal(H, dim1=0, dim2=1).T
+    return dmat, dsym, ddiag
+
+
+def adjoint_symbol(rep, mat, sym, diag):
+    """The symbol of the operand's cotangent map G -> conj(M)^T G."""
+    if rep == "sum":
+        return mat.transpose(1, 2), sym.conj(), None
+    if rep == "bt":
+        return None, sym.transpose(0, 1).conj(), None
+    return mat, sym.conj(), diag.conj()
+
+
+class FourierContract(torch.autograd.Function):
+    """K10 with its hand-written backward: forward
+    :func:`fourier_contract`, backward :func:`fourier_contract_bwd` and
+    the einsums of :func:`symbol_grads`."""
+
+    @staticmethod
+    def forward(ctx, rep, vf, mat, sym, diag):
+        ctx.rep = rep
+        ctx.save_for_backward(vf, mat, sym, diag)
+        return fourier_contract(rep, vf, mat, sym, diag)
+
+    @staticmethod
+    def backward(ctx, G):
+        vf, mat, sym, diag = ctx.saved_tensors
+        rep = ctx.rep
+        need = ctx.needs_input_grad
+        dv = dmat = dsym = ddiag = None
+        if any(need[2:]):
+            H = fourier_contract_bwd(G.contiguous(), vf)
+            dmat, dsym, ddiag = symbol_grads(rep, H, mat, sym)
+        if need[1]:
+            dv = fourier_contract(rep, G.contiguous(),
+                                  *adjoint_symbol(rep, mat, sym, diag))
+        return (None, dv,
+                dmat if need[2] else None,
+                dsym if need[3] else None,
+                ddiag if need[4] else None)
+
+
+def contract(rep, vf, mat, sym, diag=None):
+    """Differentiable K10 (``mat`` None for 'bt', ``diag`` only for
+    'slfm')."""
+    return FourierContract.apply(rep, vf, mat, sym, diag)

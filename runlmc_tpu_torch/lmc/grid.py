@@ -1,14 +1,27 @@
-"""The SKI grid covariance K = sum_g W_g K_UU_g W_g^T + diag(eps), dense
-grid mode (parity: runlmc_tpu/lmc/grid.py).
+"""The SKI grid covariance K = sum_g W_g K_UU_g W_g^T + diag(eps) (parity:
+runlmc_tpu/lmc/grid.py).
 
-Dense mode materializes each active-dim group's grid kernel
-K_UU = sum_q B_q (x) T_q as one (Dm, Dm) matrix per parameter setting,
-through kernel K1 and its backward (runlmc_tpu_torch/hopper/kuu.py),
-and applies W and
-W^T through per-output dense interpolation blocks (plain matmuls). Its
-matvecs are then one GEMM per group, in any dtype — on the H100 in
-native f64. Groups above ``DENSE_MAX_GRID`` points use the fft mode,
-which a later slice of the port brings; here they raise.
+Each active-dim group's grid kernel K_UU = sum_q B_q (x) T_q runs in
+one of two modes:
+
+- 'dense' (D*m <= ``DENSE_MAX_GRID``): K_UU materialized once per
+  parameter setting as one (Dm, Dm) matrix through kernel K1 and its
+  backward (runlmc_tpu_torch/hopper/kuu.py); its matvec is one GEMM, in
+  any dtype — on the H100 in native f64;
+- 'fft' (larger grids): K_UU u = irfftn(contract(rfftn(u))), the
+  circulant embedding's Fourier symbol (ops/bttb.py, K11) contracted
+  with the coregionalization per frequency by kernel K10
+  (runlmc_tpu_torch/hopper/fourier.py), in the representation 'sum',
+  'bt' or 'slfm' that :func:`choose_rep` picks; cuFFT has f64, so the
+  model-dtype operator stays in fft mode (the JAX package's 'tiled'
+  mode is a TPU workaround and not ported).
+
+W and W^T go through per-output dense interpolation blocks (plain
+matmuls, K4) where n * m stays under ``W_BLOCKS_MAX_ELEMS``, otherwise
+through the sparse interpolant (kernel K9). An fft group also carries a
+dense-mode twin (``GridData.coarse``) whose float32 Woodbury
+factorization preconditions its solves: the exact fine geometry when D*m
+fits under ``PRECOND_MAX_GRID``, else a proportionally coarsened grid.
 """
 
 import dataclasses
@@ -17,8 +30,10 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from runlmc_tpu_torch.hopper.fourier import contract
 from runlmc_tpu_torch.hopper.kuu import KUUDense
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
+from runlmc_tpu_torch.ops import bttb
 from runlmc_tpu_torch.ops.interpolation import (
     Interp,
     autogrid,
@@ -27,23 +42,21 @@ from runlmc_tpu_torch.ops.interpolation import (
 )
 from runlmc_tpu_torch.utils.np_utils import cartesian_product
 
-# Above this many grid points per group (D * m), the JAX package leaves
-# dense mode for the FFT path (runlmc_tpu/lmc/grid.py:67). Kept at the
-# same value for parity; it was measured on a TPU and awaits a
-# measurement on the card.
+# The caps of runlmc_tpu/lmc/grid.py:67-88, kept at the same values for
+# parity. They were measured on a TPU and await a measurement on the
+# card. Above DENSE_MAX_GRID points per group (D * m) a group runs in fft
+# mode; its preconditioner twin keeps the fine geometry up to
+# PRECOND_MAX_GRID points; dense interpolation blocks are built while
+# n * m stays under W_BLOCKS_MAX_ELEMS.
 DENSE_MAX_GRID = 8192
-
-FFT_MODE_SLICE = (
-    "grid groups above DENSE_MAX_GRID = %d points (D * m) need the fft "
-    "grid mode, which slice 3 of the PyTorch port brings; this slice "
-    "runs dense grid mode only" % DENSE_MAX_GRID
-)
+PRECOND_MAX_GRID = 16384
+W_BLOCKS_MAX_ELEMS = 50_000_000
 
 
 @dataclasses.dataclass(frozen=True)
 class GridPlan:
     """Static per-active-dim-group plan: which kernels, which
-    representation, grid sizes, and the mode ('dense' only here)."""
+    representation, grid sizes, and the mode ('dense' or 'fft')."""
 
     active_dim: Tuple[int, ...]
     kidxs: Tuple[int, ...]
@@ -53,9 +66,9 @@ class GridPlan:
 
 
 def choose_rep(spec: LMCKernelSpec, active_dim) -> str:
-    """Representation auto-selection (parity: runlmc_tpu/lmc/grid.py:151).
-    Dense mode materializes K_UU whatever the representation; the choice
-    is recorded for the fft mode."""
+    """Representation auto-selection (parity: runlmc_tpu/lmc/grid.py:151):
+    the fft contraction's path; dense mode materializes K_UU whatever the
+    representation."""
     if spec.Q == 1:
         return "sum"
     tot_rank = spec.total_rank(active_dim)
@@ -68,31 +81,68 @@ def choose_rep(spec: LMCKernelSpec, active_dim) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class GridData:
-    """Parameter-independent grid artifacts for one dense-mode group:
-    host numpy from :func:`make_grids`, tensors after :meth:`to`."""
+    """Parameter-independent grid artifacts for one group: host numpy from
+    :func:`make_grids`, tensors after :meth:`to`."""
 
     plan: GridPlan
     dists: Any = None  # (m,) flattened BTTB first-row distances
     interp: Interp = None  # W for the training inputs, (n, D*m)
-    W_blocks: Any = None  # per-output dense (n_d, m) blocks
-    WtW: Any = None  # (D, m, m) stacked per-output grams W_d^T W_d
+    W_blocks: Any = None  # per-output dense (n_d, m) blocks, or None
+    WtW: Any = None  # (D, m, m) stacked per-output grams ('dense')
+    coarse: Any = None  # 'fft': the dense-mode preconditioner twin (host)
 
-    def to(self, dtype, device):
+    def to(self, dtype, device, memo=None):
+        """Placed copy at ``dtype`` on ``device``, without the host-side
+        ``coarse`` twin (:func:`precond_dense_f32` places that). Arrays
+        already placed at this dtype through the same ``memo`` dict are
+        shared, not copied."""
+        memo = {} if memo is None else memo
+
         def _f(a):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+            key = (id(a), dtype)
+            if key not in memo:
+                memo[key] = torch.as_tensor(np.asarray(a), dtype=dtype,
+                                            device=device)
+            return memo[key]
 
+        key = (id(self.interp), dtype)
+        if key not in memo:
+            memo[key] = self.interp.to(dtype, device)
         return GridData(
             plan=self.plan,
             dists=_f(self.dists),
-            interp=self.interp.to(dtype, device),
-            W_blocks=tuple(_f(b) for b in self.W_blocks),
-            WtW=_f(self.WtW),
+            interp=memo[key],
+            W_blocks=(None if self.W_blocks is None
+                      else tuple(_f(b) for b in self.W_blocks)),
+            WtW=None if self.WtW is None else _f(self.WtW),
         )
 
 
-def _dense_artifacts(Xs_active, axes):
+def coarse_sizes(sizes, D, cap=None):
+    """Per-dim sizes of the coarsened preconditioner grid (parity:
+    grid.py:189-207): the largest proportional shrink of ``sizes`` with
+    D * prod(out) <= ``cap`` (default ``DENSE_MAX_GRID``) and every dim
+    >= 4 (the cubic-interpolation minimum)."""
+    cap = cap or DENSE_MAX_GRID
+    sizes = tuple(int(s) for s in sizes)
+    P = len(sizes)
+    budget = max(cap // max(D, 1), 4**P)
+    if int(np.prod(sizes)) <= budget:
+        return sizes
+    factor = (budget / float(np.prod(sizes))) ** (1.0 / P)
+    out = [max(4, int(np.floor(s * factor))) for s in sizes]
+    while int(np.prod(out)) > budget:
+        i = int(np.argmax(out))
+        if out[i] <= 4:
+            break
+        out[i] -= 1
+    return tuple(out)
+
+
+def _dense_artifacts(Xs_active, axes, W_blocks=None):
     """(W_blocks, WtW) for a dense-mode group."""
-    W_blocks = tuple(interp_output_blocks(Xs_active, axes))
+    if W_blocks is None:
+        W_blocks = tuple(interp_output_blocks(Xs_active, axes))
     wtw = np.stack([b.T @ b for b in W_blocks])
     return W_blocks, wtw
 
@@ -100,12 +150,18 @@ def _dense_artifacts(Xs_active, axes):
 def make_grids(spec: LMCKernelSpec, Xs, lo=None, hi=None, m=None,
                rep=None, mode="auto"):
     """Build grids, distances and interpolants per active-dim group, on
-    the host. ``mode``: 'auto' or 'dense'; a group with
-    D*m > DENSE_MAX_GRID (or ``mode`` 'fft') raises
-    ``NotImplementedError``. Returns ``(grid_data, axes)``."""
-    if mode not in ("auto", "dense"):
-        if mode in ("fft", "tiled"):
-            raise NotImplementedError(FFT_MODE_SLICE)
+    the host (parity: runlmc_tpu/lmc/grid.py:218-324). ``mode``: 'auto'
+    (dense when D*m <= DENSE_MAX_GRID, else fft), 'dense' or 'fft'.
+    An fft group gets dense W blocks while n*m <= W_BLOCKS_MAX_ELEMS,
+    and its dense-mode preconditioner twin in ``coarse``. Returns
+    ``(grid_data, axes)``."""
+    if mode == "tiled":
+        raise ValueError(
+            "grid_mode='tiled' is the JAX package's TPU-only mode (an exact "
+            "first-row contraction standing in for the f64 FFT the TPU "
+            "lacks); the card has f64 FFTs, so use 'fft' or 'auto'"
+        )
+    if mode not in ("auto", "dense", "fft"):
         raise ValueError("unknown grid mode %r" % (mode,))
 
     def _sub(v, active_dim):
@@ -126,30 +182,56 @@ def make_grids(spec: LMCKernelSpec, Xs, lo=None, hi=None, m=None,
             Xs_active, _sub(lo, active_dim), _sub(hi, active_dim),
             _sub(m, active_dim),
         )
-        sizes = tuple(len(a) for a in axes)
-        if mode == "auto" and spec.D * int(np.prod(sizes)) > DENSE_MAX_GRID:
-            raise NotImplementedError(FFT_MODE_SLICE)
         grid = cartesian_product(*axes)
-        W_blocks, wtw = _dense_artifacts(Xs_active, axes)
-        out.append(GridData(
-            plan=GridPlan(
-                active_dim=tuple(active_dim),
-                kidxs=tuple(kidxs),
-                rep=rep or choose_rep(spec, active_dim),
-                sizes=sizes,
-            ),
-            dists=np.linalg.norm(grid - grid[0], axis=-1),
-            interp=multi_interpolant(Xs_active, axes),
-            W_blocks=W_blocks,
-            WtW=wtw,
-        ))
+        dists = np.linalg.norm(grid - grid[0], axis=-1)
+        sizes = tuple(len(a) for a in axes)
+        interp = multi_interpolant(Xs_active, axes)
+        m_tot = int(np.prod(sizes))
+        group_mode = mode
+        if mode == "auto":
+            group_mode = "dense" if spec.D * m_tot <= DENSE_MAX_GRID else "fft"
+        plan = GridPlan(
+            active_dim=tuple(active_dim),
+            kidxs=tuple(kidxs),
+            rep=rep or choose_rep(spec, active_dim),
+            sizes=sizes,
+            mode=group_mode,
+        )
+        W_blocks = wtw = coarse = None
+        if group_mode == "dense":
+            W_blocks, wtw = _dense_artifacts(Xs_active, axes)
+        else:
+            n_total = sum(len(X) for X in Xs_active)
+            if n_total * m_tot <= W_BLOCKS_MAX_ELEMS:
+                W_blocks = tuple(interp_output_blocks(Xs_active, axes))
+            c_sizes = coarse_sizes(sizes, spec.D, cap=PRECOND_MAX_GRID)
+            if c_sizes == sizes:
+                # the exact fine geometry: share the fine artifacts
+                c_dists, c_interp = dists, interp
+                c_blocks, c_wtw = _dense_artifacts(Xs_active, axes, W_blocks)
+            else:
+                c_axes = [np.linspace(a[0], a[-1], s)
+                          for a, s in zip(axes, c_sizes)]
+                c_grid = cartesian_product(*c_axes)
+                c_dists = np.linalg.norm(c_grid - c_grid[0], axis=-1)
+                c_interp = multi_interpolant(Xs_active, c_axes)
+                c_blocks, c_wtw = _dense_artifacts(Xs_active, c_axes)
+            coarse = GridData(
+                plan=GridPlan(active_dim=tuple(active_dim),
+                              kidxs=tuple(kidxs), rep=plan.rep,
+                              sizes=c_sizes, mode="dense"),
+                dists=c_dists, interp=c_interp, W_blocks=c_blocks,
+                WtW=c_wtw,
+            )
+        out.append(GridData(plan=plan, dists=dists, interp=interp,
+                            W_blocks=W_blocks, WtW=wtw, coarse=coarse))
         all_axes.append(axes)
     return out, all_axes
 
 
 def to_dense_f32(grid_data):
     """Float32 copies of placed dense-mode artifacts — the inputs to the
-    float32 Woodbury preconditioner factor (woodbury.py)."""
+    float32 Woodbury factor (woodbury.py) of an all-dense model."""
     return tuple(
         GridData(
             plan=gd.plan,
@@ -163,6 +245,26 @@ def to_dense_f32(grid_data):
         )
         for gd in grid_data
     )
+
+
+def precond_dense_f32(grid_data, device, memo=None):
+    """Per-group float32 dense-mode artifacts of the Woodbury
+    preconditioner factor, placed on ``device`` from the host-side
+    :func:`make_grids` output (parity: grid.py:470-485): a dense group
+    contributes itself, an fft group its ``coarse`` twin."""
+    return tuple(
+        (gd if gd.plan.mode == "dense" else gd.coarse).to(
+            torch.float32, device, memo)
+        for gd in grid_data
+    )
+
+
+def fine_fft_f32(grid_data, device, memo=None):
+    """Float32 copies of the fine artifacts, placed on ``device`` from the
+    host-side :func:`make_grids` output — the inner operator of the
+    mixed-precision solves (parity: grid.py:488-521). Dense groups stay
+    dense."""
+    return tuple(gd.to(torch.float32, device, memo) for gd in grid_data)
 
 
 def wt_apply(blocks, x):
@@ -184,33 +286,96 @@ def w_apply(blocks, u):
 
 @dataclasses.dataclass(frozen=True)
 class GroupState:
-    """One active-dim group's dense grid kernel and its interpolation."""
+    """One active-dim group's grid kernel and its interpolation: the
+    dense K_UU, or the Fourier symbol of its representation — 'sum':
+    ``B`` (Q, D, D) and ``That`` (Q, F); 'bt': ``BThat`` (D, D, F);
+    'slfm': ``A`` (D, R), ``That_rep`` (R, F) and ``diag_That``
+    (D, F)."""
 
     interp: Interp
-    W_blocks: Any  # per-output dense (n_d, m) interp blocks
-    KUU_dense: Any  # (D*m, D*m)
+    W_blocks: Any  # per-output dense (n_d, m) interp blocks, or None
+    sizes: Tuple[int, ...] = ()
+    rep: str = "sum"
+    mode: str = "dense"
+    KUU_dense: Any = None  # (D*m, D*m)
+    B: Any = None
+    That: Any = None
+    BThat: Any = None
+    A: Any = None
+    That_rep: Any = None
+    diag_That: Any = None
 
     def grid_matvec(self, u):
         """K_UU u for this group: u (..., D*m) -> (..., D*m)."""
-        return u @ self.KUU_dense.T
+        if self.mode == "dense":
+            return u @ self.KUU_dense.T
+        sizes = self.sizes
+        m = int(np.prod(sizes))
+        d = self.interp.ncols // m
+        batch = u.shape[:-1]
+        fsh = bttb.fourier_shape(sizes)
+        F = int(np.prod(fsh))
+        vhat = bttb.operand_fft(u.reshape(batch + (d, m)), sizes)
+        vf = vhat.reshape(-1, d, F)
+        if self.rep == "sum":
+            g = contract("sum", vf, self.B, self.That)
+        elif self.rep == "bt":
+            g = contract("bt", vf, None, self.BThat)
+        else:
+            g = contract("slfm", vf, self.A, self.That_rep, self.diag_That)
+        out = bttb.operand_ifft(g.reshape(batch + (d,) + fsh), sizes)
+        return out.reshape(batch + (d * m,))
 
     def matvec(self, x):
         """Full SKI term W K_UU W^T x: (..., n) -> (..., n) (parity:
-        grid.py:420-444)."""
-        return w_apply(self.W_blocks,
-                       self.grid_matvec(wt_apply(self.W_blocks, x)))
+        grid.py:413-444), through the dense blocks where the group has
+        them, else through K9's scatter and gather."""
+        if self.W_blocks is not None:
+            return w_apply(self.W_blocks,
+                           self.grid_matvec(wt_apply(self.W_blocks, x)))
+        return self.interp.matvec(self.grid_matvec(self.interp.rmatvec(x)))
 
 
 def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
-    """Evaluate the kernels on the grid and materialize K_UU through
-    kernel K1 (parity: grid.py:524-547, dense branch); gradients reach
-    ``tops`` and ``B`` through K1's backward kernel."""
-    tops = spec.eval_kernels_stacked(raw_params, gd.dists, gd.plan.kidxs)
-    B = spec.coreg_mats(raw_params, gd.plan.kidxs)
+    """Evaluate the kernels on the grid and assemble the group's operator
+    (parity: grid.py:524-596): dense mode materializes K_UU through
+    kernel K1 (gradients reach ``tops`` and ``B`` through K1's backward);
+    fft mode precomputes the Fourier symbol of its representation, which
+    kernel K10 and its backward contract."""
+    plan = gd.plan
+    kidxs = plan.kidxs
+    tops = spec.eval_kernels_stacked(raw_params, gd.dists, kidxs)
+    base = dict(interp=gd.interp, W_blocks=gd.W_blocks, sizes=plan.sizes,
+                rep=plan.rep, mode=plan.mode)
+    if plan.mode == "dense":
+        B = spec.coreg_mats(raw_params, kidxs)
+        return GroupState(KUU_dense=KUUDense.apply(tops, B, plan.sizes),
+                          **base)
+    that = bttb.bttb_fft(tops, plan.sizes).reshape(len(kidxs), -1)
+    if plan.rep == "sum":
+        return GroupState(B=spec.coreg_mats(raw_params, kidxs), That=that,
+                          **base)
+    if plan.rep == "bt":
+        B = spec.coreg_mats(raw_params, kidxs)
+        return GroupState(
+            BThat=torch.einsum("qde,qf->def", B.to(that.dtype), that),
+            **base)
+    non_indep = spec.non_indep_idxs(kidxs)
+    pos_of = {q: i for i, q in enumerate(kidxs)}
+    if non_indep:
+        A = torch.cat([spec.coreg_vec(raw_params, q) for q in non_indep],
+                      dim=0).T  # (D, R_tot)
+        reps = [pos_of[q] for q in non_indep for _ in range(spec.ranks[q])]
+        That_rep = that[torch.as_tensor(reps, device=that.device)]
+    else:
+        A = torch.zeros((spec.D, 1), dtype=tops.dtype, device=tops.device)
+        That_rep = torch.zeros((1, that.shape[1]), dtype=that.dtype,
+                               device=that.device)
+    kappa = torch.stack([spec.coreg_diag(raw_params, q) for q in kidxs])
     return GroupState(
-        interp=gd.interp, W_blocks=gd.W_blocks,
-        KUU_dense=KUUDense.apply(tops, B, gd.plan.sizes),
-    )
+        A=A, That_rep=That_rep,
+        diag_That=torch.einsum("qd,qf->df", kappa.to(that.dtype), that),
+        **base)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -134,6 +134,12 @@ class LMCKernelSpec:
             if self.kinds[i] != "indep"
         )
 
+    def non_indep_idxs(self, idxs):
+        """The kernel indices among ``idxs`` that are not 'indep' (parity:
+        runlmc_tpu/lmc/kernel_spec.py:146-148): the rank-carrying kernels
+        of the fft 'slfm' representation."""
+        return tuple(i for i in idxs if self.kinds[i] != "indep")
+
     # ----------------------------------------------------------- parameters
 
     def init_raw_params(self, seed=0):

@@ -1,5 +1,5 @@
-"""LMC likelihood pieces of the prediction and exact-training paths
-(parity: runlmc_tpu/lmc/likelihood.py:51-96, 224-345).
+"""LMC likelihood pieces of the prediction and training paths (parity:
+runlmc_tpu/lmc/likelihood.py:51-96, 133-138, 202-506).
 
 - data flattening (host numpy);
 - the dense cross-covariance K[a, b], through kernel K7
@@ -7,7 +7,17 @@
 - the exact SKI marginal log-likelihood through the Woodbury
   factorization, differentiable by torch autograd (the exact training
   objective), and the float32 factorization residual that the model's
-  ``objective='auto'`` probe and its in-training flip rung read.
+  ``objective='auto'`` probe and its in-training flip rung read;
+- the stochastic objective's surrogate (kernel K14 of the kernel
+  table): with alpha = K^-1 y and z_i = K^-1 r_i for Rademacher probes
+  r_i from one batched certified solve, the scalar
+
+      s(theta) = 1/2 alpha^T K(theta) alpha
+                 - 1/(2 N) sum_i z_i^T K(theta) r_i
+
+  has the stochastic MLL gradient as its gradient. Autograd runs
+  through the model-dtype operator: kernel K10's backward on fft
+  grids, K1's on dense ones.
 """
 
 import math
@@ -19,7 +29,8 @@ import torch
 from runlmc_tpu_torch.hopper.cross import cross_kernel as _k7
 from runlmc_tpu_torch.lmc.grid import build_kski
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
-from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury
+from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury, woodbury_pcg
+from runlmc_tpu_torch.ops.solvers import batched_cg, batched_minres
 from runlmc_tpu_torch.utils.carry import cast_params
 
 
@@ -103,3 +114,94 @@ def f32_factorization_residual(spec, raw_params, grid_data32, lens, y,
     r = wb.matvec(alpha) - y32
     return torch.linalg.norm(r) / torch.clamp(torch.linalg.norm(y32),
                                               min=1e-30)
+
+
+def rademacher_probes(generator, n_probes, n, dtype, device):
+    """Fresh +-1 probes (parity: likelihood.py:133-138), drawn from an
+    explicit ``torch.Generator`` on ``device``."""
+    bits = torch.randint(0, 2, (n_probes, n), generator=generator,
+                         device=device)
+    return bits.to(dtype) * 2.0 - 1.0
+
+
+class StochasticAux(NamedTuple):
+    alpha: torch.Tensor  # (n,) K^-1 y
+    solve_iters: torch.Tensor  # mean solver iterations (scalar)
+    solve_error: torch.Tensor  # mean absolute residual of the rows
+    quad: torch.Tensor  # y^T alpha
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def stochastic_surrogate_from_solves(spec, raw_params, grid_data, lens,
+                                     alpha, zs, probes):
+    """The differentiable tail of :func:`stochastic_mll_surrogate`
+    (parity: likelihood.py:348-383): the surrogate scalar from already
+    computed solutions ``alpha = K^-1 y`` and ``zs = K^-1 r_i``, at the
+    dtype of the ``grid_data`` artifacts."""
+    cdtype = grid_data[0].dists.dtype
+    K = build_kski(spec, cast_params(raw_params, cdtype), grid_data, lens)
+    operands = torch.cat([alpha.detach()[None], probes], dim=0).to(cdtype)
+    applied = K.matvec(operands)
+    quad_term = 0.5 * torch.dot(operands[0], applied[0])
+    trace_term = torch.sum(zs.detach().to(cdtype) * applied[1:]) \
+        / probes.shape[0]
+    return quad_term - 0.5 * trace_term
+
+
+def stochastic_mll_surrogate(spec, raw_params, grid_data, lens, y, probes,
+                             tol=1e-4, maxiter=None, method="minres",
+                             grid_data32=None, inner_data32=None, cycle=None,
+                             stall_ratio=None):
+    """Scalar whose autograd gradient is the stochastic MLL gradient, and
+    its :class:`StochasticAux` (parity: likelihood.py:386-506).
+
+    The solve of K [y, r_1..r_N] runs without gradients. With
+    ``grid_data32`` (float32 dense-mode preconditioner artifacts: the
+    fine grid of an all-dense model, or the twin of an fft group) it is
+    Woodbury-preconditioned CG with inner float32 cycles through
+    ``inner_data32`` (the fine float32 operator; default the
+    ``grid_data32`` one) and model-dtype true-residual refinement;
+    otherwise plain batched MINRES or CG (``method``). The JAX
+    package's ``rhs_sharding`` (multi-device) and ``diff_data`` (its
+    TPU float32 gradient twin) are not ported."""
+    with torch.no_grad():
+        solve_params = _detached(raw_params)
+        K_ng = build_kski(spec, solve_params, grid_data, lens)
+        rhs = torch.cat([y[None], probes], dim=0)
+        if grid_data32 is not None:
+            params32 = cast_params(solve_params, torch.float32)
+            K32 = build_kski(spec, params32, grid_data32, lens)
+            wb = build_device_woodbury(
+                K32.groups, spec.noise(params32), K32.noise_n,
+                tuple(gd.WtW for gd in grid_data32),
+            )
+            inner_mv = (K32.matvec if inner_data32 is None else
+                        build_kski(spec, params32, inner_data32, lens).matvec)
+            res = woodbury_pcg(
+                K_ng.matvec, wb, rhs, tol=tol, maxiter=maxiter,
+                inner_matvec=inner_mv,
+                cycle=10 if cycle is None else cycle,
+                stall_ratio=0.99 if stall_ratio is None else stall_ratio,
+            )
+        else:
+            solver = batched_minres if method == "minres" else batched_cg
+            res = solver(
+                K_ng.matvec, rhs, tol=tol, maxiter=maxiter,
+                cycle=100 if cycle is None else cycle,
+                stall_ratio=0.99 if stall_ratio is None else stall_ratio,
+            )
+    alpha, zs = res.x[0], res.x[1:]
+    surrogate = stochastic_surrogate_from_solves(
+        spec, raw_params, grid_data, lens, alpha, zs, probes)
+    aux = StochasticAux(
+        alpha=alpha,
+        solve_iters=torch.mean(res.iterations.to(torch.float32)),
+        solve_error=torch.mean(res.error),
+        quad=torch.dot(y, alpha),
+    )
+    return surrogate, aux

@@ -1,21 +1,27 @@
-"""InterpolatedLLGP — the SKI LMC multi-output GP: exact-objective
-training and 'on-the-fly' prediction (parity:
+"""InterpolatedLLGP — the SKI LMC multi-output GP: training with the
+exact or the stochastic objective and 'on-the-fly' prediction (parity:
 runlmc_tpu/models/interpolated_llgp.py).
 
-Training (:meth:`InterpolatedLLGP.optimize`) runs AdaDelta on the exact
-marginal likelihood of the factorized SKI model, differentiated by
-torch autograd through a direct Woodbury factorization built every
-step in float32 (or at the model dtype after an escalation). Steps run
-on the device in chunks of ``chunk_len``; the host replays the
-reference's stopping rule once per chunk. Prediction is one certified
-batched solve of K_SKI against [y; K_*X], preconditioned by a float32
-Woodbury factor.
+Training (:meth:`InterpolatedLLGP.optimize`) runs AdaDelta on one of two
+objectives. The exact objective (all-dense grids) differentiates the
+exact marginal likelihood of the factorized SKI model by torch autograd
+through a direct Woodbury factorization built every step in float32 (or
+at the model dtype after an escalation). The stochastic objective (any
+grid, the only one for fft-mode grids) differentiates the Hutchinson
+surrogate of lmc/likelihood.py, with the solutions of one certified
+batched solve of K against [y; 15 Rademacher probes] per step. Steps
+run on the device in chunks of ``chunk_len``; the host replays the
+reference's stopping rule once per chunk, and a stochastic chunk whose
+solves breach the tolerance is re-run through the rescue rungs.
+Prediction is one certified batched solve of K_SKI against [y; K_*X],
+preconditioned by a float32 Woodbury factor.
 
 The device path runs the hand kernels of runlmc_tpu_torch/hopper/: K1
-builds each grid kernel K_UU and its backward carries the gradient to
-the kernel and coregionalization parameters, K7 the cross-covariance
-K_*X, K6 fuses the CG updates of the solve, and K9 interpolates the
-predictive mean.
+builds each dense grid kernel K_UU and its backward carries the gradient
+to the kernel and coregionalization parameters; on fft grids K10 does
+the Fourier-space contraction and its backward; K7 the cross-covariance
+K_*X; K6 fuses the CG updates and K12 the MINRES updates of the solves;
+K9 interpolates the predictive mean.
 """
 
 import logging
@@ -28,11 +34,18 @@ import torch
 import runlmc_tpu_torch.lmc.woodbury as wbm
 from runlmc_tpu_torch.config import DEFAULT_DTYPE, resolve_device
 from runlmc_tpu_torch.lmc import likelihood as lk
-from runlmc_tpu_torch.lmc.grid import build_kski, make_grids, to_dense_f32
+from runlmc_tpu_torch.lmc.grid import (
+    build_kski,
+    fine_fft_f32,
+    make_grids,
+    precond_dense_f32,
+    to_dense_f32,
+)
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.models.multigp import MultiGP
 from runlmc_tpu_torch.models.optimization import AdaDelta
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
+from runlmc_tpu_torch.ops.solvers import batched_minres
 from runlmc_tpu_torch.utils.carry import (
     cast_params,
     from_reference_params,
@@ -62,18 +75,38 @@ VALIDATION_GUARD_MAX_IT = 60
 F32_JITTER = (1e-6, 1e-4, 1e-2)
 F32_C_JITTER = (0.0, 1e-6, 1e-3)
 
-STOCHASTIC_SLICE = (
-    "the stochastic training objective (Hutchinson trace-estimator "
-    "surrogate with MINRES solves) comes with slice 3 of the PyTorch "
-    "port; this slice trains with the exact objective only"
-)
-
 # Iteration budget of one certified-solve rung: the JAX package's 30
 # host-driven rounds of at most 100 iterations each
 # (interpolated_llgp.py:759, 1853), spent here in one batched solve.
 # The rounds and their row slices exist there to bound single TPU
 # executions under the runtime watchdog, which the card does not have.
 RUNG_MAXITER = 3000
+# The training rescue's rung budget: the JAX package's 5 rounds of 100
+# iterations (interpolated_llgp.py:1656-1659), in one batched solve.
+RESCUE_MAXITER = 500
+# Plain MINRES cycle of the certified solve's last rung (the JAX
+# package's 150-iteration rounds, interpolated_llgp.py:818-821).
+KRYLOV_CYCLE = 150
+
+
+def _worst_of(errs):
+    """The largest of ``errs``; NaN reads as a breach (inf)."""
+    w = float(np.max(np.asarray(errs, dtype=float)))
+    return w if math.isfinite(w) else float("inf")
+
+
+def _bad_steps(errs, tol):
+    errs = np.asarray(errs, dtype=float)
+    return (errs > tol) | ~np.isfinite(errs)
+
+
+def _probe_seed(run_seed, it):
+    """The seed of the probe generator of global iteration ``it``: the
+    stream depends on (run seed, iteration) only, so chunk boundaries
+    and resumes do not change it. The pair is hashed into every bit of
+    the seed: the CPU generator keeps only its low 32 bits."""
+    state = np.random.SeedSequence([int(run_seed), int(it)])
+    return int(state.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
 
 
 class InterpolatedLLGP(MultiGP):
@@ -82,19 +115,25 @@ class InterpolatedLLGP(MultiGP):
     :param Xs, Ys: per-output ragged data (see :class:`MultiGP`)
     :param functional_kernel: an :class:`LMCKernelSpec`
     :param lo, hi, m: optional per-dim grid bounds / sizes
-    :param prediction: 'on-the-fly' (the only method of this slice)
+    :param prediction: 'on-the-fly' (the only method ported so far)
+    :param trace_iterations: Hutchinson probes per stochastic gradient
     :param tolerance: absolute residual tolerance of certified solves
+    :param solver: 'minres' | 'cg' — the plain Krylov solver of the
+        stochastic objective's rescue rung
     :param seed: seed of the initial parameters (``init_raw_params``)
+        and of the probe streams
     :param dtype: model dtype (default float64)
-    :param grid_mode: 'auto' | 'dense'; groups past the dense cap raise
-        ``NotImplementedError`` (fft mode comes in a later slice)
+    :param grid_mode: 'auto' | 'dense' | 'fft'; 'auto' runs groups past
+        ``DENSE_MAX_GRID`` points in fft mode
     :param objective: 'auto' | 'exact' | 'stochastic' — the training
-        objective. 'auto' probes the f32 Woodbury factorization residual
-        at the initial parameters (and, on a breach, once more with the
-        Jacobi equilibration flipped) and picks 'exact' when it
-        certifies below ``EXACT_RESIDUAL_THRESHOLD``; an auto-selected
-        'exact' runs the held-out-block validation guard before its
-        first training. Training with 'stochastic' comes in slice 3.
+        objective. 'exact' needs every group in dense mode. 'auto' on
+        an all-dense model probes the f32 Woodbury factorization
+        residual at the initial parameters (and, on a breach, once more
+        with the Jacobi equilibration flipped) and picks 'exact' when it
+        certifies below ``EXACT_RESIDUAL_THRESHOLD``, else
+        'stochastic'; an auto-selected 'exact' runs the held-out-block
+        validation guard before its first training. 'auto' with an fft
+        group is 'stochastic'.
     :param exact_precision: 'f32' | 'model' — the dtype of the exact
         objective's per-step factorization (training escalates 'f32' to
         'model' on a residual breach)
@@ -117,7 +156,9 @@ class InterpolatedLLGP(MultiGP):
         name="lmc",
         metrics=False,
         prediction="on-the-fly",
+        trace_iterations=15,
         tolerance=1e-4,
+        solver="minres",
         functional_kernel=None,
         seed=0,
         dtype=None,
@@ -134,8 +175,9 @@ class InterpolatedLLGP(MultiGP):
         # guard builds a twin model on block-held-out data
         self._raw_Ys = [np.asarray(Y, dtype=float) for Y in Ys]
         self._ctor = dict(
-            normalize=normalize, lo=lo, hi=hi, m=m, tolerance=tolerance,
-            seed=seed, dtype=dtype, grid_mode=grid_mode,
+            normalize=normalize, lo=lo, hi=hi, m=m,
+            trace_iterations=trace_iterations, tolerance=tolerance,
+            solver=solver, seed=seed, dtype=dtype, grid_mode=grid_mode,
             exact_precision=exact_precision,
             functional_kernel=functional_kernel, device=device,
         )
@@ -154,12 +196,16 @@ class InterpolatedLLGP(MultiGP):
             raise ValueError("unknown objective %r" % (objective,))
         if exact_precision not in ("f32", "model"):
             raise ValueError("unknown exact_precision %r" % (exact_precision,))
+        if solver not in ("minres", "cg"):
+            raise ValueError("unknown solver %r" % (solver,))
         self.prediction = prediction
         self.spec: LMCKernelSpec = functional_kernel.with_input_dim(
             self.input_dim
         )
         self.dtype = dtype or DEFAULT_DTYPE
+        self.n_probes = int(trace_iterations)
         self.tolerance = float(tolerance)
+        self.solver = solver
         # optimizer steps per device chunk (interpolated_llgp.py:207-213)
         self.chunk_len = 10
 
@@ -172,9 +218,25 @@ class InterpolatedLLGP(MultiGP):
             self.spec, self.Xs, lo, hi, m, mode=grid_mode
         )
         self.grid_data = tuple(gd.to(self.dtype, dev) for gd in grid_data)
-        # float32 twin: the Woodbury preconditioner factor and the inner
-        # operator of the mixed-precision solves
-        self.grid_data32 = to_dense_f32(self.grid_data)
+        # float32 twins: ``precond_data32`` feeds the Woodbury
+        # preconditioner factor, ``inner_data32`` the inner operator of
+        # the mixed-precision solves. An all-dense model factorizes its
+        # own fine grid (``grid_data32``, the exact objective's input
+        # too); an fft group contributes its dense twin to the factor
+        # and its fine fft operator to the inner cycles.
+        if self._all_dense:
+            self.grid_data32 = to_dense_f32(self.grid_data)
+            self.precond_data32 = self.inner_data32 = self.grid_data32
+        else:
+            self.grid_data32 = None
+            memo = {}
+            self.precond_data32 = precond_dense_f32(grid_data, dev, memo)
+            self.inner_data32 = fine_fft_f32(grid_data, dev, memo)
+        if objective == "exact" and not self._all_dense:
+            raise ValueError(
+                "objective='exact' requires every grid group in dense mode "
+                "(grid_mode='dense', or grids small enough under 'auto')"
+            )
         for gd in self.grid_data:
             _LOG.info(
                 "InterpolatedLLGP %s generated grid (n=%d, m=%d) for "
@@ -198,7 +260,9 @@ class InterpolatedLLGP(MultiGP):
         self._equilibrate = None
         self._equilibrate_flip_tried = False
         self._auto_exact_guard = False
-        if objective == "auto":
+        if objective == "auto" and not self._all_dense:
+            self.objective = "stochastic"
+        elif objective == "auto":
             res = self._probe_residual(self.params, None)
             if res > EXACT_RESIDUAL_THRESHOLD:
                 flipped = not wbm.EQUILIBRATE_DEFAULT
@@ -222,6 +286,13 @@ class InterpolatedLLGP(MultiGP):
                 "(threshold %g) -> %s objective",
                 res, EXACT_RESIDUAL_THRESHOLD, self.objective,
             )
+        # run seeds of the probe streams (one per optimize call), drawn
+        # from the model seed; see _probes
+        self._seed_rng = np.random.default_rng(seed)
+        # optional ``(run_seed, global_iter) -> (n_probes, n)`` source of
+        # the stochastic objective's probes, in place of the seeded
+        # generator (tests feed the JAX package's stream through it)
+        self.probe_stream = None
         self._cache = {}
         # per-parameter-setting solve diagnostics of the latest
         # prediction solves
@@ -257,6 +328,18 @@ class InterpolatedLLGP(MultiGP):
         ))
         return res if math.isfinite(res) else float("inf")
 
+    @property
+    def _all_dense(self):
+        return all(gd.plan.mode == "dense" for gd in self.grid_data)
+
+    @property
+    def _gradient_adopt_bound(self):
+        """The calibrated gradient-accuracy residual bound of training
+        solves (parity: interpolated_llgp.py:1584-1593): the tolerance,
+        or an absolute 2e-2 * sqrt(n) (probes have norm sqrt(n), and a
+        relative residual of 2e-2 keeps the gradient within 0.4%)."""
+        return max(self.tolerance, 2e-2 * math.sqrt(len(self.data.y)))
+
     # ----------------------------------------------------------- operators
 
     def _kski(self):
@@ -268,32 +351,41 @@ class InterpolatedLLGP(MultiGP):
         return self._cache["kski"]
 
     def _kski32(self):
-        """Float32 K_SKI: the inner operator of the mixed-precision
-        solves and the input of the float32 Woodbury factor."""
+        """Float32 K_SKI on ``inner_data32``: the inner operator of the
+        mixed-precision solves (and, for an all-dense model, the input
+        of the float32 Woodbury factor)."""
         if "kski32" not in self._cache:
             self._cache["kski32"] = build_kski(
                 self.spec, cast_params(self.params, torch.float32),
-                self.grid_data32, self.data.lens,
+                self.inner_data32, self.data.lens,
             )
         return self._cache["kski32"]
 
     def _woodbury32(self):
-        """Float32 Woodbury factor — the prediction-time preconditioner."""
+        """Float32 Woodbury factor on ``precond_data32`` — the
+        preconditioner of the certified solves: exact at float32 for an
+        all-dense model, the dense twin's for an fft group."""
         if "woodbury32" not in self._cache:
-            K32 = self._kski32()
+            K32 = (self._kski32() if self.precond_data32 is self.inner_data32
+                   else build_kski(self.spec,
+                                   cast_params(self.params, torch.float32),
+                                   self.precond_data32, self.data.lens))
             noise32 = self.spec.noise(
                 cast_params(self.params, torch.float32)
             )
             self._cache["woodbury32"] = wbm.build_device_woodbury(
                 K32.groups, noise32, K32.noise_n,
-                tuple(gd.WtW for gd in self.grid_data32),
+                tuple(gd.WtW for gd in self.precond_data32),
                 equilibrate=self._equilibrate,
             )
         return self._cache["woodbury32"]
 
     def _woodbury(self):
         """Model-dtype Woodbury factor with tight jitter — the escalation
-        rung (parity: interpolated_llgp.py:706-729)."""
+        rung of an all-dense model (parity: interpolated_llgp.py:706-729)."""
+        if not self._all_dense:
+            raise ValueError("the model-dtype Woodbury factor needs every "
+                             "grid group in dense mode")
         if "woodbury" not in self._cache:
             K = self._kski()
             tight, c_tight = self._model_ladders()
@@ -307,46 +399,86 @@ class InterpolatedLLGP(MultiGP):
 
     # -------------------------------------------------------------- solves
 
-    def _solve_certified(self, rhs, what):
+    def _solve_certified(self, rhs, what, tol=None, maxiter=None):
         """K^-1 rhs (batched, model dtype), every rung checking TRUE
         residuals (parity: interpolated_llgp.py:1784-1983, f64-native
         branch):
 
         1. CG preconditioned by the float32 Woodbury factor, float32
            inner cycles, model-dtype outer refinement;
-        2. on a stall, CG preconditioned by the model-dtype factor;
+        2. on a stall, for an all-dense model, CG preconditioned by the
+           model-dtype factor; for a model with an fft group, model-dtype
+           CG cycles with the float32 factor, warm-started (rung 1.5),
+           then plain model-dtype MINRES, warm-started from the better
+           iterate (rung 2);
         3. a CRITICAL log with the best iterate.
 
-        Returns (solutions, worst absolute residual); records
-        ``residual``, ``iterations``, ``escalated`` and ``rhs`` under
+        Every rung's solver aims at the model tolerance; ``tol``
+        (default the model tolerance; the training rescue passes its
+        looser calibrated bound) decides when to escalate, and
+        ``maxiter`` (default ``RUNG_MAXITER``) bounds each rung. Returns
+        (solutions, worst absolute residual); records ``residual``,
+        ``iterations``, ``escalated`` and ``rhs`` under
         ``prediction_report[what]``."""
-        tol = self.tolerance
-        budget = RUNG_MAXITER
+        tol = self.tolerance if tol is None else float(tol)
+        aim = self.tolerance  # as the JAX package's rounds (:780, :819)
+        budget = RUNG_MAXITER if maxiter is None else int(maxiter)
         K = self._kski()
 
         def _worst(res):
-            w = float(torch.max(res.error))
-            # NaN compares False vs thresholds: treat as a breach
-            return w if math.isfinite(w) else float("inf")
+            return _worst_of(torch.max(res.error).item())
 
-        res = wbm.woodbury_pcg(K.matvec, self._woodbury32(), rhs, tol=tol,
+        def _from(x0, solve):
+            """Warm start: solve K dx = rhs - K x0; (x0 + dx, result)."""
+            res = solve(rhs - K.matvec(x0))
+            return x0 + res.x, res
+
+        res = wbm.woodbury_pcg(K.matvec, self._woodbury32(), rhs, tol=aim,
                                maxiter=budget,
                                inner_matvec=self._kski32().matvec)
         x, worst = res.x, _worst(res)
         iters = int(torch.max(res.iterations))
         escalated = worst > tol
-        if escalated:
+        if escalated and self._all_dense:
             _LOG.warning(
                 "%s: f32-preconditioned solve stalled at residual %e "
                 "(tolerance %g) — escalating to the model-dtype "
                 "factorization", what, worst, tol,
             )
             res2 = wbm.woodbury_pcg(K.matvec, self._woodbury(), rhs,
-                                    tol=tol, maxiter=budget)
-            w2 = _worst(res2)
+                                    tol=aim, maxiter=budget)
+            x2, w2 = res2.x, _worst(res2)
             iters += int(torch.max(res2.iterations))
             if w2 <= worst:
-                x, worst = res2.x, w2
+                x, worst = x2, w2
+        elif escalated:
+            _LOG.warning(
+                "%s: f32-preconditioned solve stalled at residual %e "
+                "(tolerance %g) — escalating to model-dtype cycles with "
+                "the f32 factor", what, worst, tol,
+            )
+            wb32 = self._woodbury32()
+            x2, res2 = _from(x, lambda r: wbm.woodbury_pcg(
+                K.matvec, wb32, r, tol=aim, maxiter=budget))
+            w2 = _worst(res2)
+            it2 = int(torch.max(res2.iterations))
+            if w2 > tol:
+                _LOG.warning(
+                    "%s: preconditioned model-dtype cycles still at "
+                    "residual %e — final plain-Krylov rung", what, w2,
+                )
+                x2b, res2b = _from(x2 if w2 <= worst else x,
+                                   lambda r: batched_minres(
+                                       K.matvec, r, tol=aim, maxiter=budget,
+                                       cycle=KRYLOV_CYCLE,
+                                       stall_ratio=0.999))
+                w2b = _worst(res2b)
+                it2 += int(torch.max(res2b.iterations))
+                if w2b <= w2:
+                    x2, w2 = x2b, w2b
+            iters += it2
+            if w2 <= worst:
+                x, worst = x2, w2
         if worst > tol:
             _LOG.critical(
                 "%s (n = %d) did not converge: reconstruction error %e",
@@ -400,16 +532,85 @@ class InterpolatedLLGP(MultiGP):
             (g,) = torch.autograd.grad(-mll, xc)
         return g.to(x_flat.dtype), aux
 
-    def _chunk(self, x0, gms0, sms0, stp0, optimizer, n_steps=None):
+    def _probes(self, run_seed, it):
+        """The (n_probes, n) Rademacher probes of global iteration ``it``
+        of the run ``run_seed``, from a device generator seeded with the
+        pair (parity of design: interpolated_llgp.py:667-676 folds the
+        iteration into the run key), or from ``probe_stream``."""
+        if self.probe_stream is not None:
+            return torch.as_tensor(
+                np.asarray(self.probe_stream(run_seed, it)),
+                dtype=self.dtype, device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_probe_seed(run_seed, it))
+        return lk.rademacher_probes(gen, self.n_probes, len(self.data.y),
+                                    self.dtype, self.device)
+
+    def _next_run_seed(self):
+        return int(self._seed_rng.integers(2**31 - 1))
+
+    def _stochastic_grad(self, x_flat, probes, rescue=False):
+        """Gradient of the negative stochastic surrogate at ``x_flat``
+        with ``probes``, and the surrogate's aux (parity:
+        interpolated_llgp.py:568-622). The solve is the Woodbury-
+        preconditioned one; ``rescue`` selects plain long-cycle Krylov
+        at the model dtype instead (budget ``min(4n, 500)``, stall ratio
+        0.999, no preconditioner), the first rescue rung. Autograd runs
+        through the model-dtype operator (K10's backward, or K1's)."""
+        if rescue:
+            budget = min(4 * len(self.data.y), 500)
+            opts = dict(cycle=budget, stall_ratio=0.999, maxiter=budget)
+        else:
+            opts = dict(grid_data32=self.precond_data32,
+                        inner_data32=self.inner_data32)
+        with torch.enable_grad():
+            xc = x_flat.detach().to(self.dtype).requires_grad_(True)
+            params = unravel_params(xc, self.params)
+            s, aux = lk.stochastic_mll_surrogate(
+                self.spec, params, self.grid_data, self.data.lens, self.y,
+                probes, tol=self.tolerance, method=self.solver, **opts)
+            (g,) = torch.autograd.grad(-s, xc)
+        return g, aux
+
+    def _grad_from_solves(self, x_flat, probes, alpha, zs):
+        """Gradient of the negative surrogate from given solutions (parity:
+        interpolated_llgp.py:632-652): the contraction half of the
+        certified training rescue."""
+        with torch.enable_grad():
+            xc = torch.as_tensor(np.asarray(x_flat), dtype=self.dtype,
+                                 device=self.device).requires_grad_(True)
+            params = unravel_params(xc, self.params)
+            s = lk.stochastic_surrogate_from_solves(
+                self.spec, params, self.grid_data, self.data.lens, alpha,
+                zs, probes)
+            (g,) = torch.autograd.grad(-s, xc)
+        return g
+
+    def stochastic_grad(self):
+        """One stochastic-gradient evaluation of the minimized objective
+        (the negative MLL surrogate) at the current parameters, flat,
+        with the probes of a fresh run seed (parity:
+        interpolated_llgp.py:2110-2121)."""
+        x = ravel_params(self.params)
+        g, _ = self._stochastic_grad(x, self._probes(self._next_run_seed(),
+                                                     0))
+        return g.cpu().numpy()
+
+    def _chunk(self, x0, gms0, sms0, stp0, optimizer, n_steps=None, start=0,
+               run_seed=0, rescue=False):
         """``n_steps`` (default ``chunk_len``) AdaDelta iterations on the
         device from the host state ``(x0, gms0, sms0, stp0)`` (parity:
-        interpolated_llgp.py:656-703): the gradient, the climin-style
-        update at the model dtype and the per-step gradient norms stay
-        on the device, and the stacked per-step outputs
-        ``(xs, gmss, smss, steps, grad_norms, solve_errors)`` cross to
-        the host once, as numpy. A Python loop: the host reads of each
-        Cholesky's ``info`` (woodbury.chol_jittered) rule out capturing
-        it as one CUDA graph for now."""
+        interpolated_llgp.py:656-703), on the model's objective: the
+        gradient, the climin-style update at the model dtype and the
+        per-step gradient norms stay on the device, and the stacked
+        per-step outputs ``(xs, gmss, smss, steps, grad_norms,
+        solve_iters, solve_errors)`` cross to the host once, as numpy.
+        A stochastic step of global iteration ``start + i`` draws the
+        probes of (``run_seed``, ``start + i``); ``rescue`` selects the
+        plain-Krylov solve (:meth:`_stochastic_grad`). A Python loop:
+        the host reads of each Cholesky's ``info`` (woodbury.chol_jittered)
+        and of the solvers' convergence flags rule out capturing it as
+        one CUDA graph for now."""
         dev, dt = self.device, self.dtype
         hp = torch.tensor(
             [optimizer.step_rate, optimizer.decay, optimizer.momentum,
@@ -419,47 +620,54 @@ class InterpolatedLLGP(MultiGP):
         x, gms, sms, stp = (torch.as_tensor(np.asarray(a), dtype=dt,
                                             device=dev)
                             for a in (x0, gms0, sms0, stp0))
+        stochastic = self.objective == "stochastic"
         outs = []
-        for _ in range(self.chunk_len if n_steps is None else n_steps):
+        for i in range(self.chunk_len if n_steps is None else n_steps):
             step1 = stp * momentum
             x1 = x - step1
-            g, aux = self._exact_grad(x1)
+            if stochastic:
+                g, aux = self._stochastic_grad(
+                    x1, self._probes(run_seed, start + i), rescue=rescue)
+                iters = aux.solve_iters.to(dt)
+            else:
+                g, aux = self._exact_grad(x1)
+                iters = torch.zeros((), dtype=dt, device=dev)
             gms = decay * gms + (1.0 - decay) * g * g
             step2 = (torch.sqrt(sms + offset) / torch.sqrt(gms + offset)
                      * g * step_rate)
             x = x1 - step2
             stp = step1 + step2
             sms = decay * sms + (1.0 - decay) * stp * stp
-            outs.append((x, gms, sms, stp, torch.max(torch.abs(g)),
+            outs.append((x, gms, sms, stp, torch.max(torch.abs(g)), iters,
                          aux.solve_error.to(dt)))
         return tuple(torch.stack(col).cpu().numpy() for col in zip(*outs))
 
     def optimize(self, optimizer=None, state=None, **kwargs):
         """Train the parameters with an :class:`AdaDelta` (extra kwargs
-        construct the default one) on the exact objective (parity:
-        interpolated_llgp.py:930-1456, exact branches).
+        construct the default one) on the model's objective (parity:
+        interpolated_llgp.py:930-1456).
 
         An auto-selected exact objective first runs the held-out-block
-        validation guard. Steps run on the device in chunks
-        (:meth:`_chunk`) and the host replays the stopping rule
-        (``AdaDelta.minimize_chunked``). A chunk whose worst factorized
-        solve residual exceeds ``EXACT_RESIDUAL_THRESHOLD`` escalates
-        the remaining steps: float32 factorizations to the model dtype
-        where that is float64, then, on a further breach, the Jacobi
-        equilibration flip if the flipped float32 probe certifies. Where
-        the JAX package would demote to the stochastic objective, this
-        raises ``NotImplementedError`` (slice 3).
+        validation guard and demotes to the stochastic objective on a
+        breach. Steps run on the device in chunks (:meth:`_chunk`) and
+        the host replays the stopping rule
+        (``AdaDelta.minimize_chunked``). An exact chunk whose worst
+        factorized-solve residual exceeds ``EXACT_RESIDUAL_THRESHOLD``
+        escalates the remaining steps: float32 factorizations to the
+        model dtype where that is float64, then the Jacobi equilibration
+        flip if the flipped float32 probe certifies, then the stochastic
+        objective. A stochastic chunk whose solves breach the tolerance
+        goes through :meth:`_rescue_chunk`.
 
-        ``state``: an earlier ``info['state']`` to resume from; an
-        ``rng_key`` in it is ignored (the exact objective draws no
-        probes). Returns the info dict of the optimizer plus
+        ``state``: an earlier ``info['state']`` to resume from; its
+        ``rng_key`` (the run seed of the probe stream) continues the same
+        probe stream. Returns the info dict of the optimizer plus
         ``device_seconds``, ``device_steps``, ``mean_solve_iters``,
         ``max_solve_error`` and ``rescued_chunks``."""
         if optimizer is None:
             optimizer = AdaDelta(**kwargs)
-        if self.objective != "exact":
-            raise NotImplementedError(STOCHASTIC_SLICE)
-        if self._auto_exact_guard and state is None:
+        if (self._auto_exact_guard and self.objective == "exact"
+                and state is None):
             self._auto_exact_guard = False  # run once
             t0 = time.time()
             z2v, zfrac = self._validate_exact_objective(optimizer)
@@ -469,51 +677,219 @@ class InterpolatedLLGP(MultiGP):
             )
             if (z2v > VALIDATION_ZSQ_THRESHOLD
                     or zfrac > VALIDATION_ZEROVAR_THRESHOLD):
-                raise NotImplementedError(
-                    "objective='auto': the exact objective fails the "
+                _LOG.warning(
+                    "objective='auto': exact objective fails the "
                     "held-out-block calibration check (z^2 %.3g > %g or "
-                    "zero-variance fraction %.2f > %g), where the JAX "
-                    "package demotes to the stochastic objective; %s"
-                    % (z2v, VALIDATION_ZSQ_THRESHOLD, zfrac,
-                       VALIDATION_ZEROVAR_THRESHOLD, STOCHASTIC_SLICE)
+                    "zero-variance fraction %.2f > %g) — using the "
+                    "stochastic objective", z2v, VALIDATION_ZSQ_THRESHOLD,
+                    zfrac, VALIDATION_ZEROVAR_THRESHOLD,
                 )
-            _LOG.info(
-                "objective='auto': exact objective validates on held-out "
-                "blocks (z^2 %.3g, zero-var %.2f)", z2v, zfrac,
-            )
+                self.objective = "stochastic"
+            else:
+                _LOG.info(
+                    "objective='auto': exact objective validates on "
+                    "held-out blocks (z^2 %.3g, zero-var %.2f)", z2v, zfrac,
+                )
+        if state is not None and "rng_key" in state:
+            run_seed = int(np.asarray(state["rng_key"]).reshape(()))
+        else:
+            run_seed = self._next_run_seed()
 
-        stats = {"steps": 0, "seconds": 0.0, "errors": []}
+        stats = {"steps": 0, "seconds": 0.0, "iters": [], "errors": [],
+                 "rescued_chunks": 0}
+        # the futility latch: once every rescue rung missed the
+        # calibrated bound on a chunk, later breached chunks of the run
+        # skip the attempts (interpolated_llgp.py:1011-1018)
+        futile = [False]
 
-        def run_chunk(x, gms, sms, step, start_iter):
-            del start_iter  # the exact objective draws no probes
+        def run_chunk(x, gms, sms, step, start_iter, stop_probe=None):
             t0 = time.time()
-            xs, gmss, smss, steps, gns, errs = self._chunk(
-                x, gms, sms, step, optimizer)
+            outs = self._chunk(x, gms, sms, step, optimizer,
+                               start=start_iter, run_seed=run_seed)
+            if self.objective == "stochastic":
+                outs = self._rescue_chunk(
+                    outs, (x, gms, sms, step), start_iter, run_seed,
+                    optimizer, stop_probe, stats, futile)
+            xs, gmss, smss, steps, gns, iters, errs = outs
             stats["seconds"] += time.time() - t0
             stats["steps"] += len(gns)
+            stats["iters"].extend(np.asarray(iters, float))
             stats["errors"].extend(np.asarray(errs, float))
-            worst = float(np.max(errs))
-            if not math.isfinite(worst):
-                worst = float("inf")  # NaN residual: a breach
-            if worst > EXACT_RESIDUAL_THRESHOLD:
+            worst = _worst_of(errs)
+            if self.objective == "exact" and worst > EXACT_RESIDUAL_THRESHOLD:
                 self._escalate(worst, xs[-1])
             return xs, gmss, smss, steps, gns
 
         x_opt, info = optimizer.minimize_chunked(self.param_array, run_chunk,
                                                  state=state)
+        info["state"]["rng_key"] = np.asarray(run_seed, dtype=np.int64)
         info["device_seconds"] = stats["seconds"]
         info["device_steps"] = stats["steps"]
-        info["mean_solve_iters"] = 0.0  # direct solves
+        info["mean_solve_iters"] = float(np.mean(stats["iters"]))
         info["max_solve_error"] = float(np.max(stats["errors"]))
-        info["rescued_chunks"] = 0
+        info["rescued_chunks"] = stats["rescued_chunks"]
         _LOG.info(
-            "optimize: %d device steps in %.2fs (%.1f ms/step; worst "
-            "residual %.2e)", stats["steps"], stats["seconds"],
-            1e3 * stats["seconds"] / max(stats["steps"], 1),
-            info["max_solve_error"],
+            "optimize: %d device steps in %.2fs (%.1f ms/step; mean solve "
+            "iters %.1f, worst residual %.2e)", stats["steps"],
+            stats["seconds"], 1e3 * stats["seconds"] / max(stats["steps"], 1),
+            info["mean_solve_iters"], info["max_solve_error"],
         )
         self.param_array = x_opt
         return info
+
+    def _rescue_chunk(self, outs, st0, start_iter, run_seed, optimizer,
+                      stop_probe, stats, futile):
+        """The stochastic objective's in-training escalation for one
+        chunk's stacked outputs ``outs`` from the entry state ``st0``
+        (parity: interpolated_llgp.py:1061-1291). When the worst solve
+        residual exceeds the tolerance:
+
+        - a breach past the stopping point (``stop_probe`` over the
+          certified prefix) truncates the chunk there;
+        - after a futile rescue on this run, the breach is tolerated;
+        - rung 1 re-runs from the first breached step with the plain
+          Krylov solve (:meth:`_stochastic_grad` ``rescue``), one step
+          at a time, and bails when its first step misses the
+          calibrated bound;
+        - rung 2 re-runs the breached steps with certified-ladder
+          solves (:meth:`_rescue_steps_certified`).
+
+        A rescued stream is adopted only when it meets
+        ``_gradient_adopt_bound`` and certifies better than the plain
+        one. Returns the (possibly replaced) outputs."""
+        tol = self.tolerance
+        gns, errs = outs[4], outs[6]
+        worst = _worst_of(errs)
+        if worst <= tol:
+            return outs
+        if stop_probe is not None:
+            j0 = int(np.argmax(_bad_steps(errs, tol)))
+            stop_j = (stop_probe(np.asarray(gns[:j0], dtype=float))
+                      if j0 > 0 else None)
+            if stop_j is not None:
+                _LOG.info(
+                    "chunk breach (residual %e) occurs past the stopping "
+                    "point (chunk step %d) — discarding the breached tail "
+                    "instead of rescuing it", worst, stop_j,
+                )
+                return tuple(a[:stop_j + 1] for a in outs)
+        if futile[0]:
+            _LOG.warning(
+                "chunk worst solve residual %e exceeds tolerance; rescue "
+                "already proved futile on this trajectory — tolerating "
+                "inexact gradients", worst,
+            )
+            return outs
+        stats["rescued_chunks"] += 1
+        _LOG.warning(
+            "chunk worst solve residual %e exceeds the %g tolerance — "
+            "re-running with the plain-Krylov rescue", worst, tol,
+        )
+        adopt = self._gradient_adopt_bound
+        j0 = int(np.argmax(_bad_steps(errs, tol)))
+        st = st0 if j0 == 0 else tuple(a[j0 - 1] for a in outs[:4])
+        pieces = []
+        for j in range(j0, len(gns)):
+            o = self._chunk(*st, optimizer, n_steps=1, start=start_iter + j,
+                            run_seed=run_seed, rescue=True)
+            st = tuple(a[-1] for a in o[:4])
+            pieces.append(o)
+            if j == j0 and _worst_of(o[6]) > adopt:
+                _LOG.warning(
+                    "plain-Krylov rescue failed the calibrated bound on its "
+                    "first step — skipping the remaining re-runs")
+                pieces = None
+                break
+        if pieces:
+            r2 = tuple(np.concatenate([outs[k][:j0]] + [p[k] for p in pieces])
+                       for k in range(7))
+            worst2 = _worst_of(r2[6])
+            if worst2 <= adopt and worst2 <= worst:
+                outs, worst = r2, worst2
+        if worst > tol:
+            _LOG.warning(
+                "escalated chunk still above tolerance (residual %e) — "
+                "re-running breached steps with certified-ladder solves",
+                worst)
+            r3 = self._rescue_steps_certified(st0, outs, start_iter,
+                                              optimizer, run_seed)
+            worst3 = _worst_of(r3[6])
+            if worst3 <= adopt and worst3 <= worst:
+                outs, worst = r3, worst3
+        if worst > tol:
+            if worst <= adopt:
+                _LOG.info(
+                    "escalated chunk residual %e is above the %g solve "
+                    "tolerance but within the calibrated gradient-accuracy "
+                    "bound %g", worst, tol, adopt)
+            else:
+                _LOG.warning(
+                    "escalated chunk still above the calibrated bound %g "
+                    "(residual %e) — gradients for those steps are "
+                    "inexact", adopt, worst)
+                futile[0] = True
+        return outs
+
+    def _rescue_steps_certified(self, st0, plain, start_iter, optimizer,
+                                run_seed):
+        """Rung 2 of the training rescue (parity:
+        interpolated_llgp.py:1602-1707): re-run every step of a chunk
+        from its first breached step with solves from the certified
+        ladder (:meth:`_solve_certified`, bounded by the calibrated
+        gradient-accuracy bound and ``RESCUE_MAXITER``), gradients from
+        :meth:`_grad_from_solves`, and the AdaDelta update replayed on
+        the host in float64 numpy. ``st0``: the chunk-entry state;
+        ``plain``: the 7-tuple of stacked chunk outputs. Returns the same
+        layout, or ``plain`` as soon as one step misses the bound. The
+        model's parameters are restored."""
+        xs, gmss, smss, steps, gns, iters, errs = plain
+        j0 = int(np.argmax(_bad_steps(errs, self.tolerance)))
+        st = st0 if j0 == 0 else tuple(a[j0 - 1] for a in plain[:4])
+        x, gms, sms, stp = (np.asarray(a, dtype=float) for a in st)
+        step_rate, decay, momentum, offset = (
+            optimizer.step_rate, optimizer.decay, optimizer.momentum,
+            optimizer.offset)
+        adopt = self._gradient_adopt_bound
+        params_before = self.param_array
+        pieces = []
+        try:
+            for j in range(j0, len(gns)):
+                it_g = start_iter + j
+                step1 = stp * momentum
+                x1 = x - step1
+                probes = self._probes(run_seed, it_g)
+                self.param_array = x1
+                rhs = torch.cat([self.y[None], probes], dim=0)
+                what = "train-rescue[iter %d]" % it_g
+                sols, worst_j = self._solve_certified(
+                    rhs, what, tol=adopt, maxiter=RESCUE_MAXITER)
+                if worst_j > adopt:
+                    _LOG.warning(
+                        "%s: bounded ladder could not reach the calibrated "
+                        "bound %g (residual %e) — abandoning the certified "
+                        "re-run for this chunk", what, adopt, worst_j)
+                    return plain
+                g = self._grad_from_solves(x1, probes, sols[0], sols[1:])
+                g = g.cpu().numpy().astype(float)
+                gms = decay * gms + (1.0 - decay) * g * g
+                step2 = (np.sqrt(sms + offset) / np.sqrt(gms + offset)
+                         * g * step_rate)
+                x = x1 - step2
+                stp = step1 + step2
+                sms = decay * sms + (1.0 - decay) * stp * stp
+                pieces.append((
+                    x, gms, sms, stp, float(np.max(np.abs(g))),
+                    self.prediction_report[what]["iterations"],
+                    float(worst_j),
+                ))
+        finally:
+            self.param_array = params_before
+        return tuple(
+            np.concatenate([np.asarray(plain[k][:j0], dtype=float),
+                            np.stack([np.asarray(p[k], dtype=float)
+                                      for p in pieces])])
+            for k in range(7)
+        )
 
     def _escalate(self, worst, x_last):
         """The exact objective's escalation ladder after a chunk whose
@@ -547,14 +923,16 @@ class InterpolatedLLGP(MultiGP):
                 self._equilibrate = not cur
                 self._bump()
                 return
-        raise NotImplementedError(
+            _LOG.info("equilibration-flipped probe also breaches (%e) — "
+                      "demoting", res_flip)
+        _LOG.warning(
             "exact-objective residual %e exceeded the calibrated %g "
             "threshold with exact_precision=%r and no certifying "
-            "equilibration flip, where the JAX package switches to the "
-            "stochastic objective; %s"
-            % (worst, EXACT_RESIDUAL_THRESHOLD, self.exact_precision,
-               STOCHASTIC_SLICE)
+            "equilibration flip — switching training to the stochastic "
+            "objective for the remaining steps",
+            worst, EXACT_RESIDUAL_THRESHOLD, self.exact_precision,
         )
+        self.objective = "stochastic"
 
     def _validation_split(self):
         """Per-output train/validation split with two CONTIGUOUS held-out
@@ -607,9 +985,11 @@ class InterpolatedLLGP(MultiGP):
     def loo_zsq(self):
         """Mean squared leave-one-out standardized residual of the
         current fit (about 1 when calibrated; woodbury.loo_zsq), from the
-        model-dtype factorization where the model is float64 and the
-        float32 one otherwise (parity: interpolated_llgp.py:1528-1543)."""
-        wb = (self._woodbury() if self.dtype == torch.float64
+        model-dtype factorization where the model is float64 and every
+        group dense, and the float32 one otherwise (parity:
+        interpolated_llgp.py:1528-1543)."""
+        wb = (self._woodbury()
+              if self.dtype == torch.float64 and self._all_dense
               else self._woodbury32())
         return float(wbm.loo_zsq(wb, self.y.to(wb.dtype)))
 

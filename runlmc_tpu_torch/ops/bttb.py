@@ -1,11 +1,113 @@
-"""Symmetric block-Toeplitz-with-Toeplitz-blocks (BTTB) helpers needed by
-dense grid mode (parity: runlmc_tpu/ops/bttb.py:152-172, 254-263).
+"""Symmetric block-Toeplitz-with-Toeplitz-blocks (BTTB) helpers (parity:
+runlmc_tpu/ops/bttb.py:35-172, 254-263).
 
-The fft-mode pieces (``cyclic_extend``, ``bttb_fft``, the operand FFTs)
-come with the fft grid mode in a later slice of the port.
+A symmetric P-level BTTB matrix over a grid of per-axis sizes ``sizes``
+is fully described by its first row ``top`` (length ``prod(sizes)``).
+Dense grid mode materializes it through the index map (kernel K1's
+plain version gathers through :func:`bttb_index_map`). The fft grid
+mode embeds it into a P-dimensional circulant of per-axis size
+``next_pow2(2 * n_p)`` and applies it in O(m log m): the symbol
+``bttb_fft`` (kernel K11 of the kernel table) is a flip and concat of
+the (Q, m) first rows and one ``torch.fft.rfftn``; the operand goes
+through ``operand_fft``/``operand_ifft``, a zero-padded rfftn and the
+cropped irfftn (cuFFT on the card). K11 has no hand kernel: the flips
+and concats are a few microseconds of copies once per parameter
+setting, and the transforms are cuFFT's. Everything here is
+differentiable by torch autograd down to ``top``.
 """
 
 import numpy as np
+import torch
+
+
+def next_pow2(x):
+    """Smallest power of two >= x (python int)."""
+    return 1 << (int(x) - 1).bit_length()
+
+
+def extension_sizes(sizes):
+    """Per-axis circulant embedding sizes: next_pow2(2 * n_p)."""
+    return tuple(next_pow2(2 * int(s)) for s in sizes)
+
+
+def rfft_len(ext_sizes):
+    """Length of the last axis after rfftn."""
+    return ext_sizes[-1] // 2 + 1
+
+
+def fourier_shape(sizes):
+    """Shape of the rfftn of one embedded grid vector."""
+    ext = extension_sizes(sizes)
+    return ext[:-1] + (rfft_len(ext),)
+
+
+def cyclic_extend(top, sizes):
+    """Symmetric circulant embedding of a (batched) first row: (...,
+    prod(sizes)) -> (..., *ext_sizes), each grid axis laid out as
+    ``[t_0..t_{n-1}, 0...0, t_{n-1}..t_1]``."""
+    sizes = tuple(int(s) for s in sizes)
+    ext = extension_sizes(sizes)
+    batch = top.shape[:-1]
+    x = top.reshape(batch + sizes)
+    for axis_off, (n, m) in enumerate(zip(sizes, ext)):
+        axis = len(batch) + axis_off
+        mirror = torch.flip(x.narrow(axis, 1, n - 1), dims=(axis,))
+        pad_shape = list(x.shape)
+        pad_shape[axis] = m - n - (n - 1)
+        zeros = torch.zeros(pad_shape, dtype=top.dtype, device=top.device)
+        x = torch.cat([x, zeros, mirror], dim=axis)
+    return x
+
+
+def bttb_fft(top, sizes):
+    """rfftn of the circulant embedding of (batched) ``top``: the
+    operator's Fourier symbol, (..., *fourier_shape)."""
+    sizes = tuple(int(s) for s in sizes)
+    ext = cyclic_extend(top, sizes)
+    dims = tuple(range(ext.ndim - len(sizes), ext.ndim))
+    return torch.fft.rfftn(ext, dim=dims)
+
+
+def operand_fft(v, sizes):
+    """Zero-padded rfftn of a (batched) grid vector: (..., prod(sizes))
+    -> (..., *fourier_shape)."""
+    sizes = tuple(int(s) for s in sizes)
+    ext = extension_sizes(sizes)
+    batch = v.shape[:-1]
+    x = v.reshape(batch + sizes)
+    dims = tuple(range(len(batch), len(batch) + len(sizes)))
+    return torch.fft.rfftn(x, s=ext, dim=dims)
+
+
+def operand_ifft(vhat, sizes):
+    """Inverse of :func:`operand_fft` followed by the crop to the grid:
+    (..., *fourier_shape) -> (..., prod(sizes))."""
+    sizes = tuple(int(s) for s in sizes)
+    ext = extension_sizes(sizes)
+    nbatch = vhat.ndim - len(sizes)
+    dims = tuple(range(nbatch, vhat.ndim))
+    full = torch.fft.irfftn(vhat, s=ext, dim=dims)
+    crop = tuple([slice(None)] * nbatch + [slice(0, n) for n in sizes])
+    return full[crop].reshape(vhat.shape[:nbatch] + (int(np.prod(sizes)),))
+
+
+def bttb_matvec(symbol_fft, v, sizes):
+    """Matvec of a symmetric BTTB matrix given its Fourier symbol;
+    leading batch axes of ``symbol_fft`` and ``v`` broadcast."""
+    return operand_ifft(symbol_fft * operand_fft(v, sizes), sizes)
+
+
+def bttb_matvec_from_top(top, v, sizes):
+    """One-shot matvec from the first row."""
+    return bttb_matvec(bttb_fft(top, sizes), v, sizes)
+
+
+def bttb_dense(top, sizes):
+    """The dense matrix, by applying the FFT matvec to the identity
+    (a test oracle, O(m^2 log m))."""
+    m = int(np.prod(tuple(int(s) for s in sizes)))
+    eye = torch.eye(m, dtype=top.dtype, device=top.device)
+    return bttb_matvec_from_top(top, eye, sizes).T
 
 
 def bttb_index_map(sizes):

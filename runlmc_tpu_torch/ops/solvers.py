@@ -1,5 +1,5 @@
-"""Batched conjugate gradients with true-residual refinement cycles
-(parity: runlmc_tpu/ops/solvers.py:34-298, 322-343).
+"""Batched MINRES and conjugate gradients with true-residual refinement
+cycles (parity: runlmc_tpu/ops/solvers.py:34-360).
 
 An *inner* CG cycle (at most ``cycle`` iterations) runs on the current
 residual; an *outer* refinement loop recomputes the TRUE residual
@@ -9,12 +9,13 @@ precision on the scaled, downcast residual (mixed-precision iterative
 refinement) while the outer loop certifies at b's dtype.
 
 One solver call handles a whole batch of right-hand sides; per-row
-convergence is a mask. Each iteration is the operator, then kernel K6's
+convergence is a mask. A CG iteration is the operator, then kernel K6's
 first pass, the preconditioner, and K6's second pass
-(runlmc_tpu_torch/hopper/cg.py). The loops run on the host: the inner
-loop reads one flag per iteration to stop once every row is done,
-which changes nothing but the cost, since an iteration with no active
-row updates nothing.
+(runlmc_tpu_torch/hopper/cg.py); a MINRES iteration is the operator,
+then kernel K12 (runlmc_tpu_torch/hopper/minres.py). The loops run on
+the host: the inner loop reads one flag per iteration to stop once
+every row is done, which changes nothing but the cost, since an
+iteration with no active row updates nothing.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -22,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
+from runlmc_tpu_torch.hopper.minres import minres_update
 
 
 class SolveResult(NamedTuple):
@@ -33,6 +35,31 @@ class SolveResult(NamedTuple):
 
 def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def _minres_cycle(matvec, b, tol, max_inner):
+    """One MINRES cycle (Paige-Saunders Lanczos + Givens QR) from zero,
+    batched (parity: solvers.py:50-142). ``tol`` is a one-element tensor
+    of b's dtype. Returns (x, iters)."""
+    B, n = b.shape
+    beta1 = _norm(b)
+    nonzero = beta1 > 0
+    safe_beta1 = torch.where(nonzero, beta1, 1.0)
+    x = torch.zeros_like(b)
+    v = (b / safe_beta1[:, None]).contiguous()
+    v_prev, d, d_prev = (torch.zeros_like(b) for _ in range(3))
+    beta, s, s_prev = (b.new_zeros(B) for _ in range(3))
+    c, c_prev = b.new_ones(B), b.new_ones(B)
+    phi_bar = beta1.clone()
+    active = (nonzero & (beta1 >= tol)).to(torch.int32)
+    iters = torch.zeros(B, dtype=torch.int32, device=b.device)
+    for _ in range(int(max_inner)):
+        if not bool(active.any()):
+            break
+        w = matvec(v).contiguous()
+        minres_update(w, x, v, v_prev, d, d_prev, beta, c, s, c_prev,
+                      s_prev, phi_bar, active, iters, tol)
+    return x, iters
 
 
 def _cg_cycle(matvec, b, tol, max_inner, M=None):
@@ -112,6 +139,25 @@ def _refined_solve(cycle_fn, matvec, b, tol, maxiter, cycle, stall_ratio,
                        converged=rnorm < tol)
 
 
+def batched_minres(
+    matvec: Callable,
+    b: torch.Tensor,
+    tol: float = 1e-4,
+    maxiter: Optional[int] = None,
+    cycle: int = 100,
+    stall_ratio: float = 0.99,
+    inner_matvec: Optional[Callable] = None,
+    inner_dtype=None,
+) -> SolveResult:
+    """MINRES for symmetric A, batched over the rows of ``b`` (B, n);
+    ``tol`` is an absolute residual 2-norm per row (parity:
+    solvers.py:301-319)."""
+    return _refined_solve(
+        _minres_cycle, matvec, b, tol, maxiter, cycle, stall_ratio,
+        inner_matvec=inner_matvec, inner_dtype=inner_dtype,
+    )
+
+
 def batched_cg(
     matvec: Callable,
     b: torch.Tensor,
@@ -135,3 +181,20 @@ def batched_cg(
         cycle_fn, matvec, b, tol, maxiter, cycle, stall_ratio,
         inner_matvec=inner_matvec, inner_dtype=inner_dtype,
     )
+
+
+def solve(
+    matvec: Callable,
+    b: torch.Tensor,
+    method: str = "minres",
+    tol: float = 1e-4,
+    maxiter: Optional[int] = None,
+) -> SolveResult:
+    """Dispatch on ``method`` in {'minres', 'cg'} (parity:
+    solvers.py:346-360). Accepts b of shape (n,) or (B, n); always
+    returns batched results."""
+    if method == "minres":
+        return batched_minres(matvec, b, tol=tol, maxiter=maxiter)
+    if method == "cg":
+        return batched_cg(matvec, b, tol=tol, maxiter=maxiter)
+    raise ValueError("unknown method %r" % (method,))

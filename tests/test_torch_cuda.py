@@ -11,7 +11,7 @@ import torch
 
 import runlmc_tpu_torch as T
 from runlmc_tpu_torch import hopper
-from runlmc_tpu_torch.hopper import cg, cross, interp, kuu
+from runlmc_tpu_torch.hopper import cg, cross, fourier, interp, kuu, minres
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
 
@@ -19,6 +19,7 @@ DTYPES = [torch.float32, torch.float64]
 # float64 kernels sum the same few terms as their plain versions in
 # another order; float32 passes reduce rows of ~1000 terms
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
 @pytest.fixture
@@ -176,3 +177,123 @@ def test_model_predict_launches_every_kernel(dev):
     mu_c, var_c = mc.predict(tX)
     for a, b in zip(mu_g + var_g, mu_c + var_c):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-10)
+
+
+def _fourier_args(rep, dtype, dev, nb=5, D=3, K=2, F=257, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    ct = COMPLEX[dtype]
+
+    def cplx(*shape):
+        return torch.randn(*shape, generator=g, dtype=ct).to(dev)
+
+    vf = cplx(nb, D, F)
+    if rep == "sum":
+        return vf, torch.randn(K, D, D, generator=g, dtype=dtype).to(dev), \
+            cplx(K, F), None
+    if rep == "bt":
+        return vf, None, cplx(D, D, F), None
+    return vf, torch.randn(D, K, generator=g, dtype=dtype).to(dev), \
+        cplx(K, F), cplx(D, F)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rep", ["sum", "bt", "slfm"])
+def test_fourier_contract(dev, dtype, rep):
+    vf, mat, sym, diag = _fourier_args(rep, dtype, dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = dict(fourier.fourier_contract.launches)
+    got = fourier.fourier_contract(rep, vf, mat, sym, diag)
+    before[sfx] += 1
+    assert fourier.fourier_contract.launches == before
+    want = fourier.fourier_contract_plain(rep, vf, mat, sym, diag)
+    _close(torch.view_as_real(got), torch.view_as_real(want), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rep", ["sum", "bt", "slfm"])
+def test_fourier_contract_backward(dev, dtype, rep):
+    """The autograd function's gradients against autograd through the
+    plain version, every input at once."""
+    vf, mat, sym, diag = _fourier_args(rep, dtype, dev, seed=6)
+    G = _fourier_args("bt", dtype, dev, seed=7)[0]
+    ins = [t for t in (vf, mat, sym, diag) if t is not None]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        it = iter(leaves)
+        args = [next(it) if t is not None else None
+                for t in (vf, mat, sym, diag)]
+        out = fn(rep, *args)
+        return torch.autograd.grad(out, leaves, G)
+
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = fourier.fourier_contract_bwd.launches[sfx]
+    got = grads(fourier.contract)
+    assert fourier.fourier_contract_bwd.launches[sfx] == before + 1
+    want = grads(fourier.fourier_contract_plain)
+    for a, b in zip(got, want):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_minres_update(dev, dtype):
+    g = torch.Generator().manual_seed(8)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, dtype=dtype).to(dev)
+
+    B, n = 6, 2500
+    vecs = [rnd(B, n) for _ in range(6)]  # w, x, v, v_prev, d, d_prev
+    scal = [rnd(B) for _ in range(6)]  # beta, c, s, c_prev, s_prev, phi
+    scal[0] = scal[0].abs()
+    act = torch.tensor([1, 1, 0, 1, 0, 1], dtype=torch.int32, device=dev)
+    tol = torch.full((1,), 1e-1, dtype=dtype, device=dev)
+
+    def state():
+        return ([t.clone() for t in vecs + scal]
+                + [act.clone(), torch.zeros_like(act)])
+
+    k, q = state(), state()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = minres.minres_update.launches[sfx]
+    minres.minres_update(*k, tol)
+    assert minres.minres_update.launches[sfx] == before + 1
+    minres.minres_update_plain(*q, tol)
+    for a, b in zip(k[1:12], q[1:12]):  # w is scratch
+        _close(a, b, dtype)
+    assert torch.equal(k[12], q[12]) and torch.equal(k[13], q[13])
+
+
+def test_fft_stochastic_step_matches_cpu(dev):
+    """One stochastic-objective step of a small fft-mode model on the
+    card and on the CPU from the same parameters and the same fed
+    probes; the float64 and float32 Fourier contractions and the
+    float64 backward launch."""
+    rng = np.random.RandomState(2)
+    Xs = [np.sort(rng.uniform(0, 5, 60)) for _ in range(3)]
+    Ys = [np.sin(X + d) + 0.1 * rng.randn(60) for d, X in enumerate(Xs)]
+    spec = T.LMCKernelSpec.create(
+        D=3, slfm_kernels=[T.RBF(name="s0"), T.RBF(name="s1")],
+        indep_gp=[T.Scaled(inner=T.RBF(name="r%d" % d),
+                           trainable_scale=False) for d in range(3)])
+    kw = dict(functional_kernel=spec, m=[40], grid_mode="fft",
+              objective="stochastic", tolerance=1e-10)
+    mg = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    mc = T.InterpolatedLLGP(Xs, Ys, device="cpu", **kw)
+    probes = np.sign(np.random.RandomState(3).randn(mc.n_probes, 180))
+    for mdl in (mg, mc):
+        mdl.probe_stream = lambda seed, it: probes
+    x0 = mc.param_array + 0.1 * np.cos(np.arange(mc.n_params))
+    z = np.zeros_like(x0)
+    hopper.reset_launches()
+    out_g = mg._chunk(x0, z, z, z, T.AdaDelta(), n_steps=1)
+    counts = hopper.launch_counts()
+    for name in hopper.STOCHASTIC_PATH:
+        assert counts[name] > 0, name
+    out_c = mc._chunk(x0, z, z, z, T.AdaDelta(), n_steps=1)
+    for a, b in zip(out_g[:5], out_c[:5]):
+        np.testing.assert_allclose(a, b, rtol=1e-6,
+                                   atol=1e-6 * max(np.abs(b).max(), 1e-12))
+    assert out_g[6][0] <= 1e-10 and out_c[6][0] <= 1e-10

@@ -123,13 +123,22 @@ def test_kski_matvec_matches(kind):
 
 
 def test_fft_mode_group_raises_naming_the_slice():
-    spec = T.LMCKernelSpec.create(D=4, lmc_kernels=[T.RBF()],
-                                  lmc_ranks=[1]).with_input_dim(1)
+    """Groups past DENSE_MAX_GRID, or under grid_mode='fft', now run in
+    fft mode as in the JAX package; only the JAX package's TPU-only
+    'tiled' mode still raises, naming itself."""
+    st = T.LMCKernelSpec.create(D=4, lmc_kernels=[T.RBF()],
+                                lmc_ranks=[1]).with_input_dim(1)
+    sj = R.LMCKernelSpec.create(D=4, lmc_kernels=[R.RBF()],
+                                lmc_ranks=[1]).with_input_dim(1)
     Xs = [np.linspace(0, 1, 50).reshape(-1, 1)] * 4
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tgrid.make_grids(spec, Xs, m=[3000])  # D * m > DENSE_MAX_GRID
-    with pytest.raises(NotImplementedError, match="fft"):
-        tgrid.make_grids(spec, Xs, m=[10], mode="fft")
+    for kw in (dict(m=[3000]), dict(m=[10], mode="fft")):  # D*m > cap
+        gt, _ = tgrid.make_grids(st, Xs, **kw)
+        gj, _ = jgrid.make_grids(sj, Xs, **kw)
+        assert gt[0].plan.mode == gj[0].plan.mode == "fft"
+        assert gt[0].plan.sizes == gj[0].plan.sizes
+        assert gt[0].coarse.plan.mode == "dense"
+    with pytest.raises(ValueError, match="TPU-only"):
+        tgrid.make_grids(st, Xs, m=[10], mode="tiled")
 
 
 @pytest.mark.parametrize("sizes", [(9,), (4, 5)])

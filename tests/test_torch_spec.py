@@ -142,3 +142,25 @@ def test_from_dist_matches(idx):
         {k: jnp.asarray(v) for k, v in raw.items()}, jnp.asarray(dists)
     ))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("name", SPEC_NAMES + ["mixed"])
+def test_non_indep_idxs_matches_jax(name):
+    """The rank-carrying kernels of the fft 'slfm' representation, for
+    lmc, slfm and indep mixes, over every group and a reordered subset."""
+    if name == "mixed":
+        sj, st = (pkg.LMCKernelSpec.create(
+            D=3, lmc_kernels=[pkg.RBF(name="l")], lmc_ranks=[2],
+            slfm_kernels=[pkg.Matern32(name="s")],
+            indep_gp=[pkg.RBF(name="i%d" % d) for d in range(3)],
+        ) for pkg in (R, T))
+    else:
+        sj, st = _specs(R)[name], _specs(T)[name]
+    sj, st = sj.with_input_dim(1), st.with_input_dim(1)
+    groups = [tuple(k) for k in st.active_dims.values()]
+    assert groups == [tuple(k) for k in sj.active_dims.values()]
+    for idxs in groups + [tuple(range(st.Q))[::-1]]:
+        assert st.non_indep_idxs(idxs) == tuple(sj.non_indep_idxs(idxs))
+    kinds = [st.kinds[q] for q in range(st.Q)]
+    assert st.non_indep_idxs(tuple(range(st.Q))) == tuple(
+        q for q, k in enumerate(kinds) if k != "indep")

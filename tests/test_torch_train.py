@@ -275,7 +275,9 @@ def test_optimize_resumes_from_state(trained):
     mt.param_array = p0
     first = mt.optimize(optimizer=T.AdaDelta(max_it=3))
     rest = mt.optimize(optimizer=T.AdaDelta(max_it=5), state=first["state"])
-    assert rest["n_iter"] == 5 and "rng_key" not in rest["state"]
+    # the run seed of the probe stream rides in the state, as the JAX
+    # package's run key does, whatever the objective
+    assert rest["n_iter"] == 5 and "rng_key" in rest["state"]
     np.testing.assert_allclose(rest["grad_norms"], it["grad_norms"][3:],
                                rtol=1e-12)
 
