@@ -27,7 +27,13 @@ Phases:
    its grid artifacts, and hold K10 (float64 and float32 'slfm' at
    (16, 4, 4097) on the model's own symbols; 'sum' and 'bt' at a small
    shape), K10's backward (float64) and K12 (float64, (16, 15768))
-   against their plain versions;
+   against their plain versions; K7 at the report path's (3113, 3113),
+   K7's backward (float64 and float32, a seeded (3113, 3113) cotangent,
+   then the mixed table), K13 (float64 and float32 at (15, 15768) and at
+   the reduced copy's (15, 790), eight steps on a diagonal operator with
+   a row that breaks down), and K7 and its backward at the weather
+   oracle's (15768, 15768) with the weather model's Q=6 table (the plain
+   versions a slab of rows at a time);
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -56,6 +62,17 @@ Phases:
    within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
    (counters reset and read: ``hopper.MODEL_PRECISION_PATH`` must have
    launched) agrees within ``MODEL_RTOL``;
+8b. reporting on the model phase 7 trained: ``log_likelihood()`` (exact,
+   n <= 5000), ``log_likelihood(exact=False)`` (Woodbury) and
+   ``exact_log_likelihood_and_grad()`` (``hopper.REPORT_PATH``
+   launched), each within ``REPORT_RTOL`` of the CPU run at the same
+   parameters; the 'exact' and 'precompute' prediction modes on the 150
+   test points within ``PREDICT_RTOL`` of the CPU ('precompute' on a
+   reduced copy, and the full-width ``nu`` at ``NU_COLS`` seeded grid
+   columns solved on the CPU); a fresh
+   ``metrics=True`` model for 3 steps (``hopper.METRICS_PATH``, its
+   ``Metrics`` lists printed); ``ExactLMC`` with 10 L-BFGS-B iterations,
+   then ``predict``;
 9. stochastic training of the weather model: counters reset,
    ``optimize(AdaDelta())`` to its stopping rule, counters read: every
    kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
@@ -64,6 +81,11 @@ Phases:
 10. ``predict`` the two held-out windows: every certified residual
    within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
    (SMSE and NLPD printed, on synthetic data);
+10b. reporting on the trained weather model: ``log_likelihood()`` (SLQ:
+   ``hopper.SLQ_PATH`` launched), ``log_likelihood(exact=True)`` and
+   ``exact_log_likelihood_and_grad()`` (K7 and its backward at
+   n=15768; counters reset and read around it), with wall and device
+   time;
 11. the certified solve's plain float64 MINRES rung on its own (16
    right-hand sides): ``hopper.MINRES_PATH`` must have launched; then
    one rung-1 rescue step (plain MINRES in ``_chunk``) must be finite;
@@ -73,9 +95,17 @@ Phases:
    point, m=[64], fft mode, tolerance 1e-10, the same fed probes): the
    first gradient and one 3-step chunk's parameters within
    ``STOCH_RTOL``;
-14. print the kernel table as one JSON line (each row's ``launches``
-   counted on its own path, named in ``path``), the card line again,
-   and as the last line ``{"ok": true, "device": {...}}``.
+13b. the SLQ log-det of that reduced problem, card vs CPU with fed probes
+   (within ``SLQ_RTOL`` at ``SLQ_STEPS_TIGHT`` steps and ``SLQ_40_RTOL``
+   at 40, with the per-step differences of the Lanczos coefficients
+   beside those of a CPU-only witness), and the card's own estimate within
+   ``SLQ_ORACLE_RTOL`` of the dense log-det; the float32 report path
+   (``hopper.F32_REPORT_PATH``: a float32 copy's SLQ log-det and a
+   float32 ``ExactLMC``'s exact gradient);
+14. print each phase's seconds, the kernel table as one JSON line (each
+   row's ``launches`` counted on its own path, named in ``path``), the
+   card line again, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failure raises and exits non-zero without the last line. Detailed
 results also go to ``chiprun_out/chip_smoke.json``.
@@ -124,6 +154,38 @@ STOCH_SUBSAMPLE = 20
 STOCH_M = [64]
 STOCH_TOL = 1e-10
 STOCH_RTOL = 1e-6
+# card vs CPU of the reports (log-likelihoods, the exact oracle's value
+# and gradient), relative: the exact ones are float64 Cholesky
+# factorizations on both sides, the quadratic term a certified solve at
+# TOLERANCE
+REPORT_RTOL = 1e-8
+# the SLQ log-det of the reduced weather problem (m=[64]) card vs CPU with
+# the same probes, and the card's own estimate vs the dense log-det (the
+# JAX package's 15-probe band is 0.3-0.6%, tests/test_slq.py)
+SLQ_RTOL = 1e-8
+SLQ_ORACLE_RTOL = 0.05
+# The 40-step estimate itself runs Lanczos long past convergence without
+# reorthogonalization, which amplifies any rounding of the matvec (cuFFT
+# against the CPU's FFT): on this problem the per-step differences of
+# alpha and beta stay near 1e-14 up to about step 23 and then grow by a
+# factor of 20-40 per step, so the card and the CPU agree to about 1e-15
+# after 20 steps and only to about 1e-7 after 40. A witness on the CPU
+# alone, the same probes through the dense matrix of the same operator
+# (another summation order), shows the same growth; the script prints
+# both traces. So the recurrence is held to SLQ_RTOL at SLQ_STEPS_TIGHT
+# steps and the model's 40-step number to SLQ_40_RTOL.
+SLQ_STEPS = 40
+SLQ_STEPS_TIGHT = 20
+SLQ_40_RTOL = 1e-6
+# the reduced fx2007 copy of the 'precompute' card-vs-CPU check, and the
+# seeded grid columns of the full-width nu solved on the CPU
+PRE_SUBSAMPLE = 3
+PRE_M = [78]
+NU_COLS = 32
+# rows per slab of the plain K7 and K7 backward at the weather shape,
+# and their timed calls (the plain backward takes about half a second)
+WSLAB = 1024
+WPLAIN_REPS = 2
 
 
 def weather_spec(T, D):
@@ -204,6 +266,8 @@ def device_profile(fn, reps=1):
 # cuSOLVER kernel names (cuSOLVER's Cholesky also launches GEMMs, which
 # count under K2/K4)
 LAYERS = (
+    ("K7 backward", lambda k: "cross_kernel_bwd_kernel" in k),
+    ("K13", lambda k: k.startswith("lanczos_")),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
     ("K10", lambda k: "fourier_fwd_kernel" in k),
     ("K12", lambda k: k == "minres_kernel"),
@@ -283,16 +347,27 @@ def main():
     import runlmc_tpu_torch as T
     from runlmc_tpu_torch import config, hopper
     from runlmc_tpu_torch.datasets import fx2007_synthetic, weather_synthetic
-    from runlmc_tpu_torch.hopper import build, cg, cross, interp, kuu
+    from runlmc_tpu_torch.hopper import build, cg, cross, interp, kuu, lanczos
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
     from runlmc_tpu_torch.models.interpolated_llgp import (
         KRYLOV_CYCLE,
         RUNG_MAXITER,
     )
+    from runlmc_tpu_torch.ops import slq
     from runlmc_tpu_torch.ops.solvers import batched_minres
     from runlmc_tpu_torch.ops.bttb import bttb_index_map
     from runlmc_tpu_torch.utils.carry import cast_params, from_reference_params
     from runlmc_tpu_torch.utils.evaluation import nlpd, smse
+
+    phase_s = {}
+    mark = [time.time()]
+
+    def phase_done(name):
+        """Print and keep the seconds since the previous phase ended."""
+        now = time.time()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print("phase %s: %.2f s" % (name, phase_s[name]), flush=True)
 
     # ------------------------------------------------------------ phase 1
     card = card_line()
@@ -306,6 +381,7 @@ def main():
     built = build.build_all()
     print("build: %d CUDA sources (%s) in %.2f s"
           % (len(built), ", ".join(built), time.time() - t0), flush=True)
+    phase_done("1-2 card and build")
 
     # ------------------------------------------------------------ phase 3
     dev = torch.device("cuda")
@@ -330,13 +406,16 @@ def main():
     rows = []
 
     def record(name, dtype, route, source, replaces, got, want, tol, fn,
-               plain_fn, moved, flops, library_fn=None):
+               plain_fn, moved, flops, library_fn=None, path=None,
+               plain_reps=20):
         torch.cuda.synchronize()
         abs_err, rel_err = errors(got, want)
         ms = cuda_time(fn)
-        plain_ms = cuda_time(plain_fn)
+        plain_ms = cuda_time(plain_fn, reps=plain_reps,
+                             warm=min(3, plain_reps))
         device_ms = device_profile(fn, reps=10)[0]
-        plain_device_ms = device_profile(plain_fn, reps=10)[0]
+        plain_device_ms = device_profile(plain_fn,
+                                         reps=min(10, plain_reps))[0]
         library_ms = cuda_time(library_fn) if library_fn else None
         library_device_ms = (device_profile(library_fn, reps=10)[0]
                              if library_fn else None)
@@ -350,6 +429,8 @@ def main():
             "library_device_ms": library_device_ms,
             "bound_ms": bms, "bound_by": by,
         }
+        if path is not None:
+            row["path"] = path  # the path whose launches the row reports
         print("kernel %-15s %-7s rel err %.3e (tol %.0e)  %.4f ms (device "
               "%s)  plain %.4f ms (device %s)  library %s (device %s)  "
               "bound %.4f ms (%s)"
@@ -474,6 +555,63 @@ def main():
     print("kernel cross_kernel mixed table (5 kinds, P=2): rel err %.3e"
           % rel_err, flush=True)
     require(rel_err <= 1e-12, "cross_kernel mixed table disagrees")
+
+    # K7 at (n, n): the dense exact kernel of the fx2007 report path
+    sargs = (model.X, model.oidx, model.X, model.oidx, Bq) + table
+    out = cross.cross_kernel(*sargs)
+    record("cross_kernel", torch.float64, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
+           "runlmc_tpu/lmc/likelihood.py:85", out,
+           cross.cross_kernel_plain(*sargs), 1e-12,
+           lambda: cross.cross_kernel(*sargs),
+           lambda: cross.cross_kernel_plain(*sargs),
+           nbytes(out, *sargs), 12.0 * out.numel() * Bq.shape[0],
+           path="report (fx2007)")
+    del out
+
+    # K7 backward: the cotangents of B and [gamma, period, scale] from a
+    # seeded (n, n) cotangent at the fx2007 shape (Q=1, D=13), float64
+    # (the exact oracle) and float32 (a float32 model's); then the mixed
+    # six-kernel table above, both dtypes
+    def k7_bwd_bound(args):
+        """(bytes, operations) of K7's backward: every input read once,
+        dB and dprm written once; per element and kernel, 3 operations
+        per active input dim for the distance and about 18 for k~, its
+        two derivatives and the three accumulations."""
+        B_, masks_, prm_, G_ = args[4], args[6], args[7], args[8]
+        flops_ = G_.numel() * sum(3.0 * bin(int(mk)).count("1") + 18.0
+                                  for mk in masks_.tolist())
+        return nbytes(*args) + nbytes(B_, prm_), flops_
+
+    n_fx = model.X.shape[0]
+    for dtype in (torch.float64, torch.float32):
+        bargs = tuple(t.to(dtype) if t.is_floating_point() else t
+                      for t in sargs) + (randn(n_fx, n_fx, dtype=dtype),)
+        got = cross.cross_kernel_bwd(*bargs)
+        want = cross.cross_kernel_bwd_plain(*bargs)
+        again = cross.cross_kernel_bwd(*bargs)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                "cross_kernel_bwd is not deterministic")
+        moved, flops = k7_bwd_bound(bargs)
+        record("cross_kernel_bwd", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/cross_kernel_bwd.cu",
+               "runlmc_tpu/lmc/likelihood.py:85", got, want,
+               1e-12 if dtype == torch.float64 else 1e-5,
+               lambda bargs=bargs: cross.cross_kernel_bwd(*bargs),
+               lambda bargs=bargs: cross.cross_kernel_bwd_plain(*bargs),
+               moved, flops,
+               path=("report (fx2007)" if dtype == torch.float64
+                     else "float32 report"))
+        margs_d = tuple(t.to(dtype) if t.is_floating_point() else t
+                        for t in margs) + (randn(150, 400, dtype=dtype),)
+        err = errors(cross.cross_kernel_bwd(*margs_d),
+                     cross.cross_kernel_bwd_plain(*margs_d))[1]
+        print("kernel cross_kernel_bwd mixed table (6 kernels, 5 kinds, "
+              "P=2) %s: rel err %.3e" % (str(dtype).replace("torch.", ""),
+                                          err), flush=True)
+        require(err <= (1e-12 if dtype == torch.float64 else 1e-5),
+                "cross_kernel_bwd mixed table disagrees")
+        del bargs, got, want, again
 
     # K9 at the shapes of the predictive mean: W^T alpha for the training
     # interpolant on one (3113,) vector, then W_* u for the 150-row test
@@ -677,6 +815,124 @@ def main():
            11 * nbytes(mvecs[0]), 19.0 * mvecs[0].numel())
     del mvecs, mk, mp_, ms_k, ms_p
 
+    # K13: the Lanczos steps of an SLQ log-det on (15, n) rows, on a
+    # diagonal operator; row 0 starts on an eigenvector and breaks down at
+    # the first step. Each step is held against the plain step from the
+    # same state. The shapes: the weather model's n in float64 (its
+    # log_likelihood) and float32, and the reduced copy's n (phase 13's
+    # every STOCH_SUBSAMPLE-th point, n < one block of a row) in float32
+    # (the float32 report path) and float64 (the card-vs-CPU SLQ)
+    nslq = max(wm.n_probes, 15)
+    sn = sum(len(x[::STOCH_SUBSAMPLE]) for x in wx)
+    for dtype, ln, path in ((torch.float64, wn, "slq (weather)"),
+                            (torch.float32, wn, None),
+                            (torch.float32, sn, "float32 report"),
+                            (torch.float64, sn, None)):
+        dg = (torch.rand(ln, generator=gen, dtype=dtype) + 0.5).to(dev)
+        lv = torch.sign(randn(nslq, ln, dtype=dtype)) / float(np.sqrt(ln))
+        lv[0] = 0.0
+        lv[0, 11] = 1.0
+        leps = torch.full((1,), lanczos.breakdown_eps(dtype), dtype=dtype,
+                          device=dev)
+        lvp = torch.zeros_like(lv)
+        lbeta = torch.zeros(nslq, dtype=dtype, device=dev)
+        lalive = torch.ones(nslq, dtype=torch.int32, device=dev)
+        worst = 0.0
+        for _ in range(8):
+            lw = lv * dg
+            want = lanczos.lanczos_step_plain(lw, lvp, lv, lbeta, lalive,
+                                              leps)
+            got = lanczos.lanczos_step(lw.clone(), lvp.clone(), lv.clone(),
+                                       lbeta, lalive, leps)
+            worst = max(worst, errors(got[:4], want[:4])[1])
+            require(torch.equal(got[4], want[4]),
+                    "lanczos_step breakdown masks disagree")
+            lvp, lv, _, lbeta, lalive = want
+        require(int(lalive[0]) == 0 and int(lalive.sum()) == nslq - 1,
+                "the breakdown row did not break down alone")
+        ltol = 1e-12 if dtype == torch.float64 else 1e-5
+        print("kernel lanczos_step %s (%d, %d): 8 steps, rel err %.3e (tol "
+              "%.0e), row 0 broke down" % (str(dtype).replace("torch.", ""),
+                                           nslq, ln, worst, ltol),
+              flush=True)
+        require(worst <= ltol, "lanczos_step disagrees with its plain "
+                "version at (%d, %d)" % (nslq, ln))
+        if path is None:
+            del dg, lv, lvp
+            continue
+        lw = lv * dg
+        ws, vps = lw.clone(), lvp.clone()
+        record("lanczos_step", dtype, "triton",
+               "runlmc_tpu_torch/hopper/triton_lanczos.py",
+               "runlmc_tpu/ops/slq.py:41",
+               lanczos.lanczos_step(lw.clone(), lvp.clone(), lv.clone(),
+                                    lbeta, lalive, leps)[:4],
+               lanczos.lanczos_step_plain(lw, lvp, lv, lbeta, lalive,
+                                          leps)[:4],
+               ltol,
+               lambda ws=ws, vps=vps, lv=lv, lbeta=lbeta, lalive=lalive,
+               leps=leps: lanczos.lanczos_step(ws, vps, lv, lbeta, lalive,
+                                               leps),
+               lambda lw=lw, lvp=lvp, lv=lv, lbeta=lbeta, lalive=lalive,
+               leps=leps: lanczos.lanczos_step_plain(lw, lvp, lv, lbeta,
+                                                     lalive, leps),
+               4 * nbytes(lv) + 5 * nbytes(lbeta), 9.0 * lv.numel(),
+               path=path)
+        del dg, lv, lvp, lw, ws, vps
+
+    # K7 and its backward at the weather oracle's shape: the weather
+    # model's own table (Q=6 kernels, D=4 outputs) over all its n points,
+    # (n, n) in float64 with a seeded (n, n) cotangent, as
+    # exact_log_likelihood_and_grad runs them (the backward: a warp per
+    # (row, output) pair, 63k warps over column segments of about 3.9k).
+    # The plain versions go WSLAB rows at a time: K's rows are
+    # independent and the backward's cotangents are sums over rows.
+    wspec_r = wm.spec
+    wB = wspec_r.coreg_mats(wm.params)
+    wargs = (wm.X, wm.oidx, wm.X, wm.oidx, wB) + \
+        wspec_r.kernel_table(wm.params)
+    wslabs = [slice(i, min(i + WSLAB, wn)) for i in range(0, wn, WSLAB)]
+
+    def k7_plain_slabs(args=wargs):
+        return torch.cat([cross.cross_kernel_plain(args[0][s], args[1][s],
+                                                   *args[2:])
+                          for s in wslabs])
+
+    out = cross.cross_kernel(*wargs)
+    record("cross_kernel", torch.float64, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
+           "runlmc_tpu/lmc/likelihood.py:85", out, k7_plain_slabs(), 1e-12,
+           lambda: cross.cross_kernel(*wargs), k7_plain_slabs,
+           nbytes(out, *wargs), 12.0 * out.numel() * wB.shape[0],
+           path="weather oracle", plain_reps=WPLAIN_REPS)
+    del out
+    gdev = torch.Generator(device=dev).manual_seed(SEED)
+    wbargs = wargs + (torch.randn(wn, wn, generator=gdev,
+                                  dtype=torch.float64, device=dev),)
+
+    def k7_bwd_plain_slabs(args=wbargs):
+        acc = None
+        for s in wslabs:
+            part = cross.cross_kernel_bwd_plain(args[0][s], args[1][s],
+                                                *args[2:8], args[8][s])
+            acc = part if acc is None else tuple(a + b for a, b in
+                                                 zip(acc, part))
+        return acc
+
+    got = cross.cross_kernel_bwd(*wbargs)
+    again = cross.cross_kernel_bwd(*wbargs)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "cross_kernel_bwd is not deterministic at the weather shape")
+    moved, flops = k7_bwd_bound(wbargs)
+    record("cross_kernel_bwd", torch.float64, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/cross_kernel_bwd.cu",
+           "runlmc_tpu/lmc/likelihood.py:85", got, k7_bwd_plain_slabs(),
+           1e-12, lambda: cross.cross_kernel_bwd(*wbargs),
+           k7_bwd_plain_slabs, moved, flops, path="weather oracle",
+           plain_reps=WPLAIN_REPS)
+    del wbargs, got, again, k7_bwd_plain_slabs  # the (n, n) cotangent
+    phase_done("3 models and kernels")
+
     # ------------------------------------------------------------ phase 4
     model.param_array = params  # fresh caches: the run builds everything
     hopper.reset_launches()
@@ -751,6 +1007,8 @@ def main():
     require(mean_err <= PREDICT_RTOL and var_err <= PREDICT_RTOL,
             "card and CPU predictions disagree")
 
+    phase_done("4 predict")
+
     # ------------------------------------------------------------ phase 5
     K_test_X = model._cross_kernel(model._pad_dims(txs))
     rhs = torch.cat([model.y[None], K_test_X], 0)
@@ -775,6 +1033,8 @@ def main():
     require(esc_worst <= TOLERANCE, "escalation rung residual %g > %g"
             % (esc_worst, TOLERANCE))
 
+    phase_done("5 escalation rung")
+
     # ------------------------------------------------------------ phase 6
     guard_opt = T.AdaDelta(max_it=10, **OPT_KW)
     torch.cuda.synchronize()
@@ -792,6 +1052,8 @@ def main():
     for name in hopper.TRAIN_PATH + hopper.PREDICT_PATH:
         require(guard_launches[name] > 0,
                 "kernel %s never launched in the guard" % name)
+
+    phase_done("6 guard")
 
     # ------------------------------------------------------------ phase 7
     tm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
@@ -879,6 +1141,8 @@ def main():
           % (trained_predict_s, json.dumps(trained_res), trained_smse,
              trained_nlpd), flush=True)
 
+    phase_done("7 train")
+
     # ------------------------------------------------------------ phase 8
     t0 = time.time()
     gm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
@@ -926,6 +1190,184 @@ def main():
     require(f64_err <= MODEL_RTOL,
             "card and CPU model-precision training disagree")
 
+    phase_done("8 card vs CPU training")
+
+    # ----------------------------------------------------------- phase 8b
+    # reporting on the model phase 7 trained, each against the port's CPU
+    # run at the same parameters: the exact log-likelihood (K7, cuSOLVER;
+    # n <= LARGE_N_EXACT_REPORT), the Woodbury one, the exact oracle's
+    # value and gradient (K7's backward), the 'exact' and 'precompute'
+    # prediction modes; then a fresh metrics=True model for 3 steps and
+    # ExactLMC
+    tx = tm.param_array
+    ct = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                            tolerance=TOLERANCE, seed=SEED,
+                            objective="exact", device="cpu")
+    ct.param_array = tx
+    tm.param_array = tx  # fresh caches: the calls below build everything
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    report_s = {}
+    t0 = time.time()
+    ll_exact = tm.log_likelihood()
+    torch.cuda.synchronize()
+    report_s["log_likelihood_exact"] = time.time() - t0
+    t0 = time.time()
+    ll_ski = tm.log_likelihood(exact=False)
+    torch.cuda.synchronize()
+    report_s["log_likelihood_woodbury"] = time.time() - t0
+    t0 = time.time()
+    ev, eg = tm.exact_log_likelihood_and_grad()
+    torch.cuda.synchronize()
+    report_s["exact_log_likelihood_and_grad"] = time.time() - t0
+    rep_launches = hopper.launch_counts()
+    for name in hopper.REPORT_PATH:
+        require(rep_launches[name] > 0,
+                "kernel %s never launched on the report path" % name)
+    report_dev = {
+        "exact_log_likelihood_and_grad": device_profile(
+            tm.exact_log_likelihood_and_grad)[0],
+        "log_det_K": device_profile(
+            lambda: (tm._cache.pop("chol", None), tm.log_det_K()))[0],
+    }
+    t0 = time.time()
+    cpu_vals = (ct.log_likelihood(), ct.log_likelihood(exact=False),
+                ct.exact_log_likelihood_and_grad())
+    cpu_report_s = time.time() - t0
+    report_err = {
+        "log_likelihood_exact": abs(ll_exact - cpu_vals[0])
+        / abs(cpu_vals[0]),
+        "log_likelihood_woodbury": abs(ll_ski - cpu_vals[1])
+        / abs(cpu_vals[1]),
+        "exact_value": abs(ev - cpu_vals[2][0]) / abs(cpu_vals[2][0]),
+        "exact_grad": rel(eg, cpu_vals[2][1]),
+    }
+    print("report (fx2007, trained): log_likelihood exact %.10g (%.3f s), "
+          "Woodbury %.10g (%.3f s), exact value %.10g and gradient (%.3f s,"
+          " device %s and log_det_K device %s); card vs CPU (%.1f s) %s "
+          "(tol %g); launches %s"
+          % (ll_exact, report_s["log_likelihood_exact"], ll_ski,
+             report_s["log_likelihood_woodbury"], ev,
+             report_s["exact_log_likelihood_and_grad"],
+             _ms(report_dev["exact_log_likelihood_and_grad"]),
+             _ms(report_dev["log_det_K"]), cpu_report_s,
+             json.dumps(report_err), REPORT_RTOL, json.dumps(rep_launches)),
+          flush=True)
+    require(all(v <= REPORT_RTOL for v in report_err.values()),
+            "card and CPU reports disagree")
+
+    def pred_err(card_out, cpu_out):
+        return max(float(np.max(np.abs(a - b))) / float(np.max(np.abs(b)))
+                   for a, b in zip(card_out[0] + card_out[1],
+                                   cpu_out[0] + cpu_out[1]) if len(b))
+
+    mode_err = {}
+    for mode in ("exact", "precompute"):
+        tm.prediction = mode
+        t0 = time.time()
+        out_m = tm.predict(txs)
+        torch.cuda.synchronize()
+        report_s["predict_" + mode] = time.time() - t0
+        require(all(np.all(np.isfinite(a)) for a in out_m[0] + out_m[1]),
+                "non-finite %s predictions" % mode)
+        for what, rep_ in tm.prediction_report.items():
+            require(rep_["residual"] <= TOLERANCE, "%s: residual %g > %g"
+                    % (what, rep_["residual"], TOLERANCE))
+        if mode == "exact":
+            ct.prediction = mode
+            mode_err[mode] = pred_err(out_m, ct.predict(txs))
+    nu_report = dict(tm.prediction_report["precompute-nu"])
+    # the full-width nu of 'precompute' (nu_j = c_j^T K^-1 c_j, c_j the
+    # j-th column of K_XU) against NU_COLS seeded grid columns solved on
+    # the CPU by the same certified solve
+    nu_card = tm._precomputed_nu().cpu()
+    tm.prediction = "on-the-fly"
+    cgrp = ct._kski().groups[0]
+    Dm_fx = cgrp.interp.ncols
+    js = np.sort(np.random.RandomState(SEED).choice(Dm_fx, NU_COLS,
+                                                    replace=False))
+    E = torch.zeros(NU_COLS, Dm_fx, dtype=torch.float64)
+    E[np.arange(NU_COLS), js] = 1.0
+    cols = cgrp.interp.matvec(cgrp.grid_matvec(E))
+    nu_sols, _ = ct._solve_certified(cols, "nu-check")
+    nu_cpu = torch.sum(cols * nu_sols, dim=1)
+    mode_err["precompute nu (%d grid columns)" % NU_COLS] = float(
+        torch.max(torch.abs(nu_card[js] - nu_cpu)) / torch.max(nu_cpu.abs()))
+    del ct, cgrp, E, cols, nu_sols
+    # 'precompute' card vs CPU on a reduced copy (every PRE_SUBSAMPLE-th
+    # training point, m=PRE_M): its solve of Dm=3094 right-hand sides
+    # takes the CPU about 100 s at full width
+    rxs = [x[::PRE_SUBSAMPLE] for x in xss]
+    rys = [y[::PRE_SUBSAMPLE] for y in yss]
+    pkw = dict(functional_kernel=spec, m=PRE_M, tolerance=TOLERANCE,
+               seed=SEED, objective="exact", prediction="precompute")
+    pg = T.InterpolatedLLGP(rxs, rys, device=dev, **pkw)
+    pc = T.InterpolatedLLGP(rxs, rys, device="cpu", **pkw)
+    pg.param_array = pc.param_array = tx
+    mode_err["precompute (reduced)"] = pred_err(pg.predict(txs),
+                                                pc.predict(txs))
+    print("predict modes (fx2007, trained, 150 points): exact %.3f s, "
+          "precompute %.3f s (Dm=%d right-hand sides, report %s); card vs "
+          "CPU rel err %s (precompute on 1/%d of the training points, m=%s,"
+          " Dm=%d; tol %g)"
+          % (report_s["predict_exact"], report_s["predict_precompute"],
+             tm.grid_data[0].interp.ncols, json.dumps(nu_report),
+             json.dumps(mode_err), PRE_SUBSAMPLE, PRE_M,
+             pg.grid_data[0].interp.ncols, PREDICT_RTOL), flush=True)
+    require(all(v <= PREDICT_RTOL for v in mode_err.values()),
+            "card and CPU prediction modes disagree")
+    del pg, pc
+
+    mm = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                            tolerance=TOLERANCE, seed=SEED,
+                            objective="exact", metrics=True, device=dev)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    minfo = mm.optimize(T.AdaDelta(max_it=3, **OPT_KW))
+    torch.cuda.synchronize()
+    report_s["metrics_3_steps"] = time.time() - t0
+    met_launches = hopper.launch_counts()
+    met = {k: list(map(float, getattr(mm.metrics, k)))
+           for k in ("iterations", "solv_error", "grad_norms", "grad_error",
+                     "log_likely")}
+    print("metrics=True training (3 steps, %.3f s): %s, launches %s"
+          % (report_s["metrics_3_steps"], json.dumps(met),
+             json.dumps(met_launches)), flush=True)
+    for name in hopper.METRICS_PATH:
+        require(met_launches[name] > 0,
+                "kernel %s never launched in metrics training" % name)
+    require(minfo["n_iter"] == 3 and all(
+        len(v) == 3 and np.all(np.isfinite(v)) for v in met.values()),
+        "metrics lists")
+    del mm
+
+    el = T.ExactLMC(xss, yss, functional_kernel=spec, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    el_ll0 = el.log_likelihood()
+    el_res = el.optimize(max_iters=10)
+    el_mu, el_var = el.predict(txs)
+    torch.cuda.synchronize()
+    report_s["exact_lmc"] = time.time() - t0
+    el_launches = hopper.launch_counts()
+    el_ll = el.log_likelihood()
+    el_smse = smse(tys, el_mu, yss)
+    print("ExactLMC (L-BFGS-B, 10 iterations: nit %d, nfev %d; %.3f s): "
+          "log-likelihood %.10g -> %.10g; predict SMSE %.6g on the "
+          "synthetic data; launches %s"
+          % (el_res.nit, el_res.nfev, report_s["exact_lmc"], el_ll0, el_ll,
+             el_smse, json.dumps(el_launches)), flush=True)
+    for name in hopper.REPORT_PATH:
+        require(el_launches[name] > 0,
+                "kernel %s never launched by ExactLMC" % name)
+    require(np.isfinite(el_ll) and el_ll >= el_ll0
+            and all(np.all(np.isfinite(a)) for a in el_mu + el_var),
+            "ExactLMC fit or predict")
+    del el
+    phase_done("8b fx2007 reporting")
+
     # ------------------------------------------------------------ phase 9
     # stochastic training of the weather fft model to its stopping rule
     torch.cuda.synchronize()
@@ -969,6 +1411,8 @@ def main():
     print("stochastic step device time by layer (per step):", flush=True)
     print_layers(wstep_layers)
 
+    phase_done("9 stochastic training")
+
     # ----------------------------------------------------------- phase 10
     # predict the two held-out windows with the trained fft model
     hopper.reset_launches()
@@ -993,6 +1437,81 @@ def main():
     wnlpd = nlpd(wty, wmu, wvar)
     print("on the synthetic weather-shaped data: SMSE %.6g, NLPD %.6g"
           % (wsmse, wnlpd), flush=True)
+
+    phase_done("10 fft predict")
+
+    # ----------------------------------------------------------- phase 10b
+    # reporting on the trained weather model (n=15768 > 5000): the default
+    # log-likelihood is the SKI one, the SLQ log-det of the fft operator
+    # (15 probes, 40 Lanczos steps: K13 and K10); then the exact dense one
+    # (K7 at (n, n), a 2 GB float64 Cholesky) and the exact oracle's
+    # value and gradient (K7 and its backward at (n, n)); wall and device
+    # time of each
+    wrep_s, wrep_dev = {}, {}
+    wx_tr = wm.param_array
+    wm.param_array = wx_tr  # fresh caches
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    wll_slq = wm.log_likelihood()
+    torch.cuda.synchronize()
+    wrep_s["log_likelihood_slq"] = time.time() - t0
+    slq_launches = hopper.launch_counts()
+    for name in hopper.SLQ_PATH:
+        require(slq_launches[name] > 0,
+                "kernel %s never launched by the SLQ log-det" % name)
+    wslq = wm.ski_log_det()
+    t0 = time.time()
+    wm._cache.pop("slq_logdet")
+    wm.ski_log_det()
+    torch.cuda.synchronize()
+    wrep_s["ski_log_det_slq"] = time.time() - t0
+    wrep_dev["ski_log_det_slq"], slq_rows, slq_wall = device_profile(
+        lambda: (wm._cache.pop("slq_logdet"), wm.ski_log_det()))
+    slq_layers = by_layer(slq_rows)
+    t0 = time.time()
+    wll_exact = wm.log_likelihood(exact=True)
+    torch.cuda.synchronize()
+    wrep_s["log_likelihood_exact"] = time.time() - t0
+    wrep_dev["log_det_K"] = device_profile(
+        lambda: (wm._cache.pop("chol"), wm.log_det_K()))[0]
+    wm._cache.pop("chol")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.time()
+    wev, weg = wm.exact_log_likelihood_and_grad()
+    torch.cuda.synchronize()
+    wrep_s["exact_log_likelihood_and_grad"] = time.time() - t0
+    wexact_launches = hopper.launch_counts()
+    for name in hopper.REPORT_PATH:
+        require(wexact_launches[name] > 0,
+                "kernel %s never launched by the exact oracle at n=%d"
+                % (name, wn))
+    wexact_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wrep_dev["exact_log_likelihood_and_grad"], wexact_rows, _ = \
+        device_profile(wm.exact_log_likelihood_and_grad)
+    wexact_layers = by_layer(wexact_rows)
+    require(all(np.isfinite(v) for v in (wll_slq, wll_exact, wev))
+            and np.all(np.isfinite(weg)), "non-finite weather reports")
+    print("report (weather, trained, n=%d): log_likelihood (SLQ) %.10g "
+          "(%.3f s; SLQ log-det %.10g alone %.3f s, device %s of %.3f ms "
+          "profiled), exact %.10g (%.3f s; log_det_K device %s), exact "
+          "value %.10g and gradient (%.3f s, device %s, peak %.2f GB)"
+          % (wn, wll_slq, wrep_s["log_likelihood_slq"], wslq,
+             wrep_s["ski_log_det_slq"], _ms(wrep_dev["ski_log_det_slq"]),
+             slq_wall, wll_exact, wrep_s["log_likelihood_exact"],
+             _ms(wrep_dev["log_det_K"]), wev,
+             wrep_s["exact_log_likelihood_and_grad"],
+             _ms(wrep_dev["exact_log_likelihood_and_grad"]),
+             wexact_peak_gb), flush=True)
+    print("SLQ log-det device time by layer:", flush=True)
+    print_layers(slq_layers)
+    print("exact value and gradient (n=%d) device time by layer:" % wn,
+          flush=True)
+    print_layers(wexact_layers)
+    wm.param_array = wx_tr  # drop the (n, n) factors
+    phase_done("10b weather reporting")
 
     # ----------------------------------------------------------- phase 11
     # the plain float64 MINRES rung of the certified solve, on its own,
@@ -1028,6 +1547,8 @@ def main():
                                          int(rsc[5][0]), float(rsc[6][0])),
           flush=True)
 
+    phase_done("11 MINRES rung and rescue step")
+
     # ----------------------------------------------------------- phase 12
     # the same objective on a dense grid (weather's headline m=500)
     dm_ = T.InterpolatedLLGP(wx, wy, functional_kernel=wspec,
@@ -1057,6 +1578,8 @@ def main():
             "non-finite dense stochastic chunk")
     del dm_
 
+    phase_done("12 dense stochastic chunk")
+
     # ----------------------------------------------------------- phase 13
     # card vs CPU, stochastic objective on fft grids, with fed probes
     t0 = time.time()
@@ -1066,7 +1589,7 @@ def main():
                objective="stochastic", tolerance=STOCH_TOL, seed=SEED)
     sg = T.InterpolatedLLGP(sx, sy, device=dev, **skw)
     sc = T.InterpolatedLLGP(sx, sy, device="cpu", **skw)
-    sn = len(sc.data.y)
+    require(len(sc.data.y) == sn, "the reduced copy's n is not phase 3's")
 
     def fed(run_seed, it):
         r = np.random.RandomState(1000 + it)
@@ -1093,13 +1616,113 @@ def main():
     require(sgrad_err <= STOCH_RTOL and sparam_err <= STOCH_RTOL,
             "card and CPU stochastic training disagree")
 
+    phase_done("13 card vs CPU stochastic")
+
+    # ----------------------------------------------------------- phase 13b
+    # SLQ on the reduced weather copy of phase 13: card vs CPU with the
+    # same fed probes, and the card's own estimate (its generator seeded
+    # 0) against the dense SKI log-det; then the float32 report path: the
+    # SLQ log-det of a float32 copy (K13 in float32) and the exact oracle
+    # of a float32 ExactLMC on the fx2007-shaped data (K7's backward in
+    # float32)
+    sg.param_array = sx0
+    sc.param_array = sx0
+    zr = np.random.RandomState(77).uniform(size=(max(sc.n_probes, 15), sn))
+    zfed = np.where(zr < 0.5, -1.0, 1.0)
+    sg.slq_probes = sc.slq_probes = lambda N, n: zfed
+    slq_card = sg.ski_log_det()
+    slq_cpu = sc.ski_log_det()
+    slq_err = abs(slq_card - slq_cpu) / abs(slq_cpu)
+    zg = torch.as_tensor(zfed, device=dev)
+    slq20 = [float(slq.slq_logdet_from_probes(m_._kski().matvec,
+                                              z_.to(m_.dtype),
+                                              SLQ_STEPS_TIGHT))
+             for m_, z_ in ((sg, zg), (sc, zg.cpu()))]
+    slq20_err = abs(slq20[0] - slq20[1]) / abs(slq20[1])
+    sg.slq_probes = None
+    sg.param_array = sx0
+    slq_own = sg.ski_log_det()
+    sK = sc._kski()
+    sKd = sK.matvec(torch.eye(sn, dtype=torch.float64))
+    slq_dense = float(np.linalg.slogdet(sKd.numpy())[1])
+    slq_oracle_err = abs(slq_own - slq_dense) / abs(slq_dense)
+    # where the 40-step card and CPU numbers part: the per-step max
+    # |d alpha| and |d beta| over the probes, card against CPU, and the
+    # witness on the CPU alone, the fft matvec against the dense matrix
+    # of the same operator (another summation order)
+    v0 = zg.cpu() / float(np.sqrt(sn))
+    tri_card = [t.cpu() for t in slq.lanczos_tridiag(
+        sg._kski().matvec, v0.to(dev), SLQ_STEPS)]
+    tri_cpu = slq.lanczos_tridiag(sK.matvec, v0, SLQ_STEPS)
+    tri_dense = slq.lanczos_tridiag(lambda v: v @ sKd, v0, SLQ_STEPS)
+
+    def step_diffs(a, b):
+        return [[float(x) for x in torch.amax(torch.abs(p - q), dim=0)]
+                for p, q in zip(a, b)]
+
+    slq_trace = {"card_vs_cpu": step_diffs(tri_card, tri_cpu),
+                 "cpu_fft_vs_dense": step_diffs(tri_cpu, tri_dense)}
+    slq_witness = float(slq.slq_logdet_from_probes(
+        lambda v: v @ sKd, zg.cpu(), SLQ_STEPS))
+    slq_witness_err = abs(slq_witness - slq_cpu) / abs(slq_cpu)
+    print("SLQ (reduced weather, n=%d, m=%s fft), fed probes: %d steps card "
+          "%.15g, CPU %.15g (rel err %.3e, tol %g); %d steps card %.12g, "
+          "CPU %.12g (rel err %.3e, tol %g), CPU through the dense matrix "
+          "%.12g (rel err %.3e to the CPU's fft matvec); own probes %.10g "
+          "vs dense log-det %.10g (rel err %.3e, tol %g)"
+          % (sn, STOCH_M, SLQ_STEPS_TIGHT, slq20[0], slq20[1], slq20_err,
+             SLQ_RTOL, SLQ_STEPS, slq_card, slq_cpu, slq_err, SLQ_40_RTOL,
+             slq_witness, slq_witness_err, slq_own, slq_dense,
+             slq_oracle_err, SLQ_ORACLE_RTOL), flush=True)
+    print("SLQ Lanczos per-step max |d alpha| / |d beta| over the probes "
+          "(step: card vs CPU | CPU fft vs CPU dense):", flush=True)
+    for j in range(SLQ_STEPS):
+        cb = [tr[1][j] if j < SLQ_STEPS - 1 else float("nan")
+              for tr in (slq_trace["card_vs_cpu"],
+                         slq_trace["cpu_fft_vs_dense"])]
+        print("  %2d  %.2e %.2e | %.2e %.2e"
+              % (j + 1, slq_trace["card_vs_cpu"][0][j], cb[0],
+                 slq_trace["cpu_fft_vs_dense"][0][j], cb[1]), flush=True)
+    require(slq20_err <= SLQ_RTOL and slq_err <= SLQ_40_RTOL,
+            "card and CPU SLQ log-dets disagree")
+    require(slq_oracle_err <= SLQ_ORACLE_RTOL,
+            "the SLQ log-det misses the dense log-det")
+    s32 = T.InterpolatedLLGP(sx, sy, device=dev, dtype=torch.float32, **skw)
+    el32 = T.ExactLMC(xss, yss, functional_kernel=spec, seed=SEED,
+                      dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    slq32 = s32.ski_log_det()
+    el32_ll = el32.log_likelihood()
+    el32_g = el32._value_and_grad(el32.param_array)[1]
+    torch.cuda.synchronize()
+    f32_launches = hopper.launch_counts()
+    print("float32 report path: SLQ log-det %.8g (float64 own probes "
+          "%.8g), ExactLMC log-likelihood %.8g, launches %s"
+          % (slq32, slq_own, el32_ll, json.dumps(f32_launches)), flush=True)
+    for name in hopper.F32_REPORT_PATH:
+        require(f32_launches[name] > 0,
+                "kernel %s never launched on the float32 report path" % name)
+    require(np.isfinite(slq32) and np.isfinite(el32_ll)
+            and np.all(np.isfinite(el32_g)), "non-finite float32 reports")
+    del s32, el32
+    phase_done("13b SLQ and float32 reports")
+
     # ------------------------------------------------------------ phase 14
+    path_launches = {
+        "report (fx2007)": rep_launches, "slq (weather)": slq_launches,
+        "weather oracle": wexact_launches, "float32 report": f32_launches,
+    }
     for row in rows:
         key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
         row["train_launches"] = train_launches[key]
         row["stochastic_launches"] = st_launches[key]
         row["predict_fft_launches"] = fp_launches[key]
-        if key == "fourier_contract/f32":
+        if "path" in row:  # named where the row was recorded
+            row["launches"] = path_launches[row["path"]][key]
+            require(row["launches"] > 0, "%s never launched on its path %s"
+                    % (key, row["path"]))
+        elif key == "fourier_contract/f32":
             # the float32 inner cycles, in training and in the fft predict
             require(key in hopper.FFT_PREDICT_PATH, "%s is on no path" % key)
             row["path"], row["launches"] = "predict (fft)", fp_launches[key]
@@ -1199,12 +1822,46 @@ def main():
             "card_vs_cpu": {"n": sn, "grad_rel_err": sgrad_err,
                             "param_rel_err": sparam_err,
                             "steps": CPU_CHUNK_STEPS},
+            "report": {
+                "log_likelihood_slq": wll_slq, "ski_log_det_slq": wslq,
+                "log_likelihood_exact": wll_exact, "exact_value": wev,
+                "wall_s": wrep_s, "device_ms": wrep_dev,
+                "slq_layers": slq_layers, "exact_layers": wexact_layers,
+                "exact_peak_gb": wexact_peak_gb,
+                "slq_launches": slq_launches,
+            },
+            "slq_reduced": {"card": slq_card, "cpu": slq_cpu,
+                            "rel_err": slq_err, "steps_tight": slq20,
+                            "steps_tight_rel_err": slq20_err,
+                            "cpu_dense_matvec": slq_witness,
+                            "cpu_dense_matvec_rel_err": slq_witness_err,
+                            "step_diffs_alpha_beta": slq_trace,
+                            "own": slq_own,
+                            "dense": slq_dense,
+                            "oracle_rel_err": slq_oracle_err},
         },
+        "report": {
+            "log_likelihood_exact": ll_exact,
+            "log_likelihood_woodbury": ll_ski, "exact_value": ev,
+            "wall_s": report_s, "device_ms": report_dev,
+            "card_vs_cpu": report_err, "cpu_s": cpu_report_s,
+            "predict_modes_rel_err": mode_err, "launches": rep_launches,
+            "metrics": met, "metrics_launches": met_launches,
+            "exact_lmc": {"nit": int(el_res.nit), "nfev": int(el_res.nfev),
+                          "log_likelihood": [el_ll0, el_ll],
+                          "smse_synthetic": el_smse,
+                          "launches": el_launches},
+            "float32_launches": f32_launches,
+        },
+        "phase_s": phase_s,
     }
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
+    print("phase times (s): %s; total %.1f s"
+          % (json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
+             sum(phase_s.values())), flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

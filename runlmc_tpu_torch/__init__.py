@@ -27,9 +27,21 @@ from runlmc_tpu_torch.kernels import (  # noqa: E402
     Scaled,
     StdPeriodic,
 )
+from runlmc_tpu_torch import mean  # noqa: E402
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec  # noqa: E402
-from runlmc_tpu_torch.models import InterpolatedLLGP, MultiGP  # noqa: E402
+from runlmc_tpu_torch.metrics import Metrics  # noqa: E402
+from runlmc_tpu_torch.models import (  # noqa: E402
+    ExactLMC,
+    InterpolatedLLGP,
+    MultiGP,
+)
 from runlmc_tpu_torch.models.optimization import AdaDelta  # noqa: E402
+from runlmc_tpu_torch.priors import (  # noqa: E402
+    Gamma,
+    Gaussian,
+    HalfLaplace,
+    InverseGamma,
+)
 
 __all__ = [
     "RBF",
@@ -38,7 +50,14 @@ __all__ = [
     "IdentityKern",
     "Scaled",
     "LMCKernelSpec",
+    "Metrics",
     "MultiGP",
     "InterpolatedLLGP",
+    "ExactLMC",
     "AdaDelta",
+    "Gaussian",
+    "Gamma",
+    "InverseGamma",
+    "HalfLaplace",
+    "mean",
 ]

@@ -9,27 +9,30 @@ PyTorch version beside it.
   K1 backward  kuu.kuu_dense_bwd  CUDA  csrc/kuu_dense_bwd.cu
   K6  cg.cg_update_xr / cg_update_p  Triton  triton_cg.py
   K7  cross.cross_kernel          CUDA  csrc/cross_kernel.cu
+  K7 backward  cross.cross_kernel_bwd  CUDA  csrc/cross_kernel_bwd.cu
   K9  interp.interp_gather / interp_scatter  CUDA  csrc/interp.cu
   K10 fourier.fourier_contract    CUDA  csrc/fourier.cu
   K10 backward  fourier.fourier_contract_bwd  CUDA  csrc/fourier.cu
   K12 minres.minres_update        Triton  triton_minres.py
+  K13 lanczos.lanczos_step        Triton  triton_lanczos.py
 """
 
 from runlmc_tpu_torch.hopper import build
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
-from runlmc_tpu_torch.hopper.cross import cross_kernel
+from runlmc_tpu_torch.hopper.cross import cross_kernel, cross_kernel_bwd
 from runlmc_tpu_torch.hopper.fourier import (
     fourier_contract,
     fourier_contract_bwd,
 )
 from runlmc_tpu_torch.hopper.interp import interp_gather, interp_scatter
 from runlmc_tpu_torch.hopper.kuu import kuu_dense, kuu_dense_bwd
+from runlmc_tpu_torch.hopper.lanczos import lanczos_step
 from runlmc_tpu_torch.hopper.minres import minres_update
 
 WRAPPERS = (
     kuu_dense, kuu_dense_bwd, cross_kernel, interp_gather, interp_scatter,
     cg_update_xr, cg_update_p, fourier_contract, fourier_contract_bwd,
-    minres_update,
+    minres_update, cross_kernel_bwd, lanczos_step,
 )
 
 
@@ -76,6 +79,24 @@ DENSE_STOCHASTIC_PATH = (
     "kuu_dense/f64", "kuu_dense_bwd/f64", "kuu_dense/f32",
     "cg_update_xr/f32", "cg_update_p/f32",
 )
+
+# The exact dense-kernel oracle of a float64 model: its value
+# (``log_likelihood(exact=True)``, the 'exact' prediction mode) builds
+# K (n, n) through K7; its gradient (``exact_log_likelihood_and_grad``,
+# every step of ``metrics=True`` training, ``ExactLMC``) runs K7's
+# backward.
+REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64")
+# ``metrics=True`` training of an exact-objective model with its float32
+# factorization: the training step's K_UU forward and backward and, once
+# per step, the exact dense gradient it is compared with.
+METRICS_PATH = TRAIN_PATH + REPORT_PATH
+# The SLQ log-determinant of a model with an fft group
+# (``log_likelihood(exact=False)``, ``ski_log_det``): the Lanczos steps
+# and the float64 operator's Fourier contraction.
+SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64")
+# The same reports of float32 models: an fft model's SLQ log-det and
+# ExactLMC's exact gradient.
+F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32")
 
 
 def reset_launches():

@@ -1,9 +1,13 @@
-"""LMC likelihood pieces of the prediction and training paths (parity:
-runlmc_tpu/lmc/likelihood.py:51-96, 133-138, 202-506).
+"""LMC likelihood pieces of the prediction, training and reporting paths
+(parity: runlmc_tpu/lmc/likelihood.py:51-138, 202-527).
 
 - data flattening (host numpy);
-- the dense cross-covariance K[a, b], through kernel K7
-  (runlmc_tpu_torch/hopper/cross.py);
+- the dense cross-covariance K[a, b], through kernel K7 and its backward
+  (runlmc_tpu_torch/hopper/cross.py ``CrossKernel``), and the exact dense
+  path on it: ``exact_dense_K``, ``exact_mll`` (the oracle likelihood,
+  differentiable by autograd through cuSOLVER's Cholesky and K7's
+  backward) and ``exact_chol``;
+- the prior term of every objective (``log_prior_term``);
 - the exact SKI marginal log-likelihood through the Woodbury
   factorization, differentiable by torch autograd (the exact training
   objective), and the float32 factorization residual that the model's
@@ -26,12 +30,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from runlmc_tpu_torch.hopper.cross import cross_kernel as _k7
+from runlmc_tpu_torch.hopper.cross import CrossKernel
 from runlmc_tpu_torch.lmc.grid import build_kski
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury, woodbury_pcg
 from runlmc_tpu_torch.ops.solvers import batched_cg, batched_minres
-from runlmc_tpu_torch.utils.carry import cast_params
+from runlmc_tpu_torch.utils.carry import cast_params, unravel_params
 
 
 class FlatData(NamedTuple):
@@ -53,18 +57,92 @@ def flatten_data(Xs, Ys):
     return FlatData(X=X, y=y, lens=lens, output_idx=oidx)
 
 
+def pairwise_dists(Xa, Xb, dims):
+    """Euclidean distances between the rows of ``Xa`` and ``Xb`` over
+    the input dims ``dims`` (parity: likelihood.py:76-82)."""
+    dims = list(dims)
+    diff = Xa[:, None, dims] - Xb[None, :, dims]
+    return torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0))
+
+
 def cross_kernel(spec: LMCKernelSpec, raw_params, Xa, oidx_a, Xb, oidx_b):
-    """Dense LMC cross-covariance K[a, b] (no noise), kernel K7.
-    ``oidx_a``/``oidx_b`` are int32 output indices."""
+    """Dense LMC cross-covariance K[a, b] (no noise), kernel K7 (parity:
+    likelihood.py:85-96); differentiable in the parameters through K7's
+    backward. ``oidx_a``/``oidx_b`` are int32 output indices."""
     kinds, masks, prm = spec.kernel_table(raw_params)
-    return _k7(Xa, oidx_a, Xb, oidx_b, spec.coreg_mats(raw_params),
-               kinds, masks, prm)
+    return CrossKernel.apply(Xa, oidx_a, Xb, oidx_b,
+                             spec.coreg_mats(raw_params), kinds, masks, prm)
+
+
+def exact_dense_K(spec: LMCKernelSpec, raw_params, X, oidx):
+    """The dense LMC kernel with noise on its diagonal (parity:
+    likelihood.py:99-104)."""
+    K = cross_kernel(spec, raw_params, X, oidx, X, oidx)
+    return K + torch.diag(spec.noise(raw_params)[oidx.long()])
+
+
+def _chol_or_nan(K):
+    """Cholesky factor of ``K`` (cuSOLVER or LAPACK), NaN everywhere
+    where the factorization fails (``info > 0``) — what XLA returns, and
+    what the JAX package's callers test for — without a host read."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return L.masked_fill(info != 0, float("nan"))
+
+
+def exact_chol(spec: LMCKernelSpec, raw_params, X, oidx):
+    """Lower Cholesky factor of the dense kernel (parity:
+    likelihood.py:122-125); NaN on a factorization failure."""
+    return _chol_or_nan(exact_dense_K(spec, raw_params, X, oidx))
+
+
+def exact_mll(spec: LMCKernelSpec, raw_params, X, oidx, y):
+    """The exact marginal log-likelihood
+    -1/2 (y^T K^-1 y + log det K + n log 2 pi) of the dense kernel
+    (parity: likelihood.py:107-119). Differentiable: autograd runs
+    through the Cholesky factorization and K7's backward."""
+    L = _chol_or_nan(exact_dense_K(spec, raw_params, X, oidx))
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    n = y.shape[0]
+    return -0.5 * (torch.dot(y, alpha) + logdet + n * math.log(2 * math.pi))
+
+
+def exact_value_and_grad(spec, like, x_flat, X, oidx, y, prior_specs=()):
+    """The negative exact MLL plus the priors' term at the flat raw
+    parameters ``x_flat`` (numpy, in ``ravel_params`` order of the tree
+    ``like``) and its flat gradient, as ``(float, numpy)``: the oracle of
+    ``InterpolatedLLGP`` and the objective of ``ExactLMC`` (parity:
+    interpolated_llgp.py:875-886, exact_lmc.py:56-66)."""
+    with torch.enable_grad():
+        xc = torch.as_tensor(np.asarray(x_flat), dtype=y.dtype,
+                             device=y.device).requires_grad_(True)
+        params = unravel_params(xc, like)
+        val = -(exact_mll(spec, params, X, oidx, y)
+                + log_prior_term(prior_specs, params))
+        (g,) = torch.autograd.grad(val, xc)
+    return val.item(), g.cpu().numpy().astype(float)
+
+
+def log_prior_term(prior_specs, raw_params):
+    """Sum of the prior log-densities and transform log-Jacobians over
+    the raw-parameter tree (parity: likelihood.py:509-527).
+    ``prior_specs``: ``(path, prior, transform)`` triples, ``path`` a
+    tuple of keys addressing a leaf of ``raw_params``."""
+    total = 0.0
+    for path, prior, transform in prior_specs:
+        leaf = raw_params
+        for k in path:
+            leaf = leaf[k]
+        total = (total + torch.sum(prior.lnpdf(transform.forward(leaf)))
+                 + torch.sum(transform.log_jacobian(leaf)))
+    return total
 
 
 class ExactAux(NamedTuple):
     alpha: torch.Tensor  # (n,) K~^-1 y
     solve_error: torch.Tensor  # relative residual of the factorized solve
     quad: torch.Tensor  # y^T alpha
+    solve_iters: torch.Tensor  # 0: a direct solve (likelihood.py:300)
 
 
 def exact_ski_mll(spec: LMCKernelSpec, raw_params, grid_data, lens, y,
@@ -92,7 +170,9 @@ def exact_ski_mll(spec: LMCKernelSpec, raw_params, grid_data, lens, y,
         resid = wb.matvec(alpha_d) - y
         err = torch.linalg.norm(resid) / torch.clamp(torch.linalg.norm(y),
                                                      min=1e-30)
-    return mll, ExactAux(alpha=alpha_d, solve_error=err, quad=quad.detach())
+    return mll, ExactAux(alpha=alpha_d, solve_error=err, quad=quad.detach(),
+                         solve_iters=torch.zeros((), dtype=torch.float32,
+                                                 device=y.device))
 
 
 def f32_factorization_residual(spec, raw_params, grid_data32, lens, y,

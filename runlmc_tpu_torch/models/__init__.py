@@ -1,4 +1,5 @@
+from runlmc_tpu_torch.models.exact_lmc import ExactLMC
 from runlmc_tpu_torch.models.interpolated_llgp import InterpolatedLLGP
 from runlmc_tpu_torch.models.multigp import MultiGP
 
-__all__ = ["InterpolatedLLGP", "MultiGP"]
+__all__ = ["ExactLMC", "InterpolatedLLGP", "MultiGP"]

@@ -1,5 +1,6 @@
 """InterpolatedLLGP — the SKI LMC multi-output GP: training with the
-exact or the stochastic objective and 'on-the-fly' prediction (parity:
+exact or the stochastic objective, prediction in the three variance
+modes, and likelihood reporting (parity:
 runlmc_tpu/models/interpolated_llgp.py).
 
 Training (:meth:`InterpolatedLLGP.optimize`) runs AdaDelta on one of two
@@ -13,15 +14,23 @@ batched solve of K against [y; 15 Rademacher probes] per step. Steps
 run on the device in chunks of ``chunk_len``; the host replays the
 reference's stopping rule once per chunk, and a stochastic chunk whose
 solves breach the tolerance is re-run through the rescue rungs.
-Prediction is one certified batched solve of K_SKI against [y; K_*X],
-preconditioned by a float32 Woodbury factor.
+Prediction ('on-the-fly') is one certified batched solve of K_SKI
+against [y; K_*X], preconditioned by a float32 Woodbury factor;
+'precompute' solves once for every grid column and 'exact' uses the
+dense Cholesky. ``log_likelihood`` reports the exact dense definition
+(K7 and cuSOLVER) or the SKI one (the Woodbury log-det on dense grids,
+stochastic Lanczos quadrature through kernel K13 on fft grids);
+``metrics=True`` training compares every step's gradient with the exact
+dense gradient (K7's backward).
 
 The device path runs the hand kernels of runlmc_tpu_torch/hopper/: K1
 builds each dense grid kernel K_UU and its backward carries the gradient
 to the kernel and coregionalization parameters; on fft grids K10 does
 the Fourier-space contraction and its backward; K7 the cross-covariance
-K_*X; K6 fuses the CG updates and K12 the MINRES updates of the solves;
-K9 interpolates the predictive mean.
+K_*X and the exact dense kernel, and its backward the exact gradient;
+K6 fuses the CG updates, K12 the MINRES updates of the solves and K13
+the Lanczos steps of the SLQ log-det; K9 interpolates the predictive
+mean.
 """
 
 import logging
@@ -43,9 +52,13 @@ from runlmc_tpu_torch.lmc.grid import (
 )
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.models.multigp import MultiGP
-from runlmc_tpu_torch.models.optimization import AdaDelta
+from runlmc_tpu_torch.metrics import Metrics
+from runlmc_tpu_torch.models.optimization import EVAL_NORM, AdaDelta
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
+from runlmc_tpu_torch.ops.slq import slq_logdet_from_probes
 from runlmc_tpu_torch.ops.solvers import batched_minres
+from runlmc_tpu_torch.params import IDENTITY, POSITIVE
+from runlmc_tpu_torch.priors import check_domain
 from runlmc_tpu_torch.utils.carry import (
     cast_params,
     from_reference_params,
@@ -115,7 +128,8 @@ class InterpolatedLLGP(MultiGP):
     :param Xs, Ys: per-output ragged data (see :class:`MultiGP`)
     :param functional_kernel: an :class:`LMCKernelSpec`
     :param lo, hi, m: optional per-dim grid bounds / sizes
-    :param prediction: 'on-the-fly' (the only method ported so far)
+    :param prediction: 'on-the-fly' | 'precompute' | 'exact' — the
+        predictive variance method
     :param trace_iterations: Hutchinson probes per stochastic gradient
     :param tolerance: absolute residual tolerance of certified solves
     :param solver: 'minres' | 'cg' — the plain Krylov solver of the
@@ -137,13 +151,21 @@ class InterpolatedLLGP(MultiGP):
     :param exact_precision: 'f32' | 'model' — the dtype of the exact
         objective's per-step factorization (training escalates 'f32' to
         'model' on a residual breach)
-    :param metrics: per-step diagnostics against the exact dense
-        gradient; not ported yet (raises ``NotImplementedError``)
+    :param metrics: record per-step diagnostics in ``self.metrics``
+        (:class:`Metrics`), including each step's gradient error against
+        the exact dense gradient; training then runs step by step
     :param device: ``None`` = the CUDA device (raises without one); pass
         ``"cpu"`` to run the kernels' plain PyTorch versions
     """
 
     VALIDATION_GUARD_MAX_IT = VALIDATION_GUARD_MAX_IT
+    EVAL_NORM = EVAL_NORM
+    # Default size cutoff of log_likelihood(exact=None) (parity:
+    # interpolated_llgp.py:2059-2065): above it the exact O(n^3) log-det
+    # is a 2 GB Cholesky per parameter setting (weather, n = 15,789) for
+    # a reporting-only quantity, so the default switches to the SKI
+    # log-det. ``exact=True/False`` pins the definition.
+    LARGE_N_EXACT_REPORT = 5000
 
     def __init__(
         self,
@@ -181,17 +203,10 @@ class InterpolatedLLGP(MultiGP):
             exact_precision=exact_precision,
             functional_kernel=functional_kernel, device=device,
         )
-        if metrics:
-            raise NotImplementedError(
-                "metrics=True needs exact_mll's gradient through kernel "
-                "K7's backward, which is queued for slice 4 of the "
-                "PyTorch port"
-            )
-        if prediction != "on-the-fly":
-            raise NotImplementedError(
-                "prediction=%r: the 'exact' and 'precompute' variance "
-                "methods come with slice 4 of the PyTorch port" % (prediction,)
-            )
+        if prediction not in ("on-the-fly", "precompute", "exact"):
+            raise ValueError(
+                "Variance prediction method {} unrecognized".format(
+                    prediction))
         if objective not in ("auto", "exact", "stochastic"):
             raise ValueError("unknown objective %r" % (objective,))
         if exact_precision not in ("f32", "model"):
@@ -293,6 +308,12 @@ class InterpolatedLLGP(MultiGP):
         # the stochastic objective's probes, in place of the seeded
         # generator (tests feed the JAX package's stream through it)
         self.probe_stream = None
+        # optional ``(n_probes, n) -> (n_probes, n)`` source of the SLQ
+        # log-det's probes, in place of the generator seeded 0 (tests
+        # feed the JAX package's PRNGKey(0) probes through it)
+        self.slq_probes = None
+        self._prior_specs = []
+        self.metrics = Metrics() if metrics else None
         self._cache = {}
         # per-parameter-setting solve diagnostics of the latest
         # prediction solves
@@ -318,6 +339,34 @@ class InterpolatedLLGP(MultiGP):
     def param_array(self, x):
         flat = torch.tensor(np.asarray(x), dtype=self.dtype)
         self.set_params(unravel_params(flat, self.params))
+
+    # ------------------------------------------------------------ priors
+
+    def set_prior(self, path, prior):
+        """Place a prior on the constrained value of the raw-parameter
+        leaf at ``path`` (a tuple of keys, e.g. ``('noise',)`` or
+        ``('kernels', 'q0', 'inv_lengthscale')``); every objective and
+        the exact oracle add its log-density and the transform's
+        log-Jacobian (parity: interpolated_llgp.py:906-926). A prior adds
+        no parameter."""
+        transform = self._transform_for_path(path)
+        check_domain(prior, transform)
+        self._prior_specs.append((tuple(path), prior, transform))
+        self._bump()
+
+    def _transform_for_path(self, path):
+        if path[0] in ("noise", "coreg_diags"):
+            return POSITIVE
+        if path[0] == "coreg_vecs":
+            return IDENTITY
+        if path[0] == "kernels":
+            q = int(path[1][1:])
+            return self.spec.kernels[q].param_spec()[path[2]][1]
+        raise KeyError(path)
+
+    def _log_prior(self, params):
+        """The priors' term at ``params`` (0 without priors)."""
+        return lk.log_prior_term(self._prior_specs, params)
 
     def _probe_residual(self, params, equilibrate):
         """The float32 factorization residual at ``params``; NaN reads as
@@ -498,6 +547,113 @@ class InterpolatedLLGP(MultiGP):
             self._cache["alpha"] = sols[0]
         return self._cache["alpha"]
 
+    # ----------------------------------------------------------- reporting
+
+    def _chol(self):
+        """Lower Cholesky factor of the dense exact kernel (K7, cuSOLVER),
+        NaN on a factorization failure."""
+        if "chol" not in self._cache:
+            self._cache["chol"] = lk.exact_chol(self.spec, self.params,
+                                                self.X, self.oidx)
+        return self._cache["chol"]
+
+    def K(self):
+        """The dense exact kernel with noise, as numpy (O(n^2); reporting
+        and debugging only; parity: interpolated_llgp.py:1999-2004)."""
+        return lk.exact_dense_K(self.spec, self.params, self.X,
+                                self.oidx).cpu().numpy()
+
+    def log_det_K(self):
+        """Log determinant of the dense exact kernel by its Cholesky
+        factor (O(n^3), reporting only; parity:
+        interpolated_llgp.py:2006-2015): ``-inf``, with a CRITICAL log,
+        when the factor has a nonpositive or non-finite diagonal."""
+        diag = torch.diagonal(self._chol()).cpu().numpy()
+        if np.any(diag <= 0) or np.any(~np.isfinite(diag)):
+            _LOG.critical("Log determinant nonpositive, returning -inf")
+            return -np.inf
+        return float(2.0 * np.log(diag).sum())
+
+    def normal_quadratic(self):
+        """y^T K_SKI^-1 y, by the certified solve (parity:
+        interpolated_llgp.py:2017-2019)."""
+        return float(torch.dot(self.y, self._alpha()))
+
+    def ski_log_det(self):
+        """Log det of the SKI covariance, never materializing an (n, n)
+        matrix (parity: interpolated_llgp.py:2021-2049, the branch of a
+        platform that factorizes the model dtype natively, as the card
+        does float64): the Woodbury factorization's log-det for an
+        all-dense model; otherwise the stochastic Lanczos quadrature
+        estimate (ops/slq.py, kernel K13) with ``max(trace_iterations,
+        15)`` probes from a generator seeded 0 (or ``slq_probes``) and
+        40 steps through the model-dtype operator, cached per parameter
+        setting."""
+        if self._all_dense:
+            return float(self._woodbury().logdet)
+        if "slq_logdet" not in self._cache:
+            n = len(self.data.y)
+            n_probes = max(self.n_probes, 15)
+            if self.slq_probes is not None:
+                z = torch.as_tensor(
+                    np.asarray(self.slq_probes(n_probes, n)),
+                    dtype=self.dtype, device=self.device)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                z = lk.rademacher_probes(gen, n_probes, n, self.dtype,
+                                         self.device)
+            self._cache["slq_logdet"] = float(slq_logdet_from_probes(
+                self._kski().matvec, z, k=40))
+        return self._cache["slq_logdet"]
+
+    def ski_log_likelihood(self):
+        """The SKI model's own marginal log-likelihood
+        -1/2 (ski_log_det + y^T K_SKI^-1 y + n log 2 pi) (parity:
+        interpolated_llgp.py:2051-2057)."""
+        nll = self.ski_log_det() + self.normal_quadratic()
+        nll += len(self.data.y) * np.log(2 * np.pi)
+        return -0.5 * nll
+
+    def log_likelihood(self, exact=None):
+        """-1/2 (log det K + y^T K^-1 y + n log 2 pi) (parity:
+        interpolated_llgp.py:2067-2099).
+
+        :param exact: ``True``: the exact dense-kernel Cholesky log-det
+            (:meth:`log_det_K`, O(n^3)); ``False``: the SKI log-det
+            (:meth:`ski_log_det`); ``None``: ``True`` for n <=
+            ``LARGE_N_EXACT_REPORT``, else ``False`` with a WARNING naming
+            the definition used."""
+        n = len(self.data.y)
+        if exact is None:
+            exact = n <= self.LARGE_N_EXACT_REPORT
+            if not exact:
+                _LOG.warning(
+                    "log_likelihood: n=%d > %d, reporting the SKI "
+                    "logdet (%s) instead of the O(n^3) exact logdet; "
+                    "pass exact=True/False to pin the definition",
+                    n, self.LARGE_N_EXACT_REPORT,
+                    "Woodbury, near-exact" if self._all_dense
+                    else "Lanczos-quadrature estimate",
+                )
+        logdet = self.log_det_K() if exact else self.ski_log_det()
+        nll = logdet + self.normal_quadratic() + n * np.log(2 * np.pi)
+        return -0.5 * nll
+
+    def _exact_value_and_grad(self, x_flat):
+        """The negative exact dense MLL plus priors at ``x_flat`` and its
+        flat gradient, as (float, numpy): K7 forward and backward,
+        cuSOLVER's Cholesky and its autograd."""
+        return lk.exact_value_and_grad(self.spec, self.params, x_flat,
+                                       self.X, self.oidx, self.y,
+                                       self._prior_specs)
+
+    def exact_log_likelihood_and_grad(self):
+        """The exact dense MLL (plus priors) and its flat gradient at the
+        current parameters: the oracle (parity:
+        interpolated_llgp.py:2101-2108)."""
+        val, g = self._exact_value_and_grad(self.param_array)
+        return -val, -g
+
     # ------------------------------------------------------------ training
 
     def _model_ladders(self):
@@ -529,7 +685,7 @@ class InterpolatedLLGP(MultiGP):
                 jitter=jitter, c_jitter=c_jitter,
                 equilibrate=self._equilibrate,
             )
-            (g,) = torch.autograd.grad(-mll, xc)
+            (g,) = torch.autograd.grad(-(mll + self._log_prior(params)), xc)
         return g.to(x_flat.dtype), aux
 
     def _probes(self, run_seed, it):
@@ -569,7 +725,7 @@ class InterpolatedLLGP(MultiGP):
             s, aux = lk.stochastic_mll_surrogate(
                 self.spec, params, self.grid_data, self.data.lens, self.y,
                 probes, tol=self.tolerance, method=self.solver, **opts)
-            (g,) = torch.autograd.grad(-s, xc)
+            (g,) = torch.autograd.grad(-(s + self._log_prior(params)), xc)
         return g, aux
 
     def _grad_from_solves(self, x_flat, probes, alpha, zs):
@@ -583,7 +739,7 @@ class InterpolatedLLGP(MultiGP):
             s = lk.stochastic_surrogate_from_solves(
                 self.spec, params, self.grid_data, self.data.lens, alpha,
                 zs, probes)
-            (g,) = torch.autograd.grad(-s, xc)
+            (g,) = torch.autograd.grad(-(s + self._log_prior(params)), xc)
         return g
 
     def stochastic_grad(self):
@@ -647,7 +803,11 @@ class InterpolatedLLGP(MultiGP):
         construct the default one) on the model's objective (parity:
         interpolated_llgp.py:930-1456).
 
-        An auto-selected exact objective first runs the held-out-block
+        With ``metrics=True``, or an optimizer other than
+        :class:`AdaDelta`, the steps run one at a time through
+        ``optimizer.minimize`` and :meth:`_fprime` (each recording
+        ``self.metrics``). Otherwise an auto-selected exact objective first
+        runs the held-out-block
         validation guard and demotes to the stochastic objective on a
         breach. Steps run on the device in chunks (:meth:`_chunk`) and
         the host replays the stopping rule
@@ -694,6 +854,15 @@ class InterpolatedLLGP(MultiGP):
             run_seed = int(np.asarray(state["rng_key"]).reshape(()))
         else:
             run_seed = self._next_run_seed()
+        if self.metrics is not None or not isinstance(optimizer, AdaDelta):
+            # step by step on the host (parity: interpolated_llgp.py:
+            # 1416-1441): no chunks, escalation or rescue
+            start = 0 if state is None else int(state.get("n_iter", 0))
+            x_opt, info = optimizer.minimize(
+                self.param_array, self._fprime(run_seed, start), state=state)
+            info["state"]["rng_key"] = np.asarray(run_seed, dtype=np.int64)
+            self.param_array = x_opt
+            return info
 
         stats = {"steps": 0, "seconds": 0.0, "iters": [], "errors": [],
                  "rescued_chunks": 0}
@@ -736,6 +905,44 @@ class InterpolatedLLGP(MultiGP):
         )
         self.param_array = x_opt
         return info
+
+    def _fprime(self, run_seed, start):
+        """The host-side gradient ``fprime(x) -> numpy`` of the minimized
+        objective (the negative MLL or surrogate, plus priors) for the
+        step-by-step path (parity: interpolated_llgp.py:988-997); a
+        stochastic call draws the probes of (``run_seed``, global
+        iteration), counted from ``start``. Records ``self.metrics``."""
+        it = [start]
+
+        def fprime(x_flat):
+            x = torch.as_tensor(np.asarray(x_flat), dtype=self.dtype,
+                                device=self.device)
+            if self.objective == "stochastic":
+                g, aux = self._stochastic_grad(x, self._probes(run_seed,
+                                                               it[0]))
+            else:
+                g, aux = self._exact_grad(x)
+            it[0] += 1
+            g = g.detach().cpu().numpy().astype(float)
+            if self.metrics is not None:
+                self._record_metrics(x_flat, g, aux)
+            return g
+
+        return fprime
+
+    def _record_metrics(self, x_flat, g, aux):
+        """One step's diagnostics (parity: interpolated_llgp.py:1562-1576):
+        solver iterations and error, the gradient's ``EVAL_NORM``, its
+        relative error against the exact dense gradient at the same
+        parameters, and the exact log-likelihood."""
+        self.metrics.iterations.append(float(aux.solve_iters))
+        self.metrics.solv_error.append(float(aux.solve_error))
+        val, exact_g = self._exact_value_and_grad(x_flat)
+        exact_norm = float(np.linalg.norm(exact_g, EVAL_NORM))
+        diff = float(np.linalg.norm(g - exact_g, EVAL_NORM))
+        self.metrics.grad_norms.append(float(np.linalg.norm(g, EVAL_NORM)))
+        self.metrics.grad_error.append(diff / max(exact_norm, 1e-300))
+        self.metrics.log_likely.append(-val)
 
     def _rescue_chunk(self, outs, st0, start_iter, run_seed, optimizer,
                       stop_probe, stats, futile):
@@ -891,6 +1098,29 @@ class InterpolatedLLGP(MultiGP):
             for k in range(7)
         )
 
+    def warm_rescue(self, run_seed=0, ladder=True):
+        """Run the escalated rescue path once at the current parameters:
+        one rung-1 rescue step (plain Krylov) and, with ``ladder``, one
+        certified-ladder solve of [y; probes] and the gradient from its
+        solutions (parity: interpolated_llgp.py:1709-1741, where it
+        compiles those XLA programs ahead of a breach; on the card there
+        is nothing to compile, so it is a dry run of the same path). The
+        parameters and ``prediction_report`` are left as they were."""
+        x = self.param_array
+        z = np.zeros_like(x)
+        opt = AdaDelta(step_rate=1.0, decay=0.9, momentum=0.5, offset=1e-4)
+        self._chunk(x, z, z, z, opt, n_steps=1, run_seed=run_seed,
+                    rescue=True)
+        if ladder:
+            probes = self._probes(run_seed, 0)
+            rhs = torch.cat([self.y[None], probes], dim=0)
+            report_before = dict(self.prediction_report)
+            try:
+                sols, _ = self._solve_certified(rhs, "warm-rescue-ladder")
+            finally:
+                self.prediction_report = report_before
+            self._grad_from_solves(x, probes, sols[0], sols[1:])
+
     def _escalate(self, worst, x_last):
         """The exact objective's escalation ladder after a chunk whose
         worst residual ``worst`` breached, at the chunk's last
@@ -1033,22 +1263,61 @@ class InterpolatedLLGP(MultiGP):
         )  # (D, Q)
         return coregs @ k0 + spec.noise(params)
 
+    def _precomputed_nu(self):
+        """nu_j = [K_UX K^-1 K_XU]_jj for every grid point j, by one
+        certified solve of Dm right-hand sides (parity:
+        interpolated_llgp.py:2237-2260): K_UU as the grid matvec of the
+        identity (K1's matrix on dense grids, K10 on fft grids), its
+        interpolated columns K_XU solved at once, cached per parameter
+        setting."""
+        if "nu" not in self._cache:
+            if len(self.grid_data) != 1:
+                raise ValueError("precompute prediction mode unavailable "
+                                 "for split kernels")
+            g = self._kski().groups[0]
+            eye = torch.eye(g.interp.ncols, dtype=self.dtype,
+                            device=self.device)
+            KUU = g.grid_matvec(eye)  # (Dm, Dm), symmetric
+            rhs = g.interp.matvec(KUU)  # rows: the columns of K_XU
+            sols, _ = self._solve_certified(rhs, "precompute-nu")
+            back = g.grid_matvec(g.interp.rmatvec(sols))
+            self._cache["nu"] = torch.diagonal(back).contiguous()
+        return self._cache["nu"]
+
+    def _var_predict_exact(self, Xs):
+        """Explained variance by the dense exact Cholesky (parity:
+        interpolated_llgp.py:2210-2218)."""
+        K_test_X = self._cross_kernel(Xs)
+        sol = torch.cholesky_solve(K_test_X.T, self._chol())
+        return torch.sum(K_test_X * sol.T, dim=1)
+
     def _raw_predict(self, Xs):
-        """'on-the-fly' prediction (parity: interpolated_llgp.py:2141-2187):
-        the observation solve alpha rides in the same batched certified
-        solve as the test columns K_*X."""
+        """Prediction in the model's variance mode (parity:
+        interpolated_llgp.py:2141-2205). 'on-the-fly': the observation
+        solve alpha rides in the same batched certified solve as the test
+        columns K_*X; 'precompute': the explained variance interpolates
+        the cached per-grid-point ``nu``; 'exact': the dense Cholesky."""
         lens = [len(X) for X in Xs]
         test_interps = self._test_interps(Xs)
-        K_test_X = self._cross_kernel(Xs)
-        if K_test_X.shape[0]:
-            rhs = torch.cat([self.y[None], K_test_X], 0)
-            sols, _ = self._solve_certified(rhs, "explained-variance")
-            alpha = sols[0]
-            self._cache["alpha"] = alpha
-            explained = torch.sum(K_test_X * sols[1:], dim=1)
-        else:
+        if self.prediction == "exact":
             alpha = self._alpha()
-            explained = torch.zeros(0, dtype=self.dtype, device=self.device)
+            explained = self._var_predict_exact(Xs)
+        elif self.prediction == "precompute":
+            alpha = self._alpha()
+            nu = self._precomputed_nu()
+            explained = test_interps[0].matvec(nu)
+        else:
+            K_test_X = self._cross_kernel(Xs)
+            if K_test_X.shape[0]:
+                rhs = torch.cat([self.y[None], K_test_X], 0)
+                sols, _ = self._solve_certified(rhs, "explained-variance")
+                alpha = sols[0]
+                self._cache["alpha"] = alpha
+                explained = torch.sum(K_test_X * sols[1:], dim=1)
+            else:
+                alpha = self._alpha()
+                explained = torch.zeros(0, dtype=self.dtype,
+                                        device=self.device)
         mean = self._predict_mean(alpha, test_interps)
         native = torch.repeat_interleave(
             self._native_variance(),

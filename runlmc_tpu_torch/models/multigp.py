@@ -96,6 +96,9 @@ class MultiGP:
                 )
         return Xs
 
+    def log_likelihood(self):
+        raise NotImplementedError
+
     def _raw_predict(self, Xs):
         """-> (means, vars): lists of per-output arrays in normalized
         space."""

@@ -1,0 +1,74 @@
+"""Stochastic Lanczos quadrature (SLQ) log-determinant estimation
+(parity: runlmc_tpu/ops/slq.py:30-98).
+
+For an SPD operator K available only through batched matvecs,
+
+    log det K ~= (n / N) sum_i e1^T log(T_i) e1
+
+where T_i is the k-step Lanczos tridiagonalization of K started from
+the i-th Rademacher probe z_i / sqrt(n) (Ubaru, Chen & Saad 2017). All
+probes run one batched recurrence: one batched matvec and one Lanczos
+step (kernel K13, runlmc_tpu_torch/hopper/lanczos.py) per iteration.
+The batched (N, k, k) tridiagonal eigenproblems go to
+``torch.linalg.eigh``, a small library decomposition like the Cholesky.
+
+An ESTIMATE: see ``slq_logdet`` in the JAX package for its calibrated
+error band (0.3-0.6% relative at k=40 and 15 probes). Use the Woodbury
+log-det where a dense-mode factorization exists.
+"""
+
+import math
+
+import torch
+
+from runlmc_tpu_torch.hopper.lanczos import breakdown_eps, lanczos_step
+from runlmc_tpu_torch.lmc.likelihood import rademacher_probes
+
+
+def lanczos_tridiag(matvec, v0, k):
+    """k-step Lanczos, batched over the rows of ``v0`` (B, n), rows
+    assumed unit-norm. Returns ``(alphas (B, k), betas (B, k-1))``. After
+    an invariant-subspace breakdown (beta <= eps) the remaining alphas
+    are 1 and betas 0, as in the JAX package: the trailing identity
+    block's eigenvectors have a zero first component, so their
+    quadrature weights vanish. No reorthogonalization."""
+    B = v0.shape[0]
+    dtype, dev = v0.dtype, v0.device
+    eps = torch.full((1,), breakdown_eps(dtype), dtype=dtype, device=dev)
+    v_prev = torch.zeros_like(v0)
+    v = v0.clone()
+    beta = torch.zeros((B,), dtype=dtype, device=dev)
+    alive = torch.ones((B,), dtype=torch.int32, device=dev)
+    alphas, betas = [], []
+    for _ in range(k):
+        w = matvec(v).contiguous()
+        v_prev, v, alpha, beta, alive = lanczos_step(w, v_prev, v, beta,
+                                                     alive, eps)
+        alphas.append(alpha)
+        betas.append(beta)
+    return torch.stack(alphas, dim=1), torch.stack(betas[:-1], dim=1)
+
+
+def slq_logdet_from_probes(matvec, z, k=40):
+    """The SLQ estimate from given (N, n) +-1 probes ``z`` (parity:
+    slq.py:64-81 after the probe draw)."""
+    n = z.shape[1]
+    dtype = z.dtype
+    alphas, betas = lanczos_tridiag(matvec, z / math.sqrt(n), k)
+    T = (torch.diag_embed(alphas) + torch.diag_embed(betas, offset=1)
+         + torch.diag_embed(betas, offset=-1))
+    lam, U = torch.linalg.eigh(T)  # (N, k), (N, k, k)
+    tiny = 1e-300 if dtype == torch.float64 else 1e-30
+    log_lam = torch.log(torch.clamp(lam, min=tiny))
+    tau2 = torch.square(U[:, 0, :])  # first-row components squared
+    return n * torch.mean(torch.sum(tau2 * log_lam, dim=-1))
+
+
+def slq_logdet(matvec, n, generator, n_probes=15, k=40, dtype=torch.float64):
+    """Estimate ``log det K`` of the SPD operator ``matvec`` ((B, n) ->
+    (B, n)) with ``n_probes`` Rademacher probes drawn from the explicit
+    ``torch.Generator`` (on its device) and ``k`` Lanczos steps (parity:
+    slq.py:84-98; the JAX package draws its probes from a PRNG key
+    instead)."""
+    z = rademacher_probes(generator, n_probes, n, dtype, generator.device)
+    return slq_logdet_from_probes(matvec, z, k)

@@ -19,6 +19,11 @@ class Transform:
     def inverse(self, value):
         raise NotImplementedError
 
+    def log_jacobian(self, raw):
+        """log |d forward / d raw|: the change-of-variables term of a
+        prior on the constrained value (runlmc_tpu/params.py:27-31)."""
+        raise NotImplementedError
+
 
 class IdentityTransform(Transform):
     def forward(self, raw):
@@ -26,6 +31,9 @@ class IdentityTransform(Transform):
 
     def inverse(self, value):
         return value
+
+    def log_jacobian(self, raw):
+        return torch.zeros_like(raw)
 
 
 class Softplus(Transform):
@@ -41,6 +49,9 @@ class Softplus(Transform):
         # Numerically stable softplus^-1: log(exp(v) - 1) = v + log1p(-exp(-v))
         value = np.asarray(value, dtype=float)
         return value + np.log1p(-np.exp(-value))
+
+    def log_jacobian(self, raw):
+        return torch.log(torch.sigmoid(raw))
 
 
 IDENTITY = IdentityTransform()

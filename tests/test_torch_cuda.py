@@ -11,7 +11,15 @@ import torch
 
 import runlmc_tpu_torch as T
 from runlmc_tpu_torch import hopper
-from runlmc_tpu_torch.hopper import cg, cross, fourier, interp, kuu, minres
+from runlmc_tpu_torch.hopper import (
+    cg,
+    cross,
+    fourier,
+    interp,
+    kuu,
+    lanczos,
+    minres,
+)
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
 
@@ -297,3 +305,141 @@ def test_fft_stochastic_step_matches_cpu(dev):
         np.testing.assert_allclose(a, b, rtol=1e-6,
                                    atol=1e-6 * max(np.abs(b).max(), 1e-12))
     assert out_g[6][0] <= 1e-10 and out_c[6][0] <= 1e-10
+
+
+def _mixed_table(dtype, dev, seed=4, na=70, nb=90):
+    spec = T.LMCKernelSpec.create(
+        D=3, lmc_kernels=[T.RBF(active_dims=(0,)), T.Matern32()],
+        lmc_ranks=[1, 2], slfm_kernels=[T.StdPeriodic(period=1.3)],
+        indep_gp=[T.IdentityKern(), T.Scaled(inner=T.RBF(), scale=2.0),
+                  T.Scaled(inner=T.Matern32(), trainable_scale=False)],
+        indep_gp_index=[0, 1, 2],
+    ).with_input_dim(2)
+    p = from_reference_params(spec.init_raw_params(seed=seed), dtype, dev)
+    g = torch.Generator().manual_seed(seed)
+    xa = torch.rand(na, 2, generator=g, dtype=dtype)
+    xb = torch.cat([xa[:20], torch.rand(nb - 20, 2, generator=g,
+                                        dtype=dtype)])
+    oa = torch.randint(0, 3, (na,), generator=g, dtype=torch.int32)
+    ob = torch.cat([oa[:20], torch.randint(0, 3, (nb - 20,), generator=g,
+                                           dtype=torch.int32)])
+    G = torch.randn(na, nb, generator=g, dtype=dtype)
+    return tuple(t.to(dev) for t in (xa, oa, xb, ob)) + (
+        spec.coreg_mats(p).detach(),) + spec.kernel_table(p) + (G.to(dev),)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_kernel_bwd(dev, dtype):
+    """K7's backward on a six-kernel table (Q > 1, every kind, unsorted
+    column outputs, r = 0 pairs) against autograd of the plain forward;
+    twice, to the bit (deterministic)."""
+    args = _mixed_table(dtype, dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = cross.cross_kernel_bwd.launches[sfx]
+    got = cross.cross_kernel_bwd(*args)
+    assert cross.cross_kernel_bwd.launches[sfx] == before + 1
+    again = cross.cross_kernel_bwd(*args)
+    want = cross.cross_kernel_bwd_plain(*args)
+    for a, b, c in zip(got, want, again):
+        _close(a, b, dtype)
+        assert torch.equal(a, c)
+
+
+def test_cross_kernel_bwd_many_kernels(dev):
+    """More kernels than one launch takes: two launches over q."""
+    spec = T.LMCKernelSpec.create(
+        D=2, lmc_kernels=[T.RBF(name="k%d" % i, inv_lengthscale=0.5 + i)
+                          for i in range(10)], lmc_ranks=[1] * 10)
+    spec = spec.with_input_dim(1)
+    p = from_reference_params(spec.init_raw_params(seed=1), torch.float64,
+                              dev)
+    x = torch.linspace(0, 3, 50, dtype=torch.float64, device=dev)[:, None]
+    o = (torch.arange(50, device=dev) % 2).to(torch.int32)
+    G = torch.randn(50, 50, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    args = (x, o, x, o, spec.coreg_mats(p).detach()) + \
+        spec.kernel_table(p) + (G,)
+    before = cross.cross_kernel_bwd.launches["f64"]
+    got = cross.cross_kernel_bwd(*args)
+    assert cross.cross_kernel_bwd.launches["f64"] == before + 2
+    for a, b in zip(got, cross.cross_kernel_bwd_plain(*args)):
+        _close(a, b, torch.float64)
+
+
+def test_exact_log_likelihood_and_grad_matches_cpu(dev):
+    """The exact oracle of a small model on the card (K7 forward and
+    backward, cuSOLVER) and on the CPU at the same parameters."""
+    rng = np.random.RandomState(5)
+    Xs = [np.sort(rng.uniform(0, 4, 40)) for _ in range(3)]
+    Ys = [np.sin(X + d) + 0.1 * rng.randn(40) for d, X in enumerate(Xs)]
+    spec = T.LMCKernelSpec.create(D=3, lmc_kernels=[T.RBF()],
+                                  lmc_ranks=[2])
+    mg = T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[16],
+                            device=dev)
+    mc = T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[16],
+                            device="cpu")
+    mc.param_array = mg.param_array
+    hopper.reset_launches()
+    vg, gg = mg.exact_log_likelihood_and_grad()
+    counts = hopper.launch_counts()
+    for name in hopper.REPORT_PATH:
+        assert counts[name] > 0, name
+    vc, gc = mc.exact_log_likelihood_and_grad()
+    np.testing.assert_allclose(vg, vc, rtol=1e-10)
+    np.testing.assert_allclose(gg, gc, rtol=1e-8,
+                               atol=1e-8 * np.abs(gc).max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lanczos_step(dev, dtype):
+    """K13 against its plain version step by step on a diagonal
+    operator, with a row started on an eigenvector (it breaks down at
+    the first step) and a dead row."""
+    g = torch.Generator().manual_seed(6)
+    B, n = 5, 3000
+    d = (torch.rand(n, generator=g, dtype=dtype) + 0.5).to(dev)
+    v = torch.sign(torch.randn(B, n, generator=g, dtype=dtype)).to(dev)
+    v = v / float(np.sqrt(n))
+    v[0] = 0.0
+    v[0, 17] = 1.0
+    eps = torch.full((1,), lanczos.breakdown_eps(dtype), dtype=dtype,
+                     device=dev)
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros(B, dtype=dtype, device=dev)
+    alive = torch.tensor([1, 1, 1, 1, 0], dtype=torch.int32, device=dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for step in range(6):
+        w = v * d
+        want = lanczos.lanczos_step_plain(w, v_prev, v, beta, alive, eps)
+        before = lanczos.lanczos_step.launches[sfx]
+        got = lanczos.lanczos_step(w.clone(), v_prev.clone(), v.clone(),
+                                   beta, alive, eps)
+        assert lanczos.lanczos_step.launches[sfx] == before + 1
+        for a, b in zip(got[:4], want[:4]):
+            _close(a, b, dtype)
+        assert torch.equal(got[4], want[4])
+        v_prev, v, _, beta, alive = want
+    assert int(alive[0]) == 0 and int(alive[4]) == 0 and int(alive[1]) == 1
+
+
+def test_slq_log_det_matches_cpu(dev):
+    """The SLQ log-det of a small fft model on the card and on the CPU
+    with the same fed probes; the Lanczos steps and the float64 Fourier
+    contraction launch."""
+    rng = np.random.RandomState(2)
+    Xs = [np.sort(rng.uniform(0, 5, 60)) for _ in range(3)]
+    Ys = [np.sin(X + d) + 0.1 * rng.randn(60) for d, X in enumerate(Xs)]
+    spec = T.LMCKernelSpec.create(D=3, lmc_kernels=[T.RBF()],
+                                  lmc_ranks=[2])
+    kw = dict(functional_kernel=spec, m=[40], grid_mode="fft")
+    mg = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    mc = T.InterpolatedLLGP(Xs, Ys, device="cpu", **kw)
+    probes = np.sign(np.random.RandomState(3).randn(15, 180))
+    for mdl in (mg, mc):
+        mdl.slq_probes = lambda N, n: probes
+    hopper.reset_launches()
+    got = mg.ski_log_det()
+    counts = hopper.launch_counts()
+    for name in hopper.SLQ_PATH:
+        assert counts[name] > 0, name
+    np.testing.assert_allclose(got, mc.ski_log_det(), rtol=1e-8)

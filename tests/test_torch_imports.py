@@ -21,7 +21,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "runlmc_tpu")
 def test_import_loads_no_jax_or_reference():
     code = (
         "import sys, runlmc_tpu_torch, runlmc_tpu_torch.hopper.build\n"
-        "import runlmc_tpu_torch.datasets\n"
+        "import runlmc_tpu_torch.datasets, runlmc_tpu_torch.ops.slq\n"
+        "import runlmc_tpu_torch.ops.operators, runlmc_tpu_torch.priors\n"
+        "import runlmc_tpu_torch.metrics, runlmc_tpu_torch.mean\n"
+        "import runlmc_tpu_torch.models.exact_lmc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,)

@@ -133,10 +133,17 @@ def test_constant_output_rejected_even_unnormalized(normalize):
 
 
 def test_unported_prediction_modes_raise():
+    """Every variance mode of the JAX package is ported now
+    (tests/test_torch_report.py); an unknown one raises as there."""
     Xs, Ys, _, mk, m = _problem("1d_lmc")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        T.InterpolatedLLGP(Xs, Ys, functional_kernel=mk(T), m=m,
-                           prediction="precompute", device="cpu")
+    for mode in ("on-the-fly", "precompute", "exact"):
+        model = T.InterpolatedLLGP(Xs, Ys, functional_kernel=mk(T), m=m,
+                                   prediction=mode, device="cpu")
+        assert model.prediction == mode
+    for pkg, kw in ((R, {}), (T, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="unrecognized"):
+            pkg.InterpolatedLLGP(Xs, Ys, functional_kernel=mk(pkg), m=m,
+                                 prediction="bogus", **kw)
 
 
 def test_stalled_f32_solve_escalates_to_the_model_dtype_factor():

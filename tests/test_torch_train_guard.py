@@ -95,7 +95,8 @@ def test_auto_objective_guard_breach_raises_naming_slice_3(monkeypatch):
 
 def test_stochastic_objective_raises_naming_slice_3():
     """The stochastic objective trains a dense model (slice 3 of the
-    port); metrics=True still raises, naming slice 4."""
+    port); metrics=True (slice 4) now builds a model that records
+    ``Metrics`` (tests/test_torch_report.py holds them to JAX's)."""
     Xs, Ys = _sin_data(0, 40, 40, 7.0, 0.1)
     m = T.InterpolatedLLGP(Xs, Ys, functional_kernel=_spec(T), m=[16],
                            objective="stochastic", device="cpu")
@@ -103,9 +104,13 @@ def test_stochastic_objective_raises_naming_slice_3():
     assert m.objective == "stochastic" and info["n_iter"] == 2
     assert info["max_solve_error"] <= m.tolerance
     assert np.all(np.isfinite(m.param_array))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        T.InterpolatedLLGP(Xs, Ys, functional_kernel=_spec(T), m=[16],
-                           metrics=True, device="cpu")
+    mm = T.InterpolatedLLGP(Xs, Ys, functional_kernel=_spec(T), m=[16],
+                            objective="stochastic", metrics=True,
+                            device="cpu")
+    mm.optimize(max_it=2)
+    assert isinstance(mm.metrics, T.Metrics)
+    assert len(mm.metrics.grad_error) == 2
+    assert np.all(np.isfinite(mm.metrics.log_likely))
 
 
 def _noisy_pair(**kw):
