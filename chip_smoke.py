@@ -31,9 +31,15 @@ Phases:
    K7's backward (float64 and float32, a seeded (3113, 3113) cotangent,
    then the mixed table), K13 (float64 and float32 at (15, 15768) and at
    the reduced copy's (15, 790), eight steps on a diagonal operator with
-   a row that breaks down), and K7 and its backward at the weather
+   a row that breaks down), K7 and its backward at the weather
    oracle's (15768, 15768) with the weather model's Q=6 table (the plain
-   versions a slab of rows at a time);
+   versions a slab of rows at a time), K1 at the weather twin's
+   Dm=10016, and K5 (``trsm_lower``, its transposed variant and
+   ``cho_solve``) at the shapes of its call sites (the weather model's
+   own float32 capacitance factor, seeded well-conditioned factors for
+   the rest) in both storage orders, by agreement and by normwise
+   backward error, plus a NaN factor and ``ChoSolve``'s backward against
+   autograd through ``torch.cholesky_solve``;
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -54,9 +60,12 @@ Phases:
    fx2007), counters reset, ``optimize(AdaDelta(min_grad_ratio=0.2))``
    to its stopping rule, counters read: every kernel of
    ``hopper.TRAIN_PATH`` must have launched, gradient norms and
-   parameters must be finite and the objective still exact; one chunk is
-   profiled; then ``predict`` on the held-out points must certify its
-   residual within tolerance (SMSE and NLPD printed, on synthetic data);
+   parameters must be finite and the objective still exact; the same
+   training again in the same process (both stopping iterations
+   printed); one chunk is profiled, by layer and inside ``record_function``
+   ranges around the Woodbury solve with C and the jittered Cholesky;
+   then ``predict`` on the held-out points must certify its residual
+   within tolerance (SMSE and NLPD printed, on synthetic data);
 8. card vs CPU: from the same parameters, the first gradient and one
    chunk of float32 exact training (``CPU_CHUNK_STEPS`` steps) agree
    within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
@@ -69,7 +78,8 @@ Phases:
    parameters; the 'exact' and 'precompute' prediction modes on the 150
    test points within ``PREDICT_RTOL`` of the CPU ('precompute' on a
    reduced copy, and the full-width ``nu`` at ``NU_COLS`` seeded grid
-   columns solved on the CPU); a fresh
+   columns solved on the CPU); ``loo_zsq`` within ``REPORT_RTOL`` of the
+   CPU, and a float32 copy's (``kinv_diag`` in float32); a fresh
    ``metrics=True`` model for 3 steps (``hopper.METRICS_PATH``, its
    ``Metrics`` lists printed); ``ExactLMC`` with 10 L-BFGS-B iterations,
    then ``predict``;
@@ -77,7 +87,8 @@ Phases:
    ``optimize(AdaDelta())`` to its stopping rule, counters read: every
    kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
    and parameters finite, the objective still stochastic and the worst
-   solve residual within ``_gradient_adopt_bound``; one chunk profiled;
+   solve residual within ``_gradient_adopt_bound``; one chunk profiled,
+   as in phase 7;
 10. ``predict`` the two held-out windows: every certified residual
    within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
    (SMSE and NLPD printed, on synthetic data);
@@ -237,35 +248,83 @@ def _self_device_us(evt):
     return 0.0
 
 
-def device_profile(fn, reps=1):
+# torch.profiler ranges of a split profile, around the Woodbury solve
+# with C (K5's call site) and the jittered Cholesky (K3's)
+RANGES = ("range: DeviceWoodbury._cho_solve_C",
+          "range: woodbury.chol_jittered")
+
+
+def device_profile(fn, reps=1, ranges=False):
     """(device ms per call, [(kernel, calls, device ms)] by time, wall ms
     per call) of ``fn`` under torch.profiler, counting device-side
-    events only; device ms is None when the profiler records none."""
+    events only; device ms is None when the profiler records none. With
+    ``ranges``, ``DeviceWoodbury._cho_solve_C`` and
+    ``woodbury.chol_jittered`` run inside ``record_function`` ranges
+    (``RANGES``), and a fourth item gives the device ms per call of the
+    kernels launched inside each range, by layer."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from runlmc_tpu_torch.lmc import woodbury as wbm
+
+    saved = (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered)
+
+    def ranged(name, f):
+        def inner(*args, **kwargs):
+            with record_function(name):
+                return f(*args, **kwargs)
+        return inner
+
+    if ranges:
+        wbm.DeviceWoodbury._cho_solve_C = ranged(RANGES[0], saved[0])
+        wbm.chol_jittered = ranged(RANGES[1], saved[1])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3 / reps
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3 / reps
+    finally:
+        wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered = saved
     rows = [(e.key, e.count, _self_device_us(e) / 1e3)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES
+            and _self_device_us(e) > 0]
     rows.sort(key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
-    return (total / reps if total > 0 else None), rows, wall_ms
+    out = (total / reps if total > 0 else None), rows, wall_ms
+    if not ranges:
+        return out
+
+    def kernels_under(evt):
+        found = [(k.name, k.duration) for k in evt.kernels]
+        for child in evt.cpu_children:
+            found += kernels_under(child)
+        return found
+
+    split = {name: {} for name in RANGES}
+    for evt in prof.events():
+        if evt.name in RANGES and evt.device_type == DeviceType.CPU:
+            acc = split[evt.name]
+            for kname, us in kernels_under(evt):
+                layer = layer_of(kname)
+                acc[layer] = acc.get(layer, 0.0) + us / 1e3 / reps
+    return out + (split,)
 
 
 # device kernels by the layer of the kernel table they belong to; the
-# library-routed layers (K2-K5) are told apart by their cuBLAS and
+# library-routed layers (K2-K4) are told apart by their cuBLAS and
 # cuSOLVER kernel names (cuSOLVER's Cholesky also launches GEMMs, which
-# count under K2/K4)
+# count under K2/K4). Every triangular solve of the port is the hand K5;
+# the cuBLAS trsm kernels left are K3's: torch's Cholesky backward
+# (autograd of cholesky_ex) solves with the factor through them.
 LAYERS = (
+    ("K5 triangular solves (hand, trsm.cu)",
+     lambda k: "k5_trsm_lower<" in k),
     ("K7 backward", lambda k: "cross_kernel_bwd_kernel" in k),
     ("K13", lambda k: k.startswith("lanczos_")),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
@@ -277,11 +336,17 @@ LAYERS = (
     ("K7", lambda k: "cross_kernel_kernel" in k),
     ("K9", lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
-    ("K5 triangular solves", lambda k: "trsm" in k or "trsv" in k),
+    ("K3's trsm (cuBLAS, Cholesky VJP)",
+     lambda k: "trsm" in k or "trsv" in k),
     ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
                                                    "syrk"))),
     ("K2/K4 GEMM and GEMV", lambda k: "gemm" in k or "gemv" in k),
 )
+
+
+def layer_of(kernel):
+    return next((name for name, hit in LAYERS if hit(kernel)),
+                "elementwise, reductions, copies")
 
 
 def by_layer(rows, per=1):
@@ -289,13 +354,22 @@ def by_layer(rows, per=1):
     divided by ``per`` (steps in the profiled window)."""
     out = {}
     for key, count, ms in rows:
-        layer = next((name for name, hit in LAYERS if hit(key)),
-                     "elementwise, reductions, copies")
+        layer = layer_of(key)
         acc = out.setdefault(layer, [0, 0.0])
         acc[0] += count
         acc[1] += ms
     return {k: {"launches": v[0] / per, "device_ms": v[1] / per}
             for k, v in sorted(out.items(), key=lambda kv: -kv[1][1])}
+
+
+def print_split(split, per=1):
+    """The device ms (per step, over ``per``) of the kernels launched
+    inside each range of a split profile, by layer."""
+    for rng, layers in split.items():
+        total = sum(layers.values()) / per
+        print("  %s: %.4f ms" % (rng, total), flush=True)
+        for name, ms in sorted(layers.items(), key=lambda kv: -kv[1]):
+            print("    %-38s %8.4f ms" % (name, ms / per), flush=True)
 
 
 def print_layers(layers):
@@ -335,6 +409,62 @@ def errors(got, want):
     return abs_err, rel_err
 
 
+def k5_seeded_factor(k, dtype, dev):
+    """Lower Cholesky factor of a seeded SPD (k, k) matrix with condition
+    number about 3: I + (G + G^T) / (4 sqrt(2k)), G standard normal, whose
+    spectrum lies in about [0.5, 1.5]; factored in float64, then cast."""
+    import math
+
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + k)
+    A = torch.randn(k, k, generator=g, dtype=torch.float64, device=dev)
+    A = A + A.T
+    A /= 4.0 * math.sqrt(2.0 * k)
+    A.diagonal().add_(1.0)
+    L = torch.linalg.cholesky(A)
+    del A
+    return L.to(dtype)
+
+
+def k5_other_storage(L):
+    """The same factor in the other storage order (row-major <->
+    column-major)."""
+    return L.mT.contiguous().mT if L.is_contiguous() else L.contiguous()
+
+
+def k5_apply(trsm, op, L, B, plain=False):
+    """One K5 op on the rows of B: ``trsm_lower``, ``trsm_lower_t`` (the
+    transposed variant) or ``cho_solve``; the plain versions with
+    ``plain``."""
+    solve = trsm.trsm_lower_plain if plain else trsm.trsm_lower
+    if op == "cho_solve":
+        return solve(L, solve(L, B), trans=True)
+    return solve(L, B, trans=(op == "trsm_lower_t"))
+
+
+def k5_backward_error(L, B, X, op):
+    """Normwise backward error ||A X - B|| / (||A|| ||X|| + ||B||) in
+    float64, infinity norms of the column-notation matrices (right-hand
+    sides as columns), with A = L, L^T or L L^T (then ||L|| ||L^T||)."""
+    import torch
+
+    Lt = torch.tril(L.double())
+    X, B = X.double(), B.double()
+
+    def norm_inf(rows):  # ||rows^T||_inf
+        return float(rows.abs().sum(0).max())
+
+    nL, nLt = float(Lt.abs().sum(1).max()), float(Lt.abs().sum(0).max())
+    if op == "trsm_lower":
+        R, nA = X @ Lt.T - B, nL
+    elif op == "trsm_lower_t":
+        R, nA = X @ Lt - B, nLt
+    else:
+        R, nA = (X @ Lt) @ Lt.T - B, nL * nLt
+    return norm_inf(R) / (nA * norm_inf(X) + norm_inf(B))
+
+
 def main():
     import torch
 
@@ -347,7 +477,15 @@ def main():
     import runlmc_tpu_torch as T
     from runlmc_tpu_torch import config, hopper
     from runlmc_tpu_torch.datasets import fx2007_synthetic, weather_synthetic
-    from runlmc_tpu_torch.hopper import build, cg, cross, interp, kuu, lanczos
+    from runlmc_tpu_torch.hopper import (
+        build,
+        cg,
+        cross,
+        interp,
+        kuu,
+        lanczos,
+        trsm,
+    )
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
     from runlmc_tpu_torch.models.interpolated_llgp import (
         KRYLOV_CYCLE,
@@ -407,7 +545,7 @@ def main():
 
     def record(name, dtype, route, source, replaces, got, want, tol, fn,
                plain_fn, moved, flops, library_fn=None, path=None,
-               plain_reps=20):
+               plain_reps=20, extra=None):
         torch.cuda.synchronize()
         abs_err, rel_err = errors(got, want)
         ms = cuda_time(fn)
@@ -431,6 +569,7 @@ def main():
         }
         if path is not None:
             row["path"] = path  # the path whose launches the row reports
+        row.update(extra or {})
         print("kernel %-15s %-7s rel err %.3e (tol %.0e)  %.4f ms (device "
               "%s)  plain %.4f ms (device %s)  library %s (device %s)  "
               "bound %.4f ms (%s)"
@@ -721,6 +860,26 @@ def main():
             "the weather model's grid is not an fft 'slfm' group")
     require(wm.objective == "stochastic", "weather objective")
 
+    # K1 at the weather twin's shape: the float32 K_UU (Dm=10016) of the
+    # dense preconditioner twin, built once per stochastic step
+    gd = wm.precond_data32[0]
+    p32 = cast_params(wm.params, torch.float32)
+    tops = wm.spec.eval_kernels_stacked(p32, gd.dists, gd.plan.kidxs)
+    B = wm.spec.coreg_mats(p32, gd.plan.kidxs)
+    sizes = gd.plan.sizes
+    out = kuu.kuu_dense(tops, B, sizes)
+    record("kuu_dense", torch.float32, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/kuu_dense.cu",
+           "runlmc_tpu/lmc/grid.py:537", out,
+           kuu.kuu_dense_plain(tops, B, sizes), 1e-6,
+           lambda: kuu.kuu_dense(tops, B, sizes),
+           lambda: kuu.kuu_dense_plain(tops, B, sizes),
+           nbytes(out, tops, B), 2.0 * out.numel() * tops.shape[0],
+           path="train (stochastic, fft)",
+           extra={"site": "weather preconditioner twin, Dm=%d"
+                  % out.shape[0]})
+    del out, tops, B, p32
+
     # K10 at the weather shapes: the model's own 'slfm' symbols (float64
     # operator and float32 inner twin) on 16 seeded operand spectra
     from runlmc_tpu_torch.hopper import fourier, minres
@@ -931,6 +1090,114 @@ def main():
            k7_bwd_plain_slabs, moved, flops, path="weather oracle",
            plain_reps=WPLAIN_REPS)
     del wbargs, got, again, k7_bwd_plain_slabs  # the (n, n) cotangent
+
+    # K5: the triangular solves with a Cholesky factor at the shapes of
+    # its call sites. Each factor is held in both storage orders (the
+    # kernel reads L row-major or column-major, as cuSOLVER leaves it);
+    # trsm_lower, its transposed variant and cho_solve against their
+    # plain versions (agreement relative to the largest magnitude) and
+    # by their normwise backward error in float64; a second launch must
+    # be bit-identical. The timed row is the op its call site runs.
+    dm_fx = model.grid_data[0].interp.ncols
+    wL32 = wm._woodbury32().L_C
+    wm._cache.pop("woodbury32")
+    k5_shapes = (
+        # (what, dtype, k, c, op, path, factor)
+        ("weather f32 preconditioner apply", torch.float32, wL32.shape[0],
+         nrhs, "cho_solve", "train (stochastic, fft)", wL32),
+        ("fx2007 exact step", torch.float32, dm_fx, 1, "cho_solve", "train",
+         None),
+        ("fx2007 exact step, model precision", torch.float64, dm_fx, 1,
+         "cho_solve", "train (model precision)", None),
+        ("fx2007 predict preconditioner apply", torch.float32, dm_fx,
+         1 + sum(len(t) for t in txs), "cho_solve", "predict", None),
+        ("fx2007 kinv_diag", torch.float32, dm_fx, n, "trsm_lower",
+         "loo_zsq (float32)", None),
+        ("weather oracle exact_mll", torch.float64, wn, 1, "cho_solve",
+         "weather oracle", None),
+    )
+    k5_checks = []
+    for what, dtype, kk, cc, op, path, Lf in k5_shapes:
+        if Lf is None:
+            Lf = k5_seeded_factor(kk, dtype, dev)
+        Bk = randn(cc, kk, dtype=dtype)
+        worst = {"agree": 0.0, "backward": 0.0}
+        for Ls in (Lf, k5_other_storage(Lf)):
+            for kop in ("trsm_lower", "trsm_lower_t", "cho_solve"):
+                got = k5_apply(trsm, kop, Ls, Bk)
+                again = k5_apply(trsm, kop, Ls, Bk)
+                torch.cuda.synchronize()
+                require(torch.equal(got, again), "%s is not deterministic "
+                        "at %s" % (kop, what))
+                agree = errors(got, k5_apply(trsm, kop, Ls, Bk, plain=True))[1]
+                berr = k5_backward_error(Ls, Bk, got, kop)
+                worst["agree"] = max(worst["agree"], agree)
+                worst["backward"] = max(worst["backward"], berr)
+                del got, again
+        atol_, btol_ = ((1e-12, 1e-13) if dtype == torch.float64
+                        else (1e-4, 1e-5))
+        print("kernel trsm_lower %s (%s, k=%d, c=%d, both storages, three "
+              "ops): agreement %.3e (tol %.0e), backward error %.3e (tol "
+              "%.0e)" % (what, str(dtype).replace("torch.", ""), kk, cc,
+                         worst["agree"], atol_, worst["backward"], btol_),
+              flush=True)
+        require(worst["agree"] <= atol_, "trsm_lower disagrees with its "
+                "plain version at %s" % what)
+        require(worst["backward"] <= btol_, "trsm_lower's backward error "
+                "at %s" % what)
+        k5_checks.append(dict(what=what, dtype=str(dtype), k=kk, c=cc,
+                              **worst))
+        esz = Lf.element_size()
+        tri = (2 if op == "cho_solve" else 1) * kk * (kk + 1) // 2 * esz
+        flops = (2.0 if op == "cho_solve" else 1.0) * kk * kk * cc
+        library = ((lambda Lf=Lf, Bk=Bk: torch.cholesky_solve(Bk.mT, Lf))
+                   if op == "cho_solve" else
+                   (lambda Lf=Lf, Bk=Bk: torch.linalg.solve_triangular(
+                       Lf, Bk.mT, upper=False)))
+        record("trsm_lower", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/trsm.cu",
+               ("runlmc_tpu/lmc/likelihood.py:116" if path == "weather oracle"
+                else "runlmc_tpu/lmc/woodbury.py:%d"
+                % (192 if op == "cho_solve" else 334)),
+               k5_apply(trsm, op, Lf, Bk),
+               k5_apply(trsm, op, Lf, Bk, plain=True),
+               1e-12 if dtype == torch.float64 else 1e-4,
+               lambda Lf=Lf, Bk=Bk, op=op: k5_apply(trsm, op, Lf, Bk),
+               lambda Lf=Lf, Bk=Bk, op=op: k5_apply(trsm, op, Lf, Bk,
+                                                    plain=True),
+               tri + 2 * nbytes(Bk), flops, library_fn=library, path=path,
+               extra={"op": op, "site": what, "k": kk, "c": cc,
+                      "backward_error": worst["backward"]})
+        del Lf, Bk, Ls, library
+    del wL32, k5_shapes
+    # a NaN-masked factor (a failed exact Cholesky, likelihood._chol_or_nan)
+    # must come back NaN and must not stall a CTA
+    for dtype in (torch.float64, torch.float32):
+        Lnan = torch.full((dm_fx, dm_fx), float("nan"), dtype=dtype,
+                          device=dev)
+        for cc in (1, 151):
+            out = trsm.cho_solve(Lnan, randn(cc, dm_fx, dtype=dtype))
+            torch.cuda.synchronize()
+            require(bool(torch.isnan(out).all()), "a NaN factor gave a "
+                    "non-NaN solve")
+        del Lnan
+    # ChoSolve's backward against autograd through torch.cholesky_solve
+    # at the fx2007 float64 shape
+    Lg = k5_seeded_factor(dm_fx, torch.float64, dev).contiguous()
+    Sg = randn(1, dm_fx)
+    Gg = randn(1, dm_fx)
+    grads = []
+    for fn in (trsm.cho_solve,
+               lambda L_, S_: torch.cholesky_solve(S_.mT, L_).mT):
+        L_ = Lg.clone().requires_grad_(True)
+        S_ = Sg.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(L_, S_), (L_, S_), Gg))
+    k5_grad_err = errors(grads[0], grads[1])[1]
+    print("kernel trsm_lower ChoSolve backward (S-bar, full L-bar) vs "
+          "autograd through torch.cholesky_solve (float64, k=%d, c=1): rel "
+          "err %.3e (tol 1e-10)" % (dm_fx, k5_grad_err), flush=True)
+    require(k5_grad_err <= 1e-10, "ChoSolve's backward disagrees")
+    del Lg, grads
     phase_done("3 models and kernels")
 
     # ------------------------------------------------------------ phase 4
@@ -1080,10 +1347,30 @@ def main():
     require(np.all(np.isfinite(tm.param_array)), "non-finite parameters")
     require(tm.objective == "exact", "training left the exact objective")
 
+    # the same training again, same process and tree: does the card's
+    # float32 trajectory stop at the same iteration? (a report: the CPU
+    # stops at 39)
+    tm2 = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                             tolerance=TOLERANCE, seed=SEED,
+                             objective="exact", device=dev)
+    t0 = time.time()
+    info2 = tm2.optimize(T.AdaDelta(**OPT_KW))
+    torch.cuda.synchronize()
+    rerun_s = time.time() - t0
+    stops = [int(info["n_iter"]), int(info2["n_iter"])]
+    print("train again (same tree, same process): n_iter %d in %.3f s; "
+          "stopping iterations %s on the card, 39 on the CPU; parameters "
+          "of the two runs differ by %.3e relative"
+          % (info2["n_iter"], rerun_s, stops,
+             float(np.max(np.abs(tm2.param_array - tm.param_array))
+                   / np.max(np.abs(tm.param_array)))), flush=True)
+    del tm2
+
     x_now = tm.param_array
     z0 = np.zeros_like(x_now)
-    chunk_ms, chunk_rows, chunk_wall = device_profile(
-        lambda: tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW)))
+    chunk_ms, chunk_rows, chunk_wall, chunk_split = device_profile(
+        lambda: tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW)),
+        ranges=True)
     chunk_idle = None if chunk_ms is None else 1 - chunk_ms / chunk_wall
     print("one training chunk (%d steps, exact_precision %s) under the "
           "profiler: device busy %s of %.3f ms wall (idle share %s); top "
@@ -1096,6 +1383,9 @@ def main():
     step_layers = by_layer(chunk_rows, per=tm.chunk_len)
     print("training step device time by layer (per step):", flush=True)
     print_layers(step_layers)
+    print("training step device time inside the Woodbury solve with C and "
+          "the jittered Cholesky (per step):", flush=True)
+    print_split(chunk_split, per=tm.chunk_len)
     # least times of the library-routed layers per call, from this cell's
     # shapes (one group, float32): K2 the capacitance assembly, K3 the
     # two Cholesky factorizations (K_UU and C), K4 one W or W^T apply of
@@ -1255,6 +1545,28 @@ def main():
           flush=True)
     require(all(v <= REPORT_RTOL for v in report_err.values()),
             "card and CPU reports disagree")
+    # loo_zsq at the trained parameters (kinv_diag: one K5 triangle of
+    # n right-hand sides): the model-dtype factor's against the CPU, then
+    # a float32 copy's, whose float32 factor is kinv_diag's float32 path
+    loo = {"card": tm.loo_zsq(), "cpu": ct.loo_zsq()}
+    loo["rel_err"] = abs(loo["card"] - loo["cpu"]) / abs(loo["cpu"])
+    t32 = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
+                             tolerance=TOLERANCE, seed=SEED,
+                             objective="exact", dtype=torch.float32,
+                             device=dev)
+    t32.param_array = tx
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    loo["float32"] = t32.loo_zsq()
+    torch.cuda.synchronize()
+    loo32_launches = hopper.launch_counts()
+    del t32
+    print("loo_zsq (fx2007, trained): card %.12g, CPU %.12g (rel err %.3e, "
+          "tol %g); float32 copy %.8g, launches %s"
+          % (loo["card"], loo["cpu"], loo["rel_err"], REPORT_RTOL,
+             loo["float32"], json.dumps(loo32_launches)), flush=True)
+    require(loo["rel_err"] <= REPORT_RTOL and np.isfinite(loo["float32"]),
+            "loo_zsq: card and CPU disagree, or a non-finite float32 one")
 
     def pred_err(card_out, cpu_out):
         return max(float(np.max(np.abs(a - b))) / float(np.max(np.abs(b)))
@@ -1381,8 +1693,10 @@ def main():
     adopt = wm._gradient_adopt_bound
     print("train (stochastic objective, fft, AdaDelta defaults): n_iter %d "
           "(%d device steps), %.3f s wall, %.3f ms per step, mean solve "
-          "iters %.2f, max solve error %.3e (adopt bound %.3g), rescued "
-          "chunks %d, launches %s"
+          "iters %.2f (with cuBLAS solves: 257.3 ms per step, 7.56 "
+          "iterations), "
+          "max solve error %.3e (adopt bound %.3g), rescued chunks %d, "
+          "launches %s"
           % (winfo["n_iter"], winfo["device_steps"], wtrain_s, wstep_ms,
              winfo["mean_solve_iters"], winfo["max_solve_error"], adopt,
              winfo["rescued_chunks"], json.dumps(st_launches)), flush=True)
@@ -1397,8 +1711,9 @@ def main():
             "adopt bound")
     wx_now = wm.param_array
     wz = np.zeros_like(wx_now)
-    wchunk_ms, wchunk_rows, wchunk_wall = device_profile(
-        lambda: wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED))
+    wchunk_ms, wchunk_rows, wchunk_wall, wchunk_split = device_profile(
+        lambda: wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED),
+        ranges=True)
     wchunk_idle = None if wchunk_ms is None else 1 - wchunk_ms / wchunk_wall
     print("one stochastic chunk (%d steps) under the profiler: device busy "
           "%s of %.3f ms wall (idle share %s); top device kernels:"
@@ -1410,6 +1725,9 @@ def main():
     wstep_layers = by_layer(wchunk_rows, per=wm.chunk_len)
     print("stochastic step device time by layer (per step):", flush=True)
     print_layers(wstep_layers)
+    print("stochastic step device time inside the Woodbury solve with C "
+          "and the jittered Cholesky (per step):", flush=True)
+    print_split(wchunk_split, per=wm.chunk_len)
 
     phase_done("9 stochastic training")
 
@@ -1712,6 +2030,9 @@ def main():
     path_launches = {
         "report (fx2007)": rep_launches, "slq (weather)": slq_launches,
         "weather oracle": wexact_launches, "float32 report": f32_launches,
+        "train (stochastic, fft)": st_launches, "train": train_launches,
+        "train (model precision)": mp_launches, "predict": launches,
+        "loo_zsq (float32)": loo32_launches,
     }
     for row in rows:
         key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
@@ -1853,6 +2174,9 @@ def main():
                           "launches": el_launches},
             "float32_launches": f32_launches,
         },
+        "k5_checks": k5_checks, "k5_grad_rel_err": k5_grad_err,
+        "train_split": chunk_split, "train_stops": stops,
+        "stochastic_split": wchunk_split, "loo_zsq": loo,
         "phase_s": phase_s,
     }
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -15,6 +15,8 @@ PyTorch version beside it.
   K10 backward  fourier.fourier_contract_bwd  CUDA  csrc/fourier.cu
   K12 minres.minres_update        Triton  triton_minres.py
   K13 lanczos.lanczos_step        Triton  triton_lanczos.py
+  K5  trsm.trsm_lower (trsm.cho_solve, its backward: trsm.ChoSolve)
+                                  CUDA  csrc/trsm.cu
 """
 
 from runlmc_tpu_torch.hopper import build
@@ -28,64 +30,71 @@ from runlmc_tpu_torch.hopper.interp import interp_gather, interp_scatter
 from runlmc_tpu_torch.hopper.kuu import kuu_dense, kuu_dense_bwd
 from runlmc_tpu_torch.hopper.lanczos import lanczos_step
 from runlmc_tpu_torch.hopper.minres import minres_update
+from runlmc_tpu_torch.hopper.trsm import trsm_lower
 
 WRAPPERS = (
     kuu_dense, kuu_dense_bwd, cross_kernel, interp_gather, interp_scatter,
     cg_update_xr, cg_update_p, fourier_contract, fourier_contract_bwd,
-    minres_update, cross_kernel_bwd, lanczos_step,
+    minres_update, cross_kernel_bwd, lanczos_step, trsm_lower,
 )
 
 
 # The launches, as ``launch_counts`` keys, that a float64 model's
 # 'on-the-fly' predict makes on the card: K_UU for the model-dtype
 # operator and the float32 preconditioner, K_*X and the mean in float64,
-# the CG passes of the float32 inner cycles.
+# the CG passes of the float32 inner cycles and the float32 Woodbury
+# preconditioner's triangular solves.
 PREDICT_PATH = (
     "kuu_dense/f64", "kuu_dense/f32", "cross_kernel/f64",
     "interp_gather/f64", "interp_scatter/f64", "cg_update_xr/f32",
-    "cg_update_p/f32",
+    "cg_update_p/f32", "trsm_lower/f32",
 )
-# The float64 CG passes, which run only on the certified solve's
-# escalation rung (CG preconditioned by the float64 Woodbury factor).
-ESCALATION_PATH = ("cg_update_xr/f64", "cg_update_p/f64")
+# The float64 CG passes and triangular solves, which run only on the
+# certified solve's escalation rung (CG preconditioned by the float64
+# Woodbury factor).
+ESCALATION_PATH = ("cg_update_xr/f64", "cg_update_p/f64", "trsm_lower/f64")
 # The launches of an exact-objective training step with its float32
-# factorization (exact_precision='f32'): K_UU forward and backward.
-TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32")
+# factorization (exact_precision='f32'): K_UU forward and backward, the
+# Woodbury solve with C and its backward.
+TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32", "trsm_lower/f32")
 # The same once training has escalated to exact_precision='model' on a
 # float64 model.
-MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64")
+MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64",
+                        "trsm_lower/f64")
 # One stochastic-objective training step of a model with an fft group:
 # the Fourier contraction of the float64 operator (outer residuals and
 # the surrogate) and of the float32 inner CG cycles, its float64
 # backward (the surrogate's gradient), K_UU of the float32 dense
-# preconditioner twin and the float32 CG passes.
+# preconditioner twin, its triangular solves and the float32 CG passes.
 STOCHASTIC_PATH = (
     "fourier_contract/f64", "fourier_contract/f32",
     "fourier_contract_bwd/f64", "kuu_dense/f32", "cg_update_xr/f32",
-    "cg_update_p/f32",
+    "cg_update_p/f32", "trsm_lower/f32",
 )
 # An 'on-the-fly' predict of a model with an fft group.
 FFT_PREDICT_PATH = (
     "fourier_contract/f64", "fourier_contract/f32", "cross_kernel/f64",
     "interp_gather/f64", "interp_scatter/f64", "cg_update_xr/f32",
-    "cg_update_p/f32",
+    "cg_update_p/f32", "trsm_lower/f32",
 )
 # The plain float64 MINRES rung of the certified solve of a model with
 # an fft group.
 MINRES_PATH = ("minres_update/f64",)
 # A stochastic-objective step of an all-dense model: K_UU and its
-# backward at the model dtype, the float32 factor and CG passes.
+# backward at the model dtype, the float32 factor, its triangular solves
+# and CG passes.
 DENSE_STOCHASTIC_PATH = (
     "kuu_dense/f64", "kuu_dense_bwd/f64", "kuu_dense/f32",
-    "cg_update_xr/f32", "cg_update_p/f32",
+    "cg_update_xr/f32", "cg_update_p/f32", "trsm_lower/f32",
 )
 
 # The exact dense-kernel oracle of a float64 model: its value
 # (``log_likelihood(exact=True)``, the 'exact' prediction mode) builds
-# K (n, n) through K7; its gradient (``exact_log_likelihood_and_grad``,
-# every step of ``metrics=True`` training, ``ExactLMC``) runs K7's
-# backward.
-REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64")
+# K (n, n) through K7 and solves with its Cholesky factor through K5;
+# its gradient (``exact_log_likelihood_and_grad``, every step of
+# ``metrics=True`` training, ``ExactLMC``) runs K7's backward and K5
+# again for the solve's backward.
+REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64", "trsm_lower/f64")
 # ``metrics=True`` training of an exact-objective model with its float32
 # factorization: the training step's K_UU forward and backward and, once
 # per step, the exact dense gradient it is compared with.
@@ -96,7 +105,8 @@ METRICS_PATH = TRAIN_PATH + REPORT_PATH
 SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64")
 # The same reports of float32 models: an fft model's SLQ log-det and
 # ExactLMC's exact gradient.
-F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32")
+F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32",
+                   "trsm_lower/f32")
 
 
 def reset_launches():

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from runlmc_tpu_torch.hopper.cross import CrossKernel
+from runlmc_tpu_torch.hopper.trsm import cho_solve
 from runlmc_tpu_torch.lmc.grid import build_kski
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury, woodbury_pcg
@@ -101,7 +102,7 @@ def exact_mll(spec: LMCKernelSpec, raw_params, X, oidx, y):
     (parity: likelihood.py:107-119). Differentiable: autograd runs
     through the Cholesky factorization and K7's backward."""
     L = _chol_or_nan(exact_dense_K(spec, raw_params, X, oidx))
-    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    alpha = cho_solve(L, y[None])[0]
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
     n = y.shape[0]
     return -0.5 * (torch.dot(y, alpha) + logdet + n * math.log(2 * math.pi))

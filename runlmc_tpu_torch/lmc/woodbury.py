@@ -12,10 +12,11 @@ and Woodbury gives a closed-form inverse and determinant:
     log det K = log det C + sum_i log D_ii.
 
 The capacitance assembly is plain large matmuls and the factorizations
-and triangular solves are ``torch.linalg.cholesky_ex`` and
-``torch.cholesky_solve`` (cuBLAS / cuSOLVER on the card), as the JAX
-package leaves them to XLA. Everything here is differentiable by
-torch autograd, which the exact training objective
+are ``torch.linalg.cholesky_ex`` (cuBLAS / cuSOLVER on the card), as the
+JAX package leaves them to XLA; the triangular solves with C's factor
+are K5, the hand kernel of ``hopper/trsm.py`` (``cho_solve`` with its
+own backward, ``trsm_lower``). Everything here is differentiable by torch
+autograd, which the exact training objective
 (likelihood.exact_ski_mll) runs through. The float32 factor
 preconditions the prediction solves (:func:`woodbury_pcg`); the
 model-dtype factor is the escalation rung.
@@ -25,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from runlmc_tpu_torch.hopper.trsm import cho_solve, trsm_lower
 from runlmc_tpu_torch.lmc.grid import w_apply, wt_apply
 from runlmc_tpu_torch.ops.solvers import batched_cg
 
@@ -104,10 +106,9 @@ class DeviceWoodbury(NamedTuple):
         return out
 
     def _cho_solve_C(self, s):
-        """C^-1 s for s (..., k)."""
-        flat = s.reshape(-1, s.shape[-1])
-        sol = torch.cholesky_solve(flat.T, self.L_C).T
-        return sol.reshape(s.shape)
+        """C^-1 s for s (..., k): K5 on the rows of ``s``."""
+        flat = s.reshape(-1, s.shape[-1]).contiguous()
+        return cho_solve(self.L_C, flat).reshape(s.shape)
 
     def solve(self, rhs):
         """K^-1 rhs for rhs (..., n): closed form, no iteration."""
@@ -191,7 +192,8 @@ def build_device_woodbury(
 def kinv_diag(wb: DeviceWoodbury):
     """diag(K^-1) from the factorization (parity: woodbury.py:313-337):
     [K^-1]_ii = 1/d_i - ||L_C^-1 V_i||^2 / d_i^2 with V = [W_g F_g]_g,
-    materialized once as an (n, k) matrix (K5's triangular solve)."""
+    materialized once as an (n, k) matrix whose rows K5 solves with L_C
+    in one launch."""
     parts = []
     for blocks, F in zip(wb.W_blocks, wb.Fs):
         m = blocks[0].shape[1]
@@ -199,8 +201,8 @@ def kinv_diag(wb: DeviceWoodbury):
             [b @ F[d * m:(d + 1) * m] for d, b in enumerate(blocks)], dim=0
         ))  # (n, k_g), rows in data order
     V = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    T = torch.linalg.solve_triangular(wb.L_C, V.T, upper=False)
-    s = torch.sum(T * T, dim=0)
+    T = trsm_lower(wb.L_C, V)
+    s = torch.sum(T * T, dim=1)
     d = wb.noise_n
     return 1.0 / d - s / (d * d)
 

@@ -17,6 +17,7 @@ import scipy.optimize
 import torch
 
 from runlmc_tpu_torch.config import DEFAULT_DTYPE, resolve_device
+from runlmc_tpu_torch.hopper.trsm import cho_solve
 from runlmc_tpu_torch.lmc import likelihood as lk
 from runlmc_tpu_torch.models.multigp import MultiGP
 from runlmc_tpu_torch.utils.carry import (
@@ -90,12 +91,13 @@ class ExactLMC(MultiGP):
         Xt = torch.as_tensor(td.X, dtype=self.dtype, device=self.device)
         ot = torch.as_tensor(td.output_idx, device=self.device)
         L = lk.exact_chol(self.spec, self.params, self._X, self._oidx)
-        alpha = torch.cholesky_solve(self.y[:, None], L)[:, 0]
+        alpha = cho_solve(L, self.y[None])[0]
         K_star = lk.cross_kernel(self.spec, self.params, Xt, ot, self._X,
                                  self._oidx)
         mean = (K_star @ alpha).cpu().numpy()
-        sol = torch.cholesky_solve(K_star.T, L)
-        explained = torch.sum(K_star * sol.T, dim=1).cpu().numpy()
+        K_star = K_star.contiguous()
+        sol = cho_solve(L, K_star)
+        explained = torch.sum(K_star * sol, dim=1).cpu().numpy()
         # prior variance of each test point (with noise), minus explained
         prior = np.zeros(sum(lens))
         zero = torch.zeros((), dtype=self.dtype, device=self.device)

@@ -42,6 +42,7 @@ import torch
 
 import runlmc_tpu_torch.lmc.woodbury as wbm
 from runlmc_tpu_torch.config import DEFAULT_DTYPE, resolve_device
+from runlmc_tpu_torch.hopper.trsm import cho_solve
 from runlmc_tpu_torch.lmc import likelihood as lk
 from runlmc_tpu_torch.lmc.grid import (
     build_kski,
@@ -122,6 +123,21 @@ def _probe_seed(run_seed, it):
     return int(state.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
 
 
+def _run_seed_of(key):
+    """The int run seed of ``warm_rescue``'s ``key``: ``None`` -> 0, an
+    int as it is, a ``uint32[2]`` array (a JAX PRNG key) -> its two words
+    as one 64-bit int."""
+    if key is None:
+        return 0
+    k = np.asarray(key)
+    if k.shape == ():
+        return int(k)
+    if k.shape == (2,) and k.dtype == np.uint32:
+        return (int(k[0]) << 32) | int(k[1])
+    raise ValueError("warm_rescue: key must be None, an int or a uint32[2] "
+                     "array, got %r" % (key,))
+
+
 class InterpolatedLLGP(MultiGP):
     """Matrix-free LMC multi-output GP with SKI covariance approximation.
 
@@ -187,8 +203,15 @@ class InterpolatedLLGP(MultiGP):
         grid_mode="auto",
         objective="auto",
         exact_precision="f32",
+        mesh=None,
+        max_procs=None,  # accepted and ignored, as in the JAX package
         device=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: sharded solves are not ported yet (ROADMAP.md, "
+                "queue 1 item 4); the port runs on one device")
+        del max_procs
         self.device = resolve_device(device)
         super().__init__(Xs, Ys, normalize=normalize, name=name)
         if functional_kernel is None:
@@ -1098,14 +1121,19 @@ class InterpolatedLLGP(MultiGP):
             for k in range(7)
         )
 
-    def warm_rescue(self, run_seed=0, ladder=True):
+    def warm_rescue(self, key=None, ladder=True):
         """Run the escalated rescue path once at the current parameters:
         one rung-1 rescue step (plain Krylov) and, with ``ladder``, one
         certified-ladder solve of [y; probes] and the gradient from its
         solutions (parity: interpolated_llgp.py:1709-1741, where it
         compiles those XLA programs ahead of a breach; on the card there
         is nothing to compile, so it is a dry run of the same path). The
-        parameters and ``prediction_report`` are left as they were."""
+        parameters and ``prediction_report`` are left as they were.
+
+        ``key`` picks the run seed of the probes: ``None`` is run seed 0,
+        an int is the run seed, and a ``uint32[2]`` array (the shape of
+        a JAX PRNG key) is folded into one int seed."""
+        run_seed = _run_seed_of(key)
         x = self.param_array
         z = np.zeros_like(x)
         opt = AdaDelta(step_rate=1.0, decay=0.9, momentum=0.5, offset=1e-4)
@@ -1287,9 +1315,9 @@ class InterpolatedLLGP(MultiGP):
     def _var_predict_exact(self, Xs):
         """Explained variance by the dense exact Cholesky (parity:
         interpolated_llgp.py:2210-2218)."""
-        K_test_X = self._cross_kernel(Xs)
-        sol = torch.cholesky_solve(K_test_X.T, self._chol())
-        return torch.sum(K_test_X * sol.T, dim=1)
+        K_test_X = self._cross_kernel(Xs).contiguous()
+        sol = cho_solve(self._chol(), K_test_X)
+        return torch.sum(K_test_X * sol, dim=1)
 
     def _raw_predict(self, Xs):
         """Prediction in the model's variance mode (parity:

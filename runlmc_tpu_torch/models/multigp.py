@@ -104,6 +104,9 @@ class MultiGP:
         space."""
         raise NotImplementedError
 
+    def optimize(self, **kwargs):
+        raise NotImplementedError
+
     def _predict(self, Xs, normalize):
         if len(Xs) != self.output_dim:
             raise ValueError(

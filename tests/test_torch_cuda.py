@@ -19,6 +19,7 @@ from runlmc_tpu_torch.hopper import (
     kuu,
     lanczos,
     minres,
+    trsm,
 )
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
@@ -443,3 +444,52 @@ def test_slq_log_det_matches_cpu(dev):
     for name in hopper.SLQ_PATH:
         assert counts[name] > 0, name
     np.testing.assert_allclose(got, mc.ski_log_det(), rtol=1e-8)
+
+
+def _spd_factor(k, dtype, dev, seed=0):
+    """Lower Cholesky factor of a seeded SPD matrix, condition number
+    about 3, in column-major storage (as cuSOLVER leaves it)."""
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn(k, k, generator=g, dtype=torch.float64)
+    A = torch.eye(k, dtype=torch.float64) + (G + G.T) / (4 * (2 * k) ** 0.5)
+    return torch.linalg.cholesky(A).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k, c", [(64, 1), (333, 16), (200, 70)])
+def test_trsm_lower(dev, dtype, trans, k, c):
+    g = torch.Generator().manual_seed(1)
+    L = _spd_factor(k, dtype, dev)
+    B = torch.randn(c, k, generator=g, dtype=dtype).to(dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    want = trsm.trsm_lower_plain(L, B, trans)
+    for Ls in (L, L.contiguous()):  # column-major, then row-major
+        before = trsm.trsm_lower.launches[sfx]
+        got = trsm.trsm_lower(Ls, B, trans=trans)
+        assert trsm.trsm_lower.launches[sfx] == before + 1
+        _close(got, want, dtype)
+        assert torch.equal(got, trsm.trsm_lower(Ls, B, trans=trans))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cho_solve_nan_factor(dev, dtype):
+    L = torch.full((130, 130), float("nan"), dtype=dtype, device=dev)
+    X = trsm.cho_solve(L, torch.ones(5, 130, dtype=dtype, device=dev))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(X).all())
+
+
+def test_cho_solve_backward_matches_cholesky_solve(dev):
+    L0 = _spd_factor(257, torch.float64, dev)
+    g = torch.Generator().manual_seed(2)
+    S0, G = (torch.randn(3, 257, generator=g, dtype=torch.float64).to(dev)
+             for _ in range(2))
+    grads = []
+    for fn in (trsm.cho_solve,
+               lambda L_, S_: torch.cholesky_solve(S_.mT, L_).mT):
+        L = L0.clone().requires_grad_(True)
+        S = S0.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(L, S), (L, S), G))
+    for a, b in zip(*grads):
+        _close(a, b, torch.float64)
