@@ -39,7 +39,18 @@ Phases:
    own float32 capacitance factor, seeded well-conditioned factors for
    the rest) in both storage orders, by agreement and by normwise
    backward error, plus a NaN factor and ``ChoSolve``'s backward against
-   autograd through ``torch.cholesky_solve``;
+   autograd through ``torch.cholesky_solve``; then build the synth model
+   of phase 15 and hold K2 (the capacitance matrix, float32 and float64)
+   at the fx2007, synth and weather-twin shapes on each model's own
+   factors and noise, bit-identical across launches and storage orders,
+   K2's backward at the fx2007 and synth shapes on a seeded asymmetric
+   cotangent (also against autograd through the dense library
+   products), K2 on a seeded two-group model (cross blocks), and K9 at
+   K4's shapes (the W applies of the weather step, the fx2007 predict
+   preconditioner, kinv_diag's V = W F and the synth step) against
+   their plain versions, with the dense products (``torch.bmm`` +
+   ``matmul``), ``index_add_`` and ``embedding_bag`` as library
+   yardsticks;
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -61,9 +72,13 @@ Phases:
    to its stopping rule, counters read: every kernel of
    ``hopper.TRAIN_PATH`` must have launched, gradient norms and
    parameters must be finite and the objective still exact; the same
-   training again in the same process (both stopping iterations
-   printed); one chunk is profiled, by layer and inside ``record_function``
-   ranges around the Woodbury solve with C and the jittered Cholesky;
+   training twice more in the same process under
+   ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG`` is
+   set before CUDA starts; the three stopping iterations, whether the
+   two deterministic runs are bit-identical, and the calls torch flags
+   as nondeterministic printed); one chunk is profiled, by layer and
+   inside ``record_function`` ranges around the Woodbury solve with C,
+   the jittered Cholesky, the capacitance matrix and the W applies;
    then ``predict`` on the held-out points must certify its residual
    within tolerance (SMSE and NLPD printed, on synthetic data);
 8. card vs CPU: from the same parameters, the first gradient and one
@@ -113,6 +128,17 @@ Phases:
    ``SLQ_ORACLE_RTOL`` of the dense log-det; the float32 report path
    (``hopper.F32_REPORT_PATH``: a float32 copy's SLQ log-det and a
    float32 ``ExactLMC``'s exact gradient);
+15. synth at full width (bench.py:114-130 on the synthetic twin
+   ``datasets.synth_synthetic``: D=5, P=2, n=47,480, m=[25, 25] ->
+   Dm=4205, exact objective, tolerance 1e-3): counters reset,
+   ``optimize(AdaDelta())`` to its stopping rule, counters read (every
+   kernel of ``hopper.SYNTH_PATH``), ms per step, one chunk profiled by
+   layer and range, idle share and peak memory; ``predict`` of the
+   held-out quadrant with every certified residual within 1e-3 (SMSE and
+   NLPD printed, on synthetic data); card vs CPU on bench.py's reduced
+   copy (every 30th point, m=[8, 8]): the first gradient and a
+   ``CPU_CHUNK_STEPS`` chunk within ``TRAIN_RTOL`` (float32) and
+   ``MODEL_RTOL`` (``exact_precision='model'``);
 14. print each phase's seconds, the kernel table as one JSON line (each
    row's ``launches`` counted on its own path, named in ``path``), the
    card line again, and as the last line ``{"ok": true, "device":
@@ -122,6 +148,8 @@ Any failure raises and exits non-zero without the last line. Detailed
 results also go to ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -131,9 +159,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM figures (NVIDIA data sheet): HBM rate and the peak
-# rates outside the tensor cores
+# rates outside the tensor cores; a float64 matrix product (K2, its
+# backward, K5's solves) may run on the tensor cores (DMMA) at 67 TFLOP/s,
+# while float32 products keep 67 (TF32 stays off)
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_PRODUCT_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 SEED = 0
 TOLERANCE = 1e-8
@@ -193,6 +224,21 @@ SLQ_40_RTOL = 1e-6
 PRE_SUBSAMPLE = 3
 PRE_M = [78]
 NU_COLS = 32
+# the synth configuration (bench.py:114-130) on the in-repo synthetic
+# twin: m=[25, 25] (29 x 29 grid points after autogrid's padding,
+# Dm=4205), the exact objective at tolerance 1e-3, and the reduced copy
+# of bench.py's VALIDATE["synth"] (every 30th point, m=[8, 8]) for card
+# vs CPU
+SYNTH_M = [25, 25]
+SYNTH_TOL = 1e-3
+SYNTH_SUBSAMPLE = 30
+SYNTH_SMALL_M = [8, 8]
+# K2 against its plain version, relative to the largest magnitude: the
+# forward sums D m products per entry in another order than cuBLAS, all
+# of one sign on C's diagonal (its largest entries): 1e-5 in float32;
+# the backward sums Dm products of a seeded cotangent of both signs:
+# 1e-4; float64 1e-12 both
+K2_TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
 # rows per slab of the plain K7 and K7 backward at the weather shape,
 # and their timed calls (the plain backward takes about half a second)
 WSLAB = 1024
@@ -249,26 +295,33 @@ def _self_device_us(evt):
 
 
 # torch.profiler ranges of a split profile, around the Woodbury solve
-# with C (K5's call site) and the jittered Cholesky (K3's)
+# with C (K5's call site), the jittered Cholesky (K3's), the capacitance
+# matrix (K2's) and the W applies (K4's, through K9)
 RANGES = ("range: DeviceWoodbury._cho_solve_C",
-          "range: woodbury.chol_jittered")
+          "range: woodbury.chol_jittered",
+          "range: woodbury.capacitance_matrix",
+          "range: Interp.matvec / rmatvec")
 
 
 def device_profile(fn, reps=1, ranges=False):
     """(device ms per call, [(kernel, calls, device ms)] by time, wall ms
     per call) of ``fn`` under torch.profiler, counting device-side
     events only; device ms is None when the profiler records none. With
-    ``ranges``, ``DeviceWoodbury._cho_solve_C`` and
-    ``woodbury.chol_jittered`` run inside ``record_function`` ranges
-    (``RANGES``), and a fourth item gives the device ms per call of the
+    ``ranges``, ``DeviceWoodbury._cho_solve_C``,
+    ``woodbury.chol_jittered``, ``woodbury.capacitance_matrix`` and the
+    interpolant's ``matvec`` / ``rmatvec`` run inside ``record_function``
+    ranges (``RANGES``; the forward only: a backward's kernels fall
+    outside them), and a fourth item gives the device ms per call of the
     kernels launched inside each range, by layer."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from runlmc_tpu_torch.lmc import woodbury as wbm
+    from runlmc_tpu_torch.ops.interpolation import Interp
 
-    saved = (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered)
+    saved = (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered,
+             wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec)
 
     def ranged(name, f):
         def inner(*args, **kwargs):
@@ -276,9 +329,16 @@ def device_profile(fn, reps=1, ranges=False):
                 return f(*args, **kwargs)
         return inner
 
+    def restore():
+        (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered,
+         wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec) = saved
+
     if ranges:
         wbm.DeviceWoodbury._cho_solve_C = ranged(RANGES[0], saved[0])
         wbm.chol_jittered = ranged(RANGES[1], saved[1])
+        wbm.capacitance_matrix = ranged(RANGES[2], saved[2])
+        Interp.matvec = ranged(RANGES[3], saved[3])
+        Interp.rmatvec = ranged(RANGES[3], saved[4])
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -289,7 +349,7 @@ def device_profile(fn, reps=1, ranges=False):
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3 / reps
     finally:
-        wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered = saved
+        restore()
     rows = [(e.key, e.count, _self_device_us(e) / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in RANGES
@@ -308,7 +368,9 @@ def device_profile(fn, reps=1, ranges=False):
 
     split = {name: {} for name in RANGES}
     for evt in prof.events():
-        if evt.name in RANGES and evt.device_type == DeviceType.CPU:
+        if (evt.name in RANGES and evt.device_type == DeviceType.CPU
+                and not (evt.cpu_parent is not None
+                         and evt.cpu_parent.name == evt.name)):
             acc = split[evt.name]
             for kname, us in kernels_under(evt):
                 layer = layer_of(kname)
@@ -317,12 +379,17 @@ def device_profile(fn, reps=1, ranges=False):
 
 
 # device kernels by the layer of the kernel table they belong to; the
-# library-routed layers (K2-K4) are told apart by their cuBLAS and
-# cuSOLVER kernel names (cuSOLVER's Cholesky also launches GEMMs, which
-# count under K2/K4). Every triangular solve of the port is the hand K5;
-# the cuBLAS trsm kernels left are K3's: torch's Cholesky backward
-# (autograd of cholesky_ex) solves with the factor through them.
+# library-routed layer (K3) is told apart by its cuBLAS and cuSOLVER
+# kernel names. Every triangular solve of the port is the hand K5; the
+# cuBLAS trsm kernels left are K3's: torch's Cholesky backward (autograd
+# of cholesky_ex) solves with the factor through them. K2 and K4 are hand
+# kernels: the GEMMs left are the products with the factors F
+# (woodbury.py's _vt/_v), the Cholesky VJP's and cuSOLVER's own.
 LAYERS = (
+    ("K2 backward (hand, capacitance.cu)",
+     lambda k: "cap_bwd_kernel" in k or "eps_reduce_kernel" in k),
+    ("K2 capacitance (hand, capacitance.cu)",
+     lambda k: "gram_apply_kernel" in k or "::cap_kernel<" in k),
     ("K5 triangular solves (hand, trsm.cu)",
      lambda k: "k5_trsm_lower<" in k),
     ("K7 backward", lambda k: "cross_kernel_bwd_kernel" in k),
@@ -334,13 +401,15 @@ LAYERS = (
     ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k),
     ("K1", lambda k: "kuu_dense_kernel" in k),
     ("K7", lambda k: "cross_kernel_kernel" in k),
-    ("K9", lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
+    ("K9 and K4 W applies (hand, interp.cu)",
+     lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
     ("K3's trsm (cuBLAS, Cholesky VJP)",
      lambda k: "trsm" in k or "trsv" in k),
     ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
                                                    "syrk"))),
-    ("K2/K4 GEMM and GEMV", lambda k: "gemm" in k or "gemv" in k),
+    ("GEMM and GEMV (F products, Cholesky VJP)",
+     lambda k: "gemm" in k or "gemv" in k),
 )
 
 
@@ -379,9 +448,10 @@ def print_layers(layers):
               flush=True)
 
 
-def bound_ms(nbytes, flops, dtype):
+def bound_ms(nbytes, flops, dtype, product=False):
+    peak = PEAK_PRODUCT_FLOPS if product else PEAK_FLOPS
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
+    t_ops = flops / peak[str(dtype).replace("torch.", "")] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -465,7 +535,120 @@ def k5_backward_error(L, B, X, op):
     return norm_inf(R) / (nA * norm_inf(X) + norm_inf(B))
 
 
+def k2_grams(gds):
+    """{(a, b): host (D, m_a, m_b) gram} of a Woodbury set of placed or
+    host dense-mode GridData."""
+    import numpy as np
+
+    def host(t):
+        return np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+
+    out = {}
+    for a, gd in enumerate(gds):
+        out[a, a] = host(gd.WtW)
+        for j, (g_ab, g_ba) in enumerate(gd.cross):
+            out[a, a + 1 + j] = host(g_ab.G)
+            out[a + 1 + j, a] = host(g_ba.G)
+    return out
+
+
+def k2_work(gds, esize):
+    """(forward bytes, forward operations, backward bytes, backward
+    operations, dense operations) of K2 on the Woodbury set ``gds``,
+    counted over what these inputs need. Stage 1 multiplies each nonzero
+    G_{ab,d}[p, r] by the d m_b + r + 1 entries of F_b's row d m_b + r
+    left of its diagonal; stage 2 each lower entry (k, l) of C by the
+    rows of each F_{a,d} that are nonzero in column k; the backward each
+    entry (i, c <= d m_a + i) of Y_{a,d} by the columns of T_{a.,d} that
+    are not zero. Bytes: every input read once (F's lower triangle, the
+    grams' nonzeros; the backward also T, Cbar), every output written
+    once. The dense count is the XLA formula's, 2 D m_a m_b Dm_b +
+    2 Dm_a^2 Dm_b per block (a, b <= a)."""
+    import numpy as np
+
+    grams = k2_grams(gds)
+    ms = [grams[a, a].shape[1] for a in range(len(gds))]
+    D = grams[0, 0].shape[0]
+    ks = [D * m for m in ms]
+    k = sum(ks)
+    fwd = dense = 0.0
+    nnz = 0
+    for (a, b), G in grams.items():
+        for d in range(D):
+            r = np.nonzero(G[d])[1]
+            nnz += len(r)
+            fwd += 2.0 * float(np.sum(np.minimum(d * ms[b] + r + 1, ks[b])))
+    for a in range(len(gds)):
+        kk = np.arange(ks[a])
+        rows = sum(np.clip((d + 1) * ms[a] - kk, 0, ms[a]) for d in range(D))
+        for b in range(a + 1):
+            cols = kk + 1 if a == b else np.full(ks[a], ks[b])
+            fwd += 2.0 * float(np.sum(rows * cols))
+            dense += 2.0 * D * ms[a] * ms[b] * ks[b] + 2.0 * ks[a] ** 2 * ks[b]
+    bwd = 0.0
+    for a in range(len(gds)):
+        i = np.arange(ms[a])
+        for d in range(D):
+            width = sum(min(ks[g], (d + 1) * ms[g]) for g in range(len(gds)))
+            bwd += 2.0 * width * float(np.sum(np.minimum(d * ms[a] + i + 1,
+                                                         ks[a])))
+    tri = sum(kk * (kk + 1) // 2 for kk in ks)
+    fwd_bytes = esize * (tri + nnz + D + k * k)
+    bwd_bytes = esize * (tri + sum(kk * k for kk in ks) + k * k + D
+                         + sum(kk * kk for kk in ks) + D)
+    return fwd_bytes, fwd, bwd_bytes, bwd, dense
+
+
+def k2_library(grams, inv_eps, Fs):
+    """The capacitance matrix by the dense products of the JAX package's
+    formula (woodbury.py:260-298: a batched gram product and one large
+    GEMM per block, cuBLAS here), C_ba mirrored from C_ab: the library
+    yardstick of K2, never called by the port."""
+    import torch
+
+    D = inv_eps.shape[0]
+    ms = [F.shape[0] // D for F in Fs]
+    n = len(Fs)
+    Fd = [torch.tril(F).reshape(D, m, -1) for F, m in zip(Fs, ms)]
+    rows = [[None] * n for _ in range(n)]
+    for a in range(n):
+        for b in range(a, n):
+            T1 = torch.bmm(grams[a][b][0], Fd[b])
+            rows[a][b] = (Fd[a] * inv_eps[:, None, None]).reshape(
+                D * ms[a], -1).T @ T1.reshape(D * ms[a], -1)
+            if b > a:
+                rows[b][a] = rows[a][b].T
+    C = torch.cat([torch.cat(r, dim=1) for r in rows], dim=0)
+    return C + torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
+
+
+@contextlib.contextmanager
+def library_capacitance(wbm):
+    """Inside: the port's Woodbury factorizations form C by
+    :func:`k2_library` (cuBLAS, differentiated by autograd) in place of
+    K2, to hold C's float32 rounding against the dense products' in the
+    same run; K2 again on exit."""
+    orig = wbm.capacitance_matrix
+    wbm.capacitance_matrix = k2_library
+    try:
+        yield
+    finally:
+        wbm.capacitance_matrix = orig
+
+
+def synth_spec(T, D):
+    """The synth configuration's kernel (bench.py:114-130): SLFM rank 2
+    plus an RBF per output."""
+    return T.LMCKernelSpec.create(
+        D=D, slfm_kernels=[T.RBF(name="slfm0"), T.RBF(name="slfm1")],
+        indep_gp=[T.RBF(name="rbf%d" % i) for i in range(D)],
+    )
+
+
 def main():
+    # cuBLAS reads its workspace setting when CUDA starts: phase 7's
+    # deterministic reruns need it (torch.use_deterministic_algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -476,9 +659,14 @@ def main():
 
     import runlmc_tpu_torch as T
     from runlmc_tpu_torch import config, hopper
-    from runlmc_tpu_torch.datasets import fx2007_synthetic, weather_synthetic
+    from runlmc_tpu_torch.datasets import (
+        fx2007_synthetic,
+        synth_synthetic,
+        weather_synthetic,
+    )
     from runlmc_tpu_torch.hopper import (
         build,
+        capacitance as cap,
         cg,
         cross,
         interp,
@@ -486,15 +674,22 @@ def main():
         lanczos,
         trsm,
     )
+    from runlmc_tpu_torch.lmc import grid as tgrid
+    from runlmc_tpu_torch.lmc import woodbury as wbm
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
     from runlmc_tpu_torch.models.interpolated_llgp import (
+        EXACT_RESIDUAL_THRESHOLD,
         KRYLOV_CYCLE,
         RUNG_MAXITER,
     )
     from runlmc_tpu_torch.ops import slq
     from runlmc_tpu_torch.ops.solvers import batched_minres
     from runlmc_tpu_torch.ops.bttb import bttb_index_map
-    from runlmc_tpu_torch.utils.carry import cast_params, from_reference_params
+    from runlmc_tpu_torch.utils.carry import (
+        cast_params,
+        from_reference_params,
+        unravel_params,
+    )
     from runlmc_tpu_torch.utils.evaluation import nlpd, smse
 
     phase_s = {}
@@ -545,7 +740,7 @@ def main():
 
     def record(name, dtype, route, source, replaces, got, want, tol, fn,
                plain_fn, moved, flops, library_fn=None, path=None,
-               plain_reps=20, extra=None):
+               plain_reps=20, extra=None, product=False):
         torch.cuda.synchronize()
         abs_err, rel_err = errors(got, want)
         ms = cuda_time(fn)
@@ -557,7 +752,7 @@ def main():
         library_ms = cuda_time(library_fn) if library_fn else None
         library_device_ms = (device_profile(library_fn, reps=10)[0]
                              if library_fn else None)
-        bms, by = bound_ms(moved, flops, dtype)
+        bms, by = bound_ms(moved, flops, dtype, product)
         row = {
             "name": name, "dtype": str(dtype).replace("torch.", ""),
             "route": route, "source": source, "replaces": replaces,
@@ -878,6 +1073,15 @@ def main():
            path="train (stochastic, fft)",
            extra={"site": "weather preconditioner twin, Dm=%d"
                   % out.shape[0]})
+    # K8, k(r) on the grid (still torch elementwise ops, to be fused into
+    # K1): its bound, the Q x m values written and the m distances read
+    for what, gd_ in (("fx2007 float32", model.grid_data32[0]),
+                      ("weather twin float32", gd)):
+        q_ = len(gd_.plan.kidxs)
+        k8_bytes = nbytes(gd_.dists) * (1 + q_)
+        print("bound K8 k(r) on the grid (%s, Q=%d, m=%d): %.6f ms (%s)"
+              % ((what, q_, gd_.dists.numel())
+                 + bound_ms(k8_bytes, 0.0, torch.float32)), flush=True)
     del out, tops, B, p32
 
     # K10 at the weather shapes: the model's own 'slfm' symbols (float64
@@ -1166,7 +1370,7 @@ def main():
                lambda Lf=Lf, Bk=Bk, op=op: k5_apply(trsm, op, Lf, Bk,
                                                     plain=True),
                tri + 2 * nbytes(Bk), flops, library_fn=library, path=path,
-               extra={"op": op, "site": what, "k": kk, "c": cc,
+               product=True, extra={"op": op, "site": what, "k": kk, "c": cc,
                       "backward_error": worst["backward"]})
         del Lf, Bk, Ls, library
     del wL32, k5_shapes
@@ -1198,6 +1402,243 @@ def main():
           "err %.3e (tol 1e-10)" % (dm_fx, k5_grad_err), flush=True)
     require(k5_grad_err <= 1e-10, "ChoSolve's backward disagrees")
     del Lg, grads
+
+    # the synth model of phase 15 (full width, Dm=4205, 2-D grids)
+    sxs, sys_, stxs, stys = synth_synthetic(SEED)
+    t0 = time.time()
+    sm = T.InterpolatedLLGP(sxs, sys_, functional_kernel=synth_spec(T, 5),
+                            m=SYNTH_M, tolerance=SYNTH_TOL,
+                            objective="exact", seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    sbuild_s = time.time() - t0
+    print("synth model: n=%d, grid %s, Dm=%d, objective %s, built in %.2f s"
+          % (len(sm.data.y), sm.grid_data[0].plan.sizes,
+             sm.grid_data[0].interp.ncols, sm.objective, sbuild_s),
+          flush=True)
+    require(len(sm.grid_data) == 1 and sm.grid_data[0].plan.mode == "dense",
+            "the synth grid is not one dense group")
+
+    # K2: the capacitance matrix at its call sites, each model's own
+    # factors and noise: the fx2007 and synth models' float32 factors
+    # (training) and float64 ones (model precision), the weather twin's
+    # float32 preconditioner factor, and that factor in float64; each
+    # launch is relaunched (bit-identical) and run on the factor in the
+    # other storage order. K2's backward at the fx2007 and synth shapes
+    # on a seeded asymmetric cotangent, against its plain version and
+    # against autograd through the dense library products.
+    def noise_inv(mdl, dtype):
+        return 1.0 / mdl.spec.noise(cast_params(mdl.params, dtype))
+
+    k2_sites = []
+    for what, mdl, path32, path64 in (
+            ("fx2007", model, "train", "train (model precision)"),
+            ("synth", sm, "synth", "synth")):
+        k2_sites.append((what, torch.float32, path32, mdl.grid_data32,
+                         noise_inv(mdl, torch.float32),
+                         mdl._woodbury32().Fs))
+        k2_sites.append((what, torch.float64, path64,
+                         mdl.grid_data, noise_inv(mdl, torch.float64),
+                         mdl._woodbury().Fs))
+        mdl._cache.pop("woodbury32")
+        mdl._cache.pop("woodbury")
+    wFs = wm._woodbury32().Fs
+    wm._cache.pop("woodbury32")
+    wtwin64 = tuple(dataclasses.replace(g, WtW=g.WtW.double(), cross=())
+                    for g in wm.precond_data32)
+    k2_sites.append(("weather preconditioner twin", torch.float32,
+                     "train (stochastic, fft)", wm.precond_data32,
+                     noise_inv(wm, torch.float32), wFs))
+    k2_sites.append(("weather preconditioner twin", torch.float64,
+                     "train (model precision)", wtwin64,
+                     noise_inv(wm, torch.float64),
+                     tuple(F.double() for F in wFs)))
+    del wFs
+    k2_checks = []
+    for what, dtype, path, grids_, inv_e, Fs_ in k2_sites:
+        dts = str(dtype).replace("torch.", "")
+        ftol, btol = K2_TOL[dts]
+        nest = tgrid.gram_nest(grids_)
+        C, Ts = cap.capacitance(nest, inv_e, Fs_)
+        again = cap.capacitance(nest, inv_e, Fs_)[0]
+        other = cap.capacitance(nest, inv_e,
+                                [k5_other_storage(F) for F in Fs_])[0]
+        torch.cuda.synchronize()
+        require(torch.equal(C, again) and torch.equal(C, other),
+                "capacitance is not bit-identical across launches and "
+                "storage orders at %s %s" % (what, dts))
+        del again, other
+        fb, fo, bb, bo, dense = k2_work(grids_, C.element_size())
+        weather = what.startswith("weather")
+        lib = (lambda nest=nest, inv_e=inv_e, Fs_=Fs_:
+               k2_library(nest, inv_e, Fs_))
+        require(errors(lib(), cap.capacitance_plain(nest, inv_e, Fs_)[0])[1]
+                <= ftol, "the dense library products disagree with K2's "
+                "plain version")
+        record("capacitance", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/capacitance.cu",
+               "runlmc_tpu/lmc/woodbury.py:260", C,
+               cap.capacitance_plain(nest, inv_e, Fs_)[0], ftol,
+               lambda nest=nest, inv_e=inv_e, Fs_=Fs_:
+               cap.capacitance(nest, inv_e, Fs_),
+               lambda nest=nest, inv_e=inv_e, Fs_=Fs_:
+               cap.capacitance_plain(nest, inv_e, Fs_),
+               fb, fo, library_fn=lib, path=path,
+               plain_reps=5 if weather else 20, product=True,
+               extra={"site": what, "k": C.shape[0],
+                      "structured_operations": fo,
+                      "dense_operations": dense,
+                      "dense_bound_ms": bound_ms(0, dense, dtype,
+                                                 product=True)[0]})
+        check = {"site": what, "dtype": dts, "k": C.shape[0]}
+        if weather and dtype == torch.float32:
+            w32 = (C.clone(), lib())
+        elif weather:
+            # the float32 rounding of K2 (blocked sums) and of cuBLAS's
+            # dense products against float64 on the same inputs
+            scale = float(C.abs().max())
+            check["float32_vs_float64"] = {
+                "k2": float((w32[0].double() - C).abs().max()) / scale,
+                "library": float((w32[1].double() - C).abs().max()) / scale}
+            print("kernel capacitance weather twin float32 against float64 "
+                  "(of max |C|): K2 %.3e, dense cuBLAS products %.3e"
+                  % (check["float32_vs_float64"]["k2"],
+                     check["float32_vs_float64"]["library"]), flush=True)
+            del w32
+        if not weather:
+            k = C.shape[0]
+            gdev = torch.Generator(device=dev).manual_seed(SEED + k)
+            Cbar = torch.randn(k, k, generator=gdev, dtype=dtype,
+                               device=dev)
+            got = cap.capacitance_bwd(nest, inv_e, Fs_, Ts, Cbar)
+            got = (got[0], *got[1])
+            again = cap.capacitance_bwd(nest, inv_e, Fs_, Ts, Cbar)
+            require(all(torch.equal(a, b) for a, b in
+                        zip(got, (again[0], *again[1]))),
+                    "capacitance_bwd is not bit-identical at %s" % what)
+            Tp = cap.capacitance_plain(nest, inv_e, Fs_)[1]
+            want = cap.capacitance_bwd_plain(nest, inv_e, Fs_, Tp, Cbar)
+            want = (want[0], *want[1])
+
+            def lib_bwd(nest=nest, inv_e=inv_e, Fs_=Fs_, Cbar=Cbar):
+                ie = inv_e.detach().requires_grad_(True)
+                Fr = [F.detach().requires_grad_(True) for F in Fs_]
+                return torch.autograd.grad(k2_library(nest, ie, Fr),
+                                           [ie] + Fr, Cbar)
+
+            check["library_bwd_rel_err"] = errors(lib_bwd(), want)[1]
+            require(check["library_bwd_rel_err"] <= btol, "autograd "
+                    "through the dense library products disagrees with "
+                    "K2's plain backward at %s" % what)
+            record("capacitance_bwd", dtype, "cuda",
+                   "runlmc_tpu_torch/hopper/csrc/capacitance.cu",
+                   "runlmc_tpu/lmc/woodbury.py:260", got, want, btol,
+                   lambda nest=nest, inv_e=inv_e, Fs_=Fs_, Ts=Ts,
+                   Cbar=Cbar: cap.capacitance_bwd(nest, inv_e, Fs_, Ts,
+                                                  Cbar),
+                   lambda nest=nest, inv_e=inv_e, Fs_=Fs_, Tp=Tp,
+                   Cbar=Cbar: cap.capacitance_bwd_plain(nest, inv_e, Fs_,
+                                                        Tp, Cbar),
+                   bb, bo, library_fn=lib_bwd, path=path, product=True,
+                   extra={"site": what, "k": k})
+            del Cbar, got, again, want, Tp
+        k2_checks.append(check)
+        del C, Ts
+    del k2_sites, wtwin64
+    # K2 on a two-group model (cross blocks, a 2-D and a 1-D grid over a
+    # 3-D input, 3 outputs; seeded factors), forward and backward
+    rng3 = np.random.RandomState(SEED)
+    x3 = [rng3.uniform(0, 1, (1500, 3)) for _ in range(3)]
+    spec3 = T.LMCKernelSpec.create(
+        D=3, lmc_kernels=[T.RBF(name="a", active_dims=(0, 1))],
+        lmc_ranks=[1], indep_gp=[T.RBF(name="b", active_dims=(2,))],
+    ).with_input_dim(3)
+    g3, _ = tgrid.make_grids(spec3, x3, m=[16, 16, 200])
+    require(len(g3) == 2, "the two-group K2 check has one group")
+    for dtype in (torch.float32, torch.float64):
+        dts = str(dtype).replace("torch.", "")
+        ftol, btol = K2_TOL[dts]
+        gds3 = tuple(g.to(dtype, dev) for g in g3)
+        nest = tgrid.gram_nest(gds3)
+        inv_e = torch.rand(3, generator=gen, dtype=torch.float64).to(
+            dev, dtype) + 0.5
+        Fs_ = [k5_seeded_factor(g.interp.ncols, dtype, dev) for g in gds3]
+        C, Ts = cap.capacitance(nest, inv_e, Fs_)
+        Cp, Tp = cap.capacitance_plain(nest, inv_e, Fs_)
+        Cbar = randn(*C.shape, dtype=dtype)
+        got = cap.capacitance_bwd(nest, inv_e, Fs_, Ts, Cbar)
+        want = cap.capacitance_bwd_plain(nest, inv_e, Fs_, Tp, Cbar)
+        e_f = errors(C, Cp)[1]
+        e_b = errors((got[0], *got[1]), (want[0], *want[1]))[1]
+        print("kernel capacitance two groups (Dm %s, cross blocks) %s: "
+              "forward rel err %.3e (tol %.0e), backward %.3e (tol %.0e)"
+              % ([g.interp.ncols for g in gds3], dts, e_f, ftol, e_b, btol),
+              flush=True)
+        require(e_f <= ftol and e_b <= btol,
+                "capacitance disagrees on two groups")
+        k2_checks.append({"site": "two groups", "dtype": dts,
+                          "forward_rel_err": e_f, "backward_rel_err": e_b})
+        del C, Ts, Cp, Tp, Cbar, got, want, Fs_
+
+    # K9 at K4's shapes: the W applies of the weather step (16 columns:
+    # y and 15 probes, float32 inner cycles and the float64 operator),
+    # of the fx2007 predict preconditioner (151 columns) and of synth
+    # (one column), and the gather of kinv_diag's V = W F (3094 columns);
+    # the library routes are index_add_ (scatter) and embedding_bag
+    # (gather) on the columns as rows
+    def k9_rows(W, nb, dtype, path, site, which=("scatter", "gather")):
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        n_, taps = W.indices.shape
+        if "scatter" in which:
+            x = randn(nb, n_, dtype=dtype)
+            csr = (W.t_ptr, W.t_rows, W.t_weights)
+            out = interp.interp_scatter(*csr, x)
+            flat = W.indices.reshape(-1).long()
+            wcol = W.weights.reshape(-1, 1)
+            rowsx = torch.arange(n_, device=dev).repeat_interleave(taps)
+            xT = x.T.contiguous()
+            acc = torch.zeros(W.ncols, nb, dtype=dtype, device=dev)
+            record("interp_scatter", dtype, "cuda",
+                   "runlmc_tpu_torch/hopper/csrc/interp.cu",
+                   "runlmc_tpu/lmc/woodbury.py:141", out,
+                   interp.interp_scatter_plain(*csr, x), tol,
+                   lambda csr=csr, x=x: interp.interp_scatter(*csr, x),
+                   lambda csr=csr, x=x: interp.interp_scatter_plain(*csr, x),
+                   nbytes(out, x, *csr), 2.0 * flat.numel() * nb,
+                   library_fn=lambda acc=acc, flat=flat, xT=xT, rowsx=rowsx,
+                   wcol=wcol: acc.zero_().index_add_(0, flat,
+                                                     xT[rowsx] * wcol),
+                   path=path, extra={"site": site, "columns": nb})
+        if "gather" in which:
+            v = randn(nb, W.ncols, dtype=dtype)
+            out = interp.interp_gather(W.indices, W.weights, v)
+            idx_l = W.indices.long()
+            vT = v.T.contiguous()
+            record("interp_gather", dtype, "cuda",
+                   "runlmc_tpu_torch/hopper/csrc/interp.cu",
+                   "runlmc_tpu/lmc/woodbury.py:151", out,
+                   interp.interp_gather_plain(W.indices, W.weights, v), tol,
+                   lambda W=W, v=v: interp.interp_gather(W.indices,
+                                                         W.weights, v),
+                   lambda W=W, v=v: interp.interp_gather_plain(
+                       W.indices, W.weights, v),
+                   nbytes(out, v, W.indices, W.weights),
+                   2.0 * W.indices.numel() * nb,
+                   library_fn=lambda idx_l=idx_l, vT=vT, W=W:
+                   torch.nn.functional.embedding_bag(
+                       idx_l, vT, per_sample_weights=W.weights, mode="sum"),
+                   path=path, extra={"site": site, "columns": nb})
+
+    k9_rows(wm.inner_data32[0].interp, nrhs, torch.float32,
+            "train (stochastic, fft)", "weather step, float32 inner cycles")
+    k9_rows(wm.grid_data[0].interp, nrhs, torch.float64,
+            "train (stochastic, fft)", "weather step, float64 operator")
+    k9_rows(model.grid_data32[0].interp, 1 + sum(len(t) for t in txs),
+            torch.float32, "predict", "fx2007 predict preconditioner")
+    k9_rows(model.grid_data32[0].interp, dm_fx, torch.float32,
+            "loo_zsq (float32)", "fx2007 kinv_diag V = W F",
+            which=("gather",))
+    k9_rows(sm.grid_data32[0].interp, 1, torch.float32, "synth",
+            "synth exact step")
     phase_done("3 models and kernels")
 
     # ------------------------------------------------------------ phase 4
@@ -1347,24 +1788,48 @@ def main():
     require(np.all(np.isfinite(tm.param_array)), "non-finite parameters")
     require(tm.objective == "exact", "training left the exact objective")
 
-    # the same training again, same process and tree: does the card's
-    # float32 trajectory stop at the same iteration? (a report: the CPU
-    # stops at 39)
-    tm2 = T.InterpolatedLLGP(xss, yss, functional_kernel=spec, m=[234],
-                             tolerance=TOLERANCE, seed=SEED,
-                             objective="exact", device=dev)
-    t0 = time.time()
-    info2 = tm2.optimize(T.AdaDelta(**OPT_KW))
-    torch.cuda.synchronize()
-    rerun_s = time.time() - t0
-    stops = [int(info["n_iter"]), int(info2["n_iter"])]
-    print("train again (same tree, same process): n_iter %d in %.3f s; "
-          "stopping iterations %s on the card, 39 on the CPU; parameters "
-          "of the two runs differ by %.3e relative"
-          % (info2["n_iter"], rerun_s, stops,
-             float(np.max(np.abs(tm2.param_array - tm.param_array))
-                   / np.max(np.abs(tm.param_array)))), flush=True)
-    del tm2
+    # the same training twice more, same process and tree, under
+    # torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG was set
+    # before CUDA started): do the card's float32 trajectories stop at the
+    # same iteration, and which library calls does torch still flag as
+    # nondeterministic? (a report: the CPU stops at 39)
+    import warnings
+
+    reruns, flagged = [], set()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for _ in range(2):
+            tm2 = T.InterpolatedLLGP(xss, yss, functional_kernel=spec,
+                                     m=[234], tolerance=TOLERANCE, seed=SEED,
+                                     objective="exact", device=dev)
+            t0 = time.time()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                info2 = tm2.optimize(T.AdaDelta(**OPT_KW))
+            torch.cuda.synchronize()
+            flagged.update(str(w.message).split("\n")[0][:160]
+                           for w in caught)
+            reruns.append((int(info2["n_iter"]), time.time() - t0,
+                           tm2.param_array))
+            del tm2
+    finally:
+        torch.use_deterministic_algorithms(False)
+    stops = [int(info["n_iter"])] + [r[0] for r in reruns]
+    det_same = bool(np.array_equal(reruns[0][2], reruns[1][2]))
+    print("train again twice under use_deterministic_algorithms: n_iter %s "
+          "in %s s; stopping iterations %s on the card (the first without "
+          "the setting), 39 on the CPU; the two deterministic runs' "
+          "parameters bit-identical: %s (differ by %.3e relative), the "
+          "first run's differ from the second's by %.3e; calls torch "
+          "flags as nondeterministic: %s"
+          % ([r[0] for r in reruns], ["%.3f" % r[1] for r in reruns], stops,
+             det_same,
+             float(np.max(np.abs(reruns[1][2] - reruns[0][2]))
+                   / np.max(np.abs(reruns[0][2]))),
+             float(np.max(np.abs(reruns[0][2] - tm.param_array))
+                   / np.max(np.abs(tm.param_array))),
+             json.dumps(sorted(flagged))), flush=True)
+    del reruns
 
     x_now = tm.param_array
     z0 = np.zeros_like(x_now)
@@ -1396,16 +1861,18 @@ def main():
     Dg, mg = len(xss), int(np.prod(gd0.plan.sizes))
     dmg, ng = Dg * mg, len(tm.data.y)
     f32 = torch.float32
+    k2fb, k2fo, k2bb, k2bo, _ = k2_work(tm.grid_data32, 4)
+    taps = tm.grid_data[0].interp.indices.shape[1]
     layer_bounds = {
-        "K2 capacitance": bound_ms(
-            (Dg * mg * mg + 2 * dmg * dmg) * 4,
-            2.0 * Dg * mg * mg * dmg + 2.0 * dmg ** 3, f32),
+        "K2 capacitance (structured)": bound_ms(k2fb, k2fo, f32),
+        "K2 backward (structured)": bound_ms(k2bb, k2bo, f32),
         "K3 Cholesky (K_UU and C)": bound_ms(
             4 * dmg * dmg * 4, 2 * dmg ** 3 / 3.0, f32),
-        "K4 W apply (one vector)": bound_ms(
-            (ng * mg + ng + dmg) * 4, 2.0 * ng * mg, f32),
-        "K4 W apply (151 vectors)": bound_ms(
-            (ng * mg + 151 * (ng + dmg)) * 4, 2.0 * ng * mg * 151, f32),
+        "K4 W apply through K9 (one vector)": bound_ms(
+            (ng * taps * 2 + ng + dmg) * 4, 2.0 * ng * taps, f32),
+        "K4 W apply through K9 (151 vectors)": bound_ms(
+            (ng * taps * 2 + 151 * (ng + dmg)) * 4, 2.0 * ng * taps * 151,
+            f32),
         "K5 solve with C (1 column)": bound_ms(
             (dmg * dmg + 2 * dmg) * 4, 2.0 * dmg * dmg, f32),
         "K5 solve with C (151 columns)": bound_ms(
@@ -1682,6 +2149,7 @@ def main():
 
     # ------------------------------------------------------------ phase 9
     # stochastic training of the weather fft model to its stopping rule
+    w_init = wm.param_array
     torch.cuda.synchronize()
     hopper.reset_launches()
     t0 = time.time()
@@ -1728,6 +2196,33 @@ def main():
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
     print_split(wchunk_split, per=wm.chunk_len)
+    # the same training (same start, same probe stream) with the float32
+    # preconditioner's C by the dense cuBLAS products instead of K2: the
+    # PCG iterations follow C's rounding. The wall per step is the host's
+    # clock over the chunks (info's device_seconds / device_steps)
+    wopt = T.AdaDelta()
+    wz0 = np.zeros_like(w_init)
+    wm.param_array = w_init
+    with library_capacitance(wbm):
+        linfo = wm.optimize(wopt, state=dict(
+            gms=wz0, sms=wz0, step=wz0, rolling_max=0.0,
+            drops=wopt.permitted_drops, n_iter=0,
+            rng_key=winfo["state"]["rng_key"]))
+    wm.param_array = wx_now
+    wab = {}
+    for what, inf_ in (("k2", winfo), ("library", linfo)):
+        wab[what] = {
+            "n_iter": int(inf_["n_iter"]),
+            "mean_solve_iters": float(inf_["mean_solve_iters"]),
+            "chunk_wall_ms_per_step": 1e3 * inf_["device_seconds"]
+            / inf_["device_steps"]}
+        print("weather training, preconditioner C by %-7s: n_iter %d, "
+              "mean PCG iterations per solve %.4f, chunk wall %.3f ms per "
+              "step" % (what, wab[what]["n_iter"],
+                        wab[what]["mean_solve_iters"],
+                        wab[what]["chunk_wall_ms_per_step"]), flush=True)
+    require(np.all(np.isfinite(linfo["grad_norms"])),
+            "non-finite gradients with the library capacitance")
 
     phase_done("9 stochastic training")
 
@@ -2026,13 +2521,183 @@ def main():
     del s32, el32
     phase_done("13b SLQ and float32 reports")
 
+    # ----------------------------------------------------------- phase 15
+    # the synth configuration at full width (bench.py:114-130 on the
+    # in-repo synthetic twin: D=5, P=2, n=47,480, SLFM rank 2 plus an RBF
+    # per output, m=[25, 25] -> Dm=4205, exact objective, tolerance 1e-3,
+    # AdaDelta's reference defaults): train to the stopping rule (every
+    # kernel of hopper.SYNTH_PATH launched), one chunk profiled by layer
+    # and inside the K2 / K4 / Cholesky / solve ranges, predict the held-
+    # out quadrant (every certified residual within the tolerance); then
+    # card vs CPU on bench.py's reduced copy (every 30th point, m=[8, 8])
+    s_init = sm.param_array
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hopper.reset_launches()
+    t0 = time.time()
+    sinfo = sm.optimize(T.AdaDelta())
+    torch.cuda.synchronize()
+    strain_s = time.time() - t0
+    sy_launches = hopper.launch_counts()
+    speak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sstep_ms = 1e3 * sinfo["device_seconds"] / sinfo["device_steps"]
+    print("train synth (exact objective, AdaDelta defaults): n_iter %d (%d "
+          "device steps), %.3f s wall, %.3f ms per step, max solve error "
+          "%.3e, exact_precision %s, objective %s, peak %.2f GB, launches %s"
+          % (sinfo["n_iter"], sinfo["device_steps"], strain_s, sstep_ms,
+             sinfo["max_solve_error"], sm.exact_precision, sm.objective,
+             speak_gb, json.dumps(sy_launches)), flush=True)
+    for name in hopper.SYNTH_PATH:
+        require(sy_launches[name] > 0,
+                "kernel %s never launched in synth training" % name)
+    require(np.all(np.isfinite(sinfo["grad_norms"]))
+            and np.all(np.isfinite(sm.param_array)),
+            "non-finite synth training")
+    sprec = sm.exact_precision
+    sx_now = sm.param_array
+    sz0 = np.zeros_like(sx_now)
+    schunk_ms, schunk_rows, schunk_wall, schunk_split = device_profile(
+        lambda: sm._chunk(sx_now, sz0, sz0, sz0, T.AdaDelta()), ranges=True)
+    schunk_idle = None if schunk_ms is None else 1 - schunk_ms / schunk_wall
+    print("one synth chunk (%d steps, exact_precision %s) under the "
+          "profiler: device busy %s of %.3f ms wall (idle share %s)"
+          % (sm.chunk_len, sm.exact_precision, _ms(schunk_ms), schunk_wall,
+             "-" if schunk_idle is None else "%.3f" % schunk_idle),
+          flush=True)
+    sstep_layers = by_layer(schunk_rows, per=sm.chunk_len)
+    print("synth step device time by layer (per step):", flush=True)
+    print_layers(sstep_layers)
+    print("synth step device time inside the ranges (per step; forward "
+          "calls only):", flush=True)
+    print_split(schunk_split, per=sm.chunk_len)
+    sm.param_array = sx_now
+    t0 = time.time()
+    smu, svar = sm.predict(stxs)
+    torch.cuda.synchronize()
+    spredict_s = time.time() - t0
+    sreport = dict(sm.prediction_report)
+    require(all(np.all(np.isfinite(a)) for a in smu + svar),
+            "non-finite synth predictions")
+    for what, rep_ in sreport.items():
+        require(rep_["residual"] <= SYNTH_TOL, "synth %s: certified residual "
+                "%g > %g" % (what, rep_["residual"], SYNTH_TOL))
+    ssmse = smse(stys, smu, sys_)
+    snlpd = nlpd(stys, smu, svar)
+    print("synth predict (%d held-out points): %.3f s, report %s; on the "
+          "synthetic synth-shaped data: SMSE %.6g, NLPD %.6g; share of "
+          "held-out variances clipped to 0: %.4f"
+          % (len(stys[-1]), spredict_s, json.dumps(sreport), ssmse, snlpd,
+             float(np.mean(svar[-1] == 0))), flush=True)
+    # the escalation to float64 against C's float32 rounding: float32
+    # training from the initial parameters, C by K2 and by the dense
+    # cuBLAS products, chunk by chunk until a step's factorization
+    # residual breaches the threshold (optimize escalates at the end of
+    # that chunk); then the float32 factorization residual of both at the
+    # parameters K2's run reached at its first breaching step
+    def f32_until_breach(max_chunks=5):
+        sm.exact_precision = "f32"
+        sz = np.zeros_like(s_init)
+        st_, errs, xs_ = (s_init, sz, sz, sz), [], []
+        for _ in range(max_chunks):
+            out = sm._chunk(*st_, T.AdaDelta())
+            errs.extend(float(e) for e in out[6])
+            xs_.extend(out[0])
+            if max(out[6]) > EXACT_RESIDUAL_THRESHOLD:
+                break
+            st_ = tuple(o[-1] for o in out[:4])
+        first = next((i for i, e in enumerate(errs)
+                      if e > EXACT_RESIDUAL_THRESHOLD), None)
+        return errs, first, xs_
+
+    def f32_residual(x):
+        return sm._probe_residual(unravel_params(torch.as_tensor(
+            x, dtype=sm.dtype, device=dev), sm.params), sm._equilibrate)
+
+    sab = {}
+    errs_k2, first_k2, xs_k2 = f32_until_breach()
+    with library_capacitance(wbm):
+        errs_lib, first_lib, _ = f32_until_breach()
+    x_at = xs_k2[len(xs_k2) - 1 if first_k2 is None else first_k2]
+    sab["k2"] = {"residuals": errs_k2, "first_breach_step": first_k2,
+                 "residual_at_k2_breach": f32_residual(x_at)}
+    with library_capacitance(wbm):
+        sab["library"] = {"residuals": errs_lib,
+                          "first_breach_step": first_lib,
+                          "residual_at_k2_breach": f32_residual(x_at)}
+    for what, ab in sab.items():
+        print("synth float32 training, C by %-7s: factorization residual "
+              "per step %s; first step above %g: %s; float32 residual at "
+              "the parameters of K2's first breach %.4g"
+              % (what, " ".join("%.3g" % e for e in ab["residuals"]),
+                 EXACT_RESIDUAL_THRESHOLD, ab["first_breach_step"],
+                 ab["residual_at_k2_breach"]), flush=True)
+    require(np.isfinite(sab["k2"]["residuals"][0]),
+            "non-finite synth float32 residual")
+    del sm
+    # card vs CPU on the reduced copy: the first gradient and one chunk in
+    # float32 (TRAIN_RTOL) and at exact_precision='model' (MODEL_RTOL)
+    t0 = time.time()
+    rx = [x[::SYNTH_SUBSAMPLE] for x in sxs]
+    ry = [y[::SYNTH_SUBSAMPLE] for y in sys_]
+    rkw = dict(functional_kernel=synth_spec(T, 5), m=SYNTH_SMALL_M,
+               tolerance=SYNTH_TOL, objective="exact", seed=SEED)
+    rg = T.InterpolatedLLGP(rx, ry, device=dev, **rkw)
+    rc = T.InterpolatedLLGP(rx, ry, device="cpu", **rkw)
+    rx0 = rc.param_array + 0.1 * np.sin(np.arange(rc.n_params))
+    rz = np.zeros_like(rx0)
+    # predictions of the held-out quadrant at rx0 (the full-width trained
+    # twin's variances all clip to 0; these do not): every solve is
+    # certified to SYNTH_TOL, so the two agree to about that
+    rg.param_array = rc.param_array = rx0
+    rmu_g, rvar_g = rg.predict(stxs)
+    rmu_c, rvar_c = rc.predict(stxs)
+    rmean_err = rel(np.concatenate(rmu_g), np.concatenate(rmu_c))
+    rvar_err = rel(np.concatenate(rvar_g), np.concatenate(rvar_c))
+    rpos = float(np.mean(rvar_c[-1] > 0))
+    print("card vs CPU synth predict of the reduced copy (%d held-out "
+          "points): mean rel err %.3e, variance rel err %.3e (tol %g); "
+          "share of CPU variances above 0: %.4f; residuals card %.3g, CPU "
+          "%.3g"
+          % (len(stys[-1]), rmean_err, rvar_err, SYNTH_TOL, rpos,
+             rg.prediction_report["explained-variance"]["residual"],
+             rc.prediction_report["explained-variance"]["residual"]),
+          flush=True)
+    require(rmean_err <= SYNTH_TOL and rvar_err <= SYNTH_TOL,
+            "card and CPU synth predictions disagree")
+    require(rpos > 0.5, "the reduced synth copy's variances clip to 0")
+    sg_card = rg._exact_grad(torch.as_tensor(rx0, device=dev))[0].cpu()
+    sg_cpu = rc._exact_grad(torch.as_tensor(rx0))[0]
+    sgrad_err32 = rel(sg_card.numpy(), sg_cpu.numpy())
+    sopt = T.AdaDelta()
+    s32_err = rel(rg._chunk(rx0, rz, rz, rz, sopt,
+                            n_steps=CPU_CHUNK_STEPS)[0][-1],
+                  rc._chunk(rx0, rz, rz, rz, sopt,
+                            n_steps=CPU_CHUNK_STEPS)[0][-1])
+    rg.exact_precision = rc.exact_precision = "model"
+    s64_err = rel(rg._chunk(rx0, rz, rz, rz, sopt,
+                            n_steps=CPU_CHUNK_STEPS)[0][-1],
+                  rc._chunk(rx0, rz, rz, rz, sopt,
+                            n_steps=CPU_CHUNK_STEPS)[0][-1])
+    print("card vs CPU synth training (n=%d, m=%s, Dm=%d; %.1f s): first "
+          "gradient rel err %.3e, f32 %d-step chunk parameters %.3e (tol "
+          "%g), model-precision chunk parameters %.3e (tol %g)"
+          % (len(rc.data.y), SYNTH_SMALL_M, rc.grid_data[0].interp.ncols,
+             time.time() - t0, sgrad_err32, CPU_CHUNK_STEPS, s32_err,
+             TRAIN_RTOL, s64_err, MODEL_RTOL), flush=True)
+    require(sgrad_err32 <= TRAIN_RTOL and s32_err <= TRAIN_RTOL,
+            "card and CPU float32 synth training disagree")
+    require(s64_err <= MODEL_RTOL,
+            "card and CPU model-precision synth training disagree")
+    del rg, rc
+    phase_done("15 synth")
+
     # ------------------------------------------------------------ phase 14
     path_launches = {
         "report (fx2007)": rep_launches, "slq (weather)": slq_launches,
         "weather oracle": wexact_launches, "float32 report": f32_launches,
         "train (stochastic, fft)": st_launches, "train": train_launches,
         "train (model precision)": mp_launches, "predict": launches,
-        "loo_zsq (float32)": loo32_launches,
+        "loo_zsq (float32)": loo32_launches, "synth": sy_launches,
     }
     for row in rows:
         key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
@@ -2129,6 +2794,7 @@ def main():
                     for k, c, t in wchunk_rows
                 ],
             },
+            "train_capacitance_k2_vs_library": wab,
             "predict": {"s": wpredict_s, "report": wreport,
                         "launches": fp_launches,
                         "smse_synthetic": wsmse, "nlpd_synthetic": wnlpd},
@@ -2175,6 +2841,35 @@ def main():
             "float32_launches": f32_launches,
         },
         "k5_checks": k5_checks, "k5_grad_rel_err": k5_grad_err,
+        "k2_checks": k2_checks,
+        "synth": {
+            "n": sum(len(y) for y in sys_),
+            "build_s": sbuild_s,
+            "train": {"n_iter": sinfo["n_iter"],
+                      "device_steps": sinfo["device_steps"],
+                      "wall_s": strain_s, "ms_per_step": sstep_ms,
+                      "max_solve_error": sinfo["max_solve_error"],
+                      "exact_precision_after": sprec,
+                      "grad_norms": sinfo["grad_norms"],
+                      "launches": sy_launches, "peak_gb": speak_gb,
+                      "chunk_device_ms": schunk_ms,
+                      "chunk_profiled_ms": schunk_wall,
+                      "chunk_idle_share": schunk_idle,
+                      "step_layers": sstep_layers, "split": schunk_split},
+            "predict": {"s": spredict_s, "report": sreport,
+                        "smse_synthetic": ssmse, "nlpd_synthetic": snlpd},
+            "f32_escalation_k2_vs_library": sab,
+            "card_vs_cpu": {"grad_rel_err": sgrad_err32,
+                            "f32_param_rel_err": s32_err,
+                            "model_param_rel_err": s64_err,
+                            "steps": CPU_CHUNK_STEPS,
+                            "predict_mean_rel_err": rmean_err,
+                            "predict_var_rel_err": rvar_err,
+                            "predict_var_positive_share": rpos},
+        },
+        "train_deterministic": {"stops": stops,
+                                "deterministic_runs_identical": det_same,
+                                "flagged": sorted(flagged)},
         "train_split": chunk_split, "train_stops": stops,
         "stochastic_split": wchunk_split, "loo_zsq": loo,
         "phase_s": phase_s,

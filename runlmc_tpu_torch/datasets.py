@@ -1,11 +1,15 @@
-"""In-repo synthetic problems shaped like the JAX package's benchmarks.
+"""In-repo synthetic problems shaped like the JAX package's benchmarks,
+and the synth benchmark's file loader.
 
-The real fx2007 and weather CSVs are read from outside the repository
-(runlmc_tpu/datasets.py), so the port's end-to-end checks use
-:func:`fx2007_synthetic` and :func:`weather_synthetic`: the same
-layouts, made from a seed with numpy. Their quality numbers are no bar
-for the real data's.
+The real fx2007, weather and synth files are read from a data directory
+outside the repository (runlmc_tpu/datasets.py), so the port's
+end-to-end checks use :func:`fx2007_synthetic`, :func:`weather_synthetic`
+and :func:`synth_synthetic`: the same layouts, made from a seed with
+numpy. Their quality numbers are no bar for the real data's.
+:func:`synth` reads the real synth files where they are present.
 """
+
+import os
 
 import numpy as np
 
@@ -97,3 +101,72 @@ def weather_synthetic(seed=0):
         test_xss.append(x[test])
         test_yss.append(y[test])
     return xss, yss, test_xss, test_yss, list(WEATHER_SENSORS)
+
+
+SYNTH_OUTPUTS = 5
+SYNTH_POINTS = 10_000  # per output, before the held-out quadrant
+
+
+def _synth_split(xss, yss):
+    """The synth benchmark's split (parity: runlmc_tpu/datasets.py:
+    95-108): the last output's points with both coordinates >= 0.5 are
+    the test set; every other output keeps all of its points."""
+    xss, yss = list(xss), list(yss)
+    sel = np.all(xss[-1] >= 0.5, axis=1)
+    e2 = np.zeros((0, 2))
+    test_xss = [e2] * (len(xss) - 1) + [xss[-1][sel]]
+    test_yss = ([np.zeros(0)] * (len(xss) - 1)
+                + [np.asarray(yss[-1]).ravel()[sel]])
+    xss[-1] = xss[-1][~sel, :]
+    yss[-1] = np.asarray(yss[-1]).ravel()[~sel]
+    yss[:-1] = [np.asarray(y).ravel() for y in yss[:-1]]
+    return xss, yss, test_xss, test_yss
+
+
+def synth(datadir=None):
+    """The synthetic D=5, P=2 benchmark of the reference, from
+    ``<datadir>/synth/xss.npy`` and ``yss.npy`` (``datadir`` defaults to
+    the ``RUNLMC_DATA`` environment variable); the last output's
+    upper-right quadrant is held out. Returns (xss, yss, test_xss,
+    test_yss)."""
+    datadir = datadir or os.environ.get("RUNLMC_DATA")
+    if not datadir:
+        raise ValueError("synth: pass datadir or set RUNLMC_DATA to the "
+                         "directory that holds synth/xss.npy")
+    xss = list(np.load(os.path.join(datadir, "synth", "xss.npy")))
+    yss = list(np.load(os.path.join(datadir, "synth", "yss.npy")))
+    return _synth_split(xss, yss)
+
+
+def synth_synthetic(seed=0):
+    """A SYNTHETIC problem in the layout of the synth benchmark
+    (bench.py:114-130, runlmc_tpu/datasets.py:95-108): D = 5 outputs of
+    10,000 points each, uniform on [0, 1]^2; each output mixes two smooth
+    shared latent fields with a smooth field of its own, plus noise; the
+    last output's quadrant x >= 0.5 (both coordinates, about 2,500
+    points) is the test set, leaving n of about 47,500. Returns (xss,
+    yss, test_xss, test_yss)."""
+    rng = np.random.RandomState(seed)
+
+    def field(x):
+        """A sum of three plane waves of wavelength 0.5 to 2."""
+        out = np.zeros(len(x))
+        for _ in range(3):
+            angle = rng.uniform(0, 2 * np.pi)
+            freq = rng.uniform(0.5, 2.0)
+            wave = freq * np.array([np.cos(angle), np.sin(angle)])
+            out += rng.uniform(0.3, 1.0) * np.sin(
+                2 * np.pi * (x @ wave) + rng.uniform(0, 2 * np.pi))
+        return out
+
+    xss = [rng.uniform(0, 1, (SYNTH_POINTS, 2))
+           for _ in range(SYNTH_OUTPUTS)]
+    x_all = np.concatenate(xss)
+    shared = [field(x_all) for _ in range(2)]
+    mix = rng.standard_normal((SYNTH_OUTPUTS, 2))
+    yss = []
+    for d, x in enumerate(xss):
+        rows = slice(d * SYNTH_POINTS, (d + 1) * SYNTH_POINTS)
+        yss.append(mix[d, 0] * shared[0][rows] + mix[d, 1] * shared[1][rows]
+                   + 0.3 * field(x) + 0.05 * rng.standard_normal(len(x)))
+    return _synth_split(xss, yss)

@@ -17,9 +17,13 @@ PyTorch version beside it.
   K13 lanczos.lanczos_step        Triton  triton_lanczos.py
   K5  trsm.trsm_lower (trsm.cho_solve, its backward: trsm.ChoSolve)
                                   CUDA  csrc/trsm.cu
+  K2  capacitance.capacitance     CUDA  csrc/capacitance.cu
+  K2 backward  capacitance.capacitance_bwd  CUDA  csrc/capacitance.cu
+  K4  the W-block applies: K9 through interp.InterpApply
 """
 
 from runlmc_tpu_torch.hopper import build
+from runlmc_tpu_torch.hopper import capacitance as _k2
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
 from runlmc_tpu_torch.hopper.cross import cross_kernel, cross_kernel_bwd
 from runlmc_tpu_torch.hopper.fourier import (
@@ -36,18 +40,21 @@ WRAPPERS = (
     kuu_dense, kuu_dense_bwd, cross_kernel, interp_gather, interp_scatter,
     cg_update_xr, cg_update_p, fourier_contract, fourier_contract_bwd,
     minres_update, cross_kernel_bwd, lanczos_step, trsm_lower,
+    _k2.capacitance, _k2.capacitance_bwd,
 )
 
 
 # The launches, as ``launch_counts`` keys, that a float64 model's
 # 'on-the-fly' predict makes on the card: K_UU for the model-dtype
-# operator and the float32 preconditioner, K_*X and the mean in float64,
-# the CG passes of the float32 inner cycles and the float32 Woodbury
-# preconditioner's triangular solves.
+# operator and the float32 preconditioner, its capacitance matrix, K_*X
+# and the mean in float64, the W applies of both dtypes, the CG passes of
+# the float32 inner cycles and the float32 Woodbury preconditioner's
+# triangular solves.
 PREDICT_PATH = (
-    "kuu_dense/f64", "kuu_dense/f32", "cross_kernel/f64",
-    "interp_gather/f64", "interp_scatter/f64", "cg_update_xr/f32",
-    "cg_update_p/f32", "trsm_lower/f32",
+    "kuu_dense/f64", "kuu_dense/f32", "capacitance/f32", "cross_kernel/f64",
+    "interp_gather/f64", "interp_scatter/f64", "interp_gather/f32",
+    "interp_scatter/f32", "cg_update_xr/f32", "cg_update_p/f32",
+    "trsm_lower/f32",
 )
 # The float64 CG passes and triangular solves, which run only on the
 # certified solve's escalation rung (CG preconditioned by the float64
@@ -55,38 +62,56 @@ PREDICT_PATH = (
 ESCALATION_PATH = ("cg_update_xr/f64", "cg_update_p/f64", "trsm_lower/f64")
 # The launches of an exact-objective training step with its float32
 # factorization (exact_precision='f32'): K_UU forward and backward, the
-# Woodbury solve with C and its backward.
-TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32", "trsm_lower/f32")
+# capacitance matrix and its backward, the W applies (each direction is
+# the other's backward), the Woodbury solve with C and its backward.
+TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32", "capacitance/f32",
+              "capacitance_bwd/f32", "interp_gather/f32",
+              "interp_scatter/f32", "trsm_lower/f32")
 # The same once training has escalated to exact_precision='model' on a
 # float64 model.
 MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64",
+                        "capacitance/f64", "capacitance_bwd/f64",
+                        "interp_gather/f64", "interp_scatter/f64",
                         "trsm_lower/f64")
 # One stochastic-objective training step of a model with an fft group:
 # the Fourier contraction of the float64 operator (outer residuals and
 # the surrogate) and of the float32 inner CG cycles, its float64
-# backward (the surrogate's gradient), K_UU of the float32 dense
-# preconditioner twin, its triangular solves and the float32 CG passes.
+# backward (the surrogate's gradient), the W applies of both operators,
+# K_UU and the capacitance matrix of the float32 dense preconditioner
+# twin, its triangular solves and the float32 CG passes.
 STOCHASTIC_PATH = (
     "fourier_contract/f64", "fourier_contract/f32",
-    "fourier_contract_bwd/f64", "kuu_dense/f32", "cg_update_xr/f32",
-    "cg_update_p/f32", "trsm_lower/f32",
+    "fourier_contract_bwd/f64", "interp_gather/f64", "interp_scatter/f64",
+    "interp_gather/f32", "interp_scatter/f32", "kuu_dense/f32",
+    "capacitance/f32", "cg_update_xr/f32", "cg_update_p/f32",
+    "trsm_lower/f32",
 )
 # An 'on-the-fly' predict of a model with an fft group.
 FFT_PREDICT_PATH = (
     "fourier_contract/f64", "fourier_contract/f32", "cross_kernel/f64",
-    "interp_gather/f64", "interp_scatter/f64", "cg_update_xr/f32",
+    "interp_gather/f64", "interp_scatter/f64", "interp_gather/f32",
+    "interp_scatter/f32", "capacitance/f32", "cg_update_xr/f32",
     "cg_update_p/f32", "trsm_lower/f32",
 )
 # The plain float64 MINRES rung of the certified solve of a model with
 # an fft group.
 MINRES_PATH = ("minres_update/f64",)
 # A stochastic-objective step of an all-dense model: K_UU and its
-# backward at the model dtype, the float32 factor, its triangular solves
-# and CG passes.
+# backward at the model dtype, the W applies, the float32 factor's
+# capacitance matrix, its triangular solves and CG passes.
 DENSE_STOCHASTIC_PATH = (
-    "kuu_dense/f64", "kuu_dense_bwd/f64", "kuu_dense/f32",
-    "cg_update_xr/f32", "cg_update_p/f32", "trsm_lower/f32",
+    "kuu_dense/f64", "kuu_dense_bwd/f64", "interp_gather/f64",
+    "interp_scatter/f64", "kuu_dense/f32", "capacitance/f32",
+    "interp_gather/f32", "interp_scatter/f32", "cg_update_xr/f32",
+    "cg_update_p/f32", "trsm_lower/f32",
 )
+# Exact-objective training of the synth configuration (P=2 inputs,
+# m=[25, 25] padded to a 29 x 29 grid, Dm=4205) on 2-D grids (a BTTB
+# K_UU, block-banded grams, 16 taps per row): the float32 training step's
+# kernels and, once a chunk's float32 factorization residual breaches the
+# escalation threshold (on the synthetic twin, after its first chunk),
+# the float64 ones of the remaining steps.
+SYNTH_PATH = TRAIN_PATH + MODEL_PRECISION_PATH
 
 # The exact dense-kernel oracle of a float64 model: its value
 # (``log_likelihood(exact=True)``, the 'exact' prediction mode) builds
@@ -101,8 +126,9 @@ REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64", "trsm_lower/f64")
 METRICS_PATH = TRAIN_PATH + REPORT_PATH
 # The SLQ log-determinant of a model with an fft group
 # (``log_likelihood(exact=False)``, ``ski_log_det``): the Lanczos steps
-# and the float64 operator's Fourier contraction.
-SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64")
+# and the float64 operator's Fourier contraction and W applies.
+SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64", "interp_gather/f64",
+            "interp_scatter/f64")
 # The same reports of float32 models: an fft model's SLQ log-det and
 # ExactLMC's exact gradient.
 F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32",

@@ -10,6 +10,14 @@ a transposed CSR of W built once on the host (``ptr``, ``rows``,
 the same result on every run. Both CUDA kernels (``csrc/interp.cu``)
 are bound by bytes. The plain versions below are what the wrappers run
 for CPU tensors.
+
+They are also K4, the per-output W-block applies of the Woodbury
+factorization and of the dense SKI matvec (runlmc_tpu/lmc/woodbury.py:
+141-184, runlmc_tpu/lmc/grid.py:420-444, dense (n_d, m) GEMMs there):
+the blocks are W's rows of each output, so 4^P taps per row replace m
+columns. :class:`InterpApply` makes either direction differentiable in
+its operand: the backward of the gather is the scatter and the other way
+round (W's weights are constants).
 """
 
 import ctypes
@@ -100,3 +108,35 @@ def interp_scatter(ptr, rows, wt, x):
 
 interp_gather.launches = build.counter()
 interp_scatter.launches = build.counter()
+
+
+class InterpApply(torch.autograd.Function):
+    """W v (``transpose=False``, the gather) or W^T x (the scatter) as an
+    autograd function whose backward is the other direction."""
+
+    @staticmethod
+    def forward(ctx, v, idx, w, ptr, rows, wt, transpose):
+        ctx.save_for_backward(idx, w, ptr, rows, wt)
+        ctx.transpose = transpose
+        if transpose:
+            return interp_scatter(ptr, rows, wt, v)
+        return interp_gather(idx, w, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        idx, w, ptr, rows, wt = ctx.saved_tensors
+        g = g.contiguous()
+        out = (interp_gather(idx, w, g) if ctx.transpose
+               else interp_scatter(ptr, rows, wt, g))
+        return out, None, None, None, None, None, None
+
+
+def interp_apply(v, idx, w, ptr, rows, wt, transpose=False):
+    """W v, or W^T v with ``transpose``, through :class:`InterpApply` when
+    ``v`` needs a gradient, else straight through the wrapper."""
+    if torch.is_grad_enabled() and v.requires_grad:
+        return InterpApply.apply(v, idx, w, ptr, rows, wt, transpose)
+    if transpose:
+        return interp_scatter(ptr, rows, wt, v)
+    return interp_gather(idx, w, v)

@@ -16,20 +16,25 @@ one of two modes:
   model-dtype operator stays in fft mode (the JAX package's 'tiled'
   mode is a TPU workaround and not ported).
 
-W and W^T go through per-output dense interpolation blocks (plain
-matmuls, K4) where n * m stays under ``W_BLOCKS_MAX_ELEMS``, otherwise
-through the sparse interpolant (kernel K9). An fft group also carries a
-dense-mode twin (``GridData.coarse``) whose float32 Woodbury
-factorization preconditions its solves: the exact fine geometry when D*m
-fits under ``PRECOND_MAX_GRID``, else a proportionally coarsened grid.
+W and W^T go through the sparse interpolant, kernel K9 with its
+autograd pair (runlmc_tpu_torch/hopper/interp.py), which is also K4: the
+per-output dense interpolation blocks (``W_BLOCKS_MAX_ELEMS``) and their
+grams stay on the host, where they make the capacitance plan (the grams
+``WtW``, their nonzero tiles, and the cross grams of multi-group models,
+once per grid) that kernel K2 (runlmc_tpu_torch/hopper/capacitance.py)
+reads. An fft group also carries a dense-mode twin (``GridData.coarse``)
+whose float32 Woodbury factorization preconditions its solves: the exact
+fine geometry when D*m fits under ``PRECOND_MAX_GRID``, else a
+proportionally coarsened grid.
 """
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from runlmc_tpu_torch.hopper.capacitance import tile_plan
 from runlmc_tpu_torch.hopper.fourier import contract
 from runlmc_tpu_torch.hopper.kuu import KUUDense
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
@@ -79,6 +84,21 @@ def choose_rep(spec: LMCKernelSpec, active_dim) -> str:
     return "bt"
 
 
+class Gram(NamedTuple):
+    """One gram of the capacitance plan, G (D, m_a, m_b) with
+    G[d] = W_{a,d}^T W_{b,d}, and the tile plan (ptr, rblk) of its
+    nonzero tiles that kernel K2 follows."""
+
+    G: Any
+    ptr: Any
+    rblk: Any
+
+    def map(self, values, plan):
+        """The same gram with ``values`` applied to G and ``plan`` to
+        each array of its tile plan."""
+        return Gram(values(self.G), plan(self.ptr), plan(self.rblk))
+
+
 @dataclasses.dataclass(frozen=True)
 class GridData:
     """Parameter-independent grid artifacts for one group: host numpy from
@@ -87,23 +107,31 @@ class GridData:
     plan: GridPlan
     dists: Any = None  # (m,) flattened BTTB first-row distances
     interp: Interp = None  # W for the training inputs, (n, D*m)
-    W_blocks: Any = None  # per-output dense (n_d, m) blocks, or None
+    W_blocks: Any = None  # host only: per-output dense (n_d, m) blocks
     WtW: Any = None  # (D, m, m) stacked per-output grams ('dense')
     coarse: Any = None  # 'fft': the dense-mode preconditioner twin (host)
+    gram_tiles: Any = None  # WtW's tile plan (ptr, rblk) for kernel K2
+    # the Woodbury set's cross grams with each later group b: one
+    # (Gram G_ab, Gram G_ba) pair per b
+    cross: Any = ()
 
     def to(self, dtype, device, memo=None):
         """Placed copy at ``dtype`` on ``device``, without the host-side
-        ``coarse`` twin (:func:`precond_dense_f32` places that). Arrays
+        ``coarse`` twin (:func:`precond_dense_f32` places that) and the
+        dense W blocks (every W apply runs through ``interp``). Arrays
         already placed at this dtype through the same ``memo`` dict are
         shared, not copied."""
         memo = {} if memo is None else memo
 
-        def _f(a):
-            key = (id(a), dtype)
+        def _f(a, kind=dtype):
+            key = (id(a), kind)
             if key not in memo:
-                memo[key] = torch.as_tensor(np.asarray(a), dtype=dtype,
+                memo[key] = torch.as_tensor(np.asarray(a), dtype=kind,
                                             device=device)
             return memo[key]
+
+        def _plan(a):
+            return _f(a, torch.int32)
 
         key = (id(self.interp), dtype)
         if key not in memo:
@@ -112,9 +140,11 @@ class GridData:
             plan=self.plan,
             dists=_f(self.dists),
             interp=memo[key],
-            W_blocks=(None if self.W_blocks is None
-                      else tuple(_f(b) for b in self.W_blocks)),
             WtW=None if self.WtW is None else _f(self.WtW),
+            gram_tiles=(None if self.gram_tiles is None else tuple(
+                _plan(a) for a in self.gram_tiles)),
+            cross=tuple(tuple(g.map(_f, _plan) for g in c)
+                        for c in self.cross),
         )
 
 
@@ -140,11 +170,36 @@ def coarse_sizes(sizes, D, cap=None):
 
 
 def _dense_artifacts(Xs_active, axes, W_blocks=None):
-    """(W_blocks, WtW) for a dense-mode group."""
+    """(W_blocks, WtW, WtW's tile plan) for a dense-mode group."""
     if W_blocks is None:
         W_blocks = tuple(interp_output_blocks(Xs_active, axes))
     wtw = np.stack([b.T @ b for b in W_blocks])
-    return W_blocks, wtw
+    return W_blocks, wtw, tile_plan(wtw)
+
+
+def _with_cross_grams(out):
+    """``out`` with the cross grams of its Woodbury set: each group's
+    dense artifacts (itself, or the coarse twin of an fft group) get
+    G_ab = W_{a,d}^T W_{b,d} against every later group's, with both
+    orientations' tile plans (parity: the grams of woodbury.py:266-272,
+    made there per factorization)."""
+    arts = [gd if gd.plan.mode == "dense" else gd.coarse for gd in out]
+    if len(arts) < 2:
+        return out
+    new = []
+    for a, art in enumerate(arts):
+        cross = []
+        for b in range(a + 1, len(arts)):
+            g_ab = np.stack([wa.T @ wb for wa, wb in
+                             zip(art.W_blocks, arts[b].W_blocks)])
+            g_ba = np.ascontiguousarray(np.swapaxes(g_ab, 1, 2))
+            cross.append((Gram(g_ab, *tile_plan(g_ab)),
+                          Gram(g_ba, *tile_plan(g_ba))))
+        art = dataclasses.replace(art, cross=tuple(cross))
+        gd = out[a]
+        new.append(art if gd.plan.mode == "dense"
+                   else dataclasses.replace(gd, coarse=art))
+    return new
 
 
 def make_grids(spec: LMCKernelSpec, Xs, lo=None, hi=None, m=None,
@@ -197,9 +252,9 @@ def make_grids(spec: LMCKernelSpec, Xs, lo=None, hi=None, m=None,
             sizes=sizes,
             mode=group_mode,
         )
-        W_blocks = wtw = coarse = None
+        W_blocks = wtw = tiles = coarse = None
         if group_mode == "dense":
-            W_blocks, wtw = _dense_artifacts(Xs_active, axes)
+            W_blocks, wtw, tiles = _dense_artifacts(Xs_active, axes)
         else:
             n_total = sum(len(X) for X in Xs_active)
             if n_total * m_tot <= W_BLOCKS_MAX_ELEMS:
@@ -208,25 +263,28 @@ def make_grids(spec: LMCKernelSpec, Xs, lo=None, hi=None, m=None,
             if c_sizes == sizes:
                 # the exact fine geometry: share the fine artifacts
                 c_dists, c_interp = dists, interp
-                c_blocks, c_wtw = _dense_artifacts(Xs_active, axes, W_blocks)
+                c_blocks, c_wtw, c_tiles = _dense_artifacts(
+                    Xs_active, axes, W_blocks)
             else:
                 c_axes = [np.linspace(a[0], a[-1], s)
                           for a, s in zip(axes, c_sizes)]
                 c_grid = cartesian_product(*c_axes)
                 c_dists = np.linalg.norm(c_grid - c_grid[0], axis=-1)
                 c_interp = multi_interpolant(Xs_active, c_axes)
-                c_blocks, c_wtw = _dense_artifacts(Xs_active, c_axes)
+                c_blocks, c_wtw, c_tiles = _dense_artifacts(Xs_active,
+                                                            c_axes)
             coarse = GridData(
                 plan=GridPlan(active_dim=tuple(active_dim),
                               kidxs=tuple(kidxs), rep=plan.rep,
                               sizes=c_sizes, mode="dense"),
                 dists=c_dists, interp=c_interp, W_blocks=c_blocks,
-                WtW=c_wtw,
+                WtW=c_wtw, gram_tiles=c_tiles,
             )
         out.append(GridData(plan=plan, dists=dists, interp=interp,
-                            W_blocks=W_blocks, WtW=wtw, coarse=coarse))
+                            W_blocks=W_blocks, WtW=wtw, coarse=coarse,
+                            gram_tiles=tiles))
         all_axes.append(axes)
-    return out, all_axes
+    return _with_cross_grams(out), all_axes
 
 
 def to_dense_f32(grid_data):
@@ -240,8 +298,10 @@ def to_dense_f32(grid_data):
                 gd.interp, weights=gd.interp.weights.float(),
                 t_weights=gd.interp.t_weights.float(),
             ),
-            W_blocks=tuple(b.float() for b in gd.W_blocks),
             WtW=gd.WtW.float(),
+            gram_tiles=gd.gram_tiles,
+            cross=tuple(tuple(g._replace(G=g.G.float()) for g in c)
+                        for c in gd.cross),
         )
         for gd in grid_data
     )
@@ -267,21 +327,17 @@ def fine_fft_f32(grid_data, device, memo=None):
     return tuple(gd.to(torch.float32, device, memo) for gd in grid_data)
 
 
-def wt_apply(blocks, x):
-    """W^T x from the per-output dense (n_d, m) interp blocks:
-    (..., n) -> (..., D*m), one matmul per output (K4)."""
-    xs = torch.split(x, [b.shape[0] for b in blocks], dim=-1)
-    return torch.cat([xd @ b for b, xd in zip(blocks, xs)], dim=-1)
-
-
-def w_apply(blocks, u):
-    """W u from the per-output dense (n_d, m) interp blocks:
-    (..., D*m) -> (..., n), one matmul per output (K4)."""
-    m = blocks[0].shape[1]
-    return torch.cat(
-        [u[..., d * m:(d + 1) * m] @ b.T for d, b in enumerate(blocks)],
-        dim=-1,
-    )
+def gram_nest(grids):
+    """The (groups, groups) nest of :class:`Gram` that kernel K2 reads,
+    from a Woodbury set of placed dense-mode artifacts: each group's own
+    ``WtW`` on the diagonal, the cross grams off it."""
+    n = len(grids)
+    nest = [[None] * n for _ in range(n)]
+    for a, gd in enumerate(grids):
+        nest[a][a] = Gram(gd.WtW, *gd.gram_tiles)
+        for j, (g_ab, g_ba) in enumerate(gd.cross):
+            nest[a][a + 1 + j], nest[a + 1 + j][a] = g_ab, g_ba
+    return nest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,7 +349,6 @@ class GroupState:
     (D, F)."""
 
     interp: Interp
-    W_blocks: Any  # per-output dense (n_d, m) interp blocks, or None
     sizes: Tuple[int, ...] = ()
     rep: str = "sum"
     mode: str = "dense"
@@ -328,11 +383,8 @@ class GroupState:
 
     def matvec(self, x):
         """Full SKI term W K_UU W^T x: (..., n) -> (..., n) (parity:
-        grid.py:413-444), through the dense blocks where the group has
-        them, else through K9's scatter and gather."""
-        if self.W_blocks is not None:
-            return w_apply(self.W_blocks,
-                           self.grid_matvec(wt_apply(self.W_blocks, x)))
+        grid.py:413-444, where the dense W blocks' GEMMs are K4), through
+        K9's scatter and gather."""
         return self.interp.matvec(self.grid_matvec(self.interp.rmatvec(x)))
 
 
@@ -345,8 +397,8 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     plan = gd.plan
     kidxs = plan.kidxs
     tops = spec.eval_kernels_stacked(raw_params, gd.dists, kidxs)
-    base = dict(interp=gd.interp, W_blocks=gd.W_blocks, sizes=plan.sizes,
-                rep=plan.rep, mode=plan.mode)
+    base = dict(interp=gd.interp, sizes=plan.sizes, rep=plan.rep,
+                mode=plan.mode)
     if plan.mode == "dense":
         B = spec.coreg_mats(raw_params, kidxs)
         return GroupState(KUU_dense=KUUDense.apply(tops, B, plan.sizes),
@@ -366,7 +418,9 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
         A = torch.cat([spec.coreg_vec(raw_params, q) for q in non_indep],
                       dim=0).T  # (D, R_tot)
         reps = [pos_of[q] for q in non_indep for _ in range(spec.ranks[q])]
-        That_rep = that[torch.as_tensor(reps, device=that.device)]
+        # rows picked one by one: the backward of an index tensor would
+        # accumulate with atomics, in another order on every run
+        That_rep = torch.stack([that[i] for i in reps])
     else:
         A = torch.zeros((spec.D, 1), dtype=tops.dtype, device=tops.device)
         That_rep = torch.zeros((1, that.shape[1]), dtype=that.dtype,
@@ -398,7 +452,8 @@ def build_kski(spec: LMCKernelSpec, raw_params, grid_data, lens) -> KSKI:
     grid.py:626-641)."""
     groups = tuple(build_group_state(spec, raw_params, gd) for gd in grid_data)
     noise = spec.noise(raw_params)
-    noise_n = torch.repeat_interleave(
-        noise, torch.as_tensor(np.asarray(lens), device=noise.device)
-    )
+    # each output's noise expanded over its points: the backward sums each
+    # segment in a fixed order (repeat_interleave's would accumulate with
+    # atomics on the card, so that two trainings part after a few steps)
+    noise_n = torch.cat([noise[d].expand(int(n)) for d, n in enumerate(lens)])
     return KSKI(groups=groups, noise_n=noise_n)

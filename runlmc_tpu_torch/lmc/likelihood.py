@@ -159,7 +159,7 @@ def exact_ski_mll(spec: LMCKernelSpec, raw_params, grid_data, lens, y,
     K = build_kski(spec, raw_params, grid_data, lens)
     wb = build_device_woodbury(
         K.groups, spec.noise(raw_params), K.noise_n,
-        tuple(gd.WtW for gd in grid_data),
+        grid_data,
         jitter=jitter, c_jitter=c_jitter, equilibrate=equilibrate,
     )
     alpha = wb.solve(y)
@@ -186,7 +186,7 @@ def f32_factorization_residual(spec, raw_params, grid_data32, lens, y,
     K32 = build_kski(spec, params32, grid_data32, lens)
     wb = build_device_woodbury(
         K32.groups, spec.noise(params32), K32.noise_n,
-        tuple(gd.WtW for gd in grid_data32),
+        grid_data32,
         jitter=(1e-6, 1e-4, 1e-2), c_jitter=(0.0, 1e-6, 1e-3),
         equilibrate=equilibrate,
     )
@@ -259,7 +259,7 @@ def stochastic_mll_surrogate(spec, raw_params, grid_data, lens, y, probes,
             K32 = build_kski(spec, params32, grid_data32, lens)
             wb = build_device_woodbury(
                 K32.groups, spec.noise(params32), K32.noise_n,
-                tuple(gd.WtW for gd in grid_data32),
+                grid_data32,
             )
             inner_mv = (K32.matvec if inner_data32 is None else
                         build_kski(spec, params32, inner_data32, lens).matvec)

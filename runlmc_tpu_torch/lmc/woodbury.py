@@ -11,12 +11,16 @@ and Woodbury gives a closed-form inverse and determinant:
     K^-1 = D^-1 - D^-1 V C^-1 V^T D^-1,   C = I + V^T D^-1 V,
     log det K = log det C + sum_i log D_ii.
 
-The capacitance assembly is plain large matmuls and the factorizations
-are ``torch.linalg.cholesky_ex`` (cuBLAS / cuSOLVER on the card), as the
-JAX package leaves them to XLA; the triangular solves with C's factor
-are K5, the hand kernel of ``hopper/trsm.py`` (``cho_solve`` with its
-own backward, ``trsm_lower``). Everything here is differentiable by torch
-autograd, which the exact training objective
+The capacitance C is K2, the hand kernel of ``hopper/capacitance.py``
+(with its own backward), on the grams and tile plans that
+``grid.make_grids`` made once per grid; every W and W^T apply (K4) is
+K9's gather or scatter through the group's interpolant
+(``hopper/interp.py``, differentiable); the products with F stay
+``torch.matmul`` and the factorizations ``torch.linalg.cholesky_ex``
+(cuBLAS / cuSOLVER on the card), as the JAX package leaves them to XLA;
+the triangular solves with C's factor are K5 (``hopper/trsm.py``:
+``cho_solve`` with its own backward, ``trsm_lower``). Everything here is
+differentiable by torch autograd, which the exact training objective
 (likelihood.exact_ski_mll) runs through. The float32 factor
 preconditions the prediction solves (:func:`woodbury_pcg`); the
 model-dtype factor is the escalation rung.
@@ -26,8 +30,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from runlmc_tpu_torch.hopper.capacitance import capacitance_matrix
 from runlmc_tpu_torch.hopper.trsm import cho_solve, trsm_lower
-from runlmc_tpu_torch.lmc.grid import w_apply, wt_apply
+from runlmc_tpu_torch.lmc.grid import gram_nest
 from runlmc_tpu_torch.ops.solvers import batched_cg
 
 # Default of chol_jittered's Jacobi equilibration (parity:
@@ -83,7 +88,7 @@ class DeviceWoodbury(NamedTuple):
     Fs: Tuple  # per-group (Dm_g, Dm_g) lower Cholesky of K_UU_g
     L_C: torch.Tensor  # (k, k) lower Cholesky of C, k = sum_g Dm_g
     noise_n: torch.Tensor  # (n,) per-data-point noise
-    W_blocks: Tuple  # per-group tuple of per-output (n_d, m_g) blocks
+    interps: Tuple  # per-group interpolant W_g (n, Dm_g), applied by K9
     logdet: torch.Tensor  # scalar: log det of the factorized K
 
     @property
@@ -92,16 +97,15 @@ class DeviceWoodbury(NamedTuple):
 
     def _vt(self, x):
         """V^T x: (..., n) -> (..., k)."""
-        parts = [wt_apply(blocks, x) @ f
-                 for blocks, f in zip(self.W_blocks, self.Fs)]
+        parts = [W.rmatvec(x) @ f for W, f in zip(self.interps, self.Fs)]
         return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
     def _v(self, t):
         """V t: (..., k) -> (..., n)."""
         out, off = 0.0, 0
-        for blocks, f in zip(self.W_blocks, self.Fs):
+        for W, f in zip(self.interps, self.Fs):
             kg = f.shape[1]
-            out = out + w_apply(blocks, t[..., off:off + kg] @ f.T)
+            out = out + W.matvec(t[..., off:off + kg] @ f.T)
             off += kg
         return out
 
@@ -122,7 +126,7 @@ class DeviceWoodbury(NamedTuple):
 
 
 def build_device_woodbury(
-    groups, noise_eps, noise_n, wtw, jitter=(1e-6, 1e-4, 1e-2, 1e-1),
+    groups, noise_eps, noise_n, grids, jitter=(1e-6, 1e-4, 1e-2, 1e-1),
     c_jitter=(0.0, 1e-6, 1e-3, 1e-1), equilibrate=None,
 ):
     """Factor the SKI covariance (parity: woodbury.py:208-310).
@@ -130,7 +134,9 @@ def build_device_woodbury(
     :param groups: dense-mode ``GroupState`` tuple (grid.py).
     :param noise_eps: (D,) constrained per-output noise.
     :param noise_n: (n,) per-data-point noise.
-    :param wtw: per-group (D, m_g, m_g) stacked per-output grams.
+    :param grids: the placed dense-mode ``GridData`` the groups were
+        built from: their grams ``WtW``, tile plans and cross grams
+        (:func:`grid.gram_nest`) feed K2.
     :param jitter: escalating relative jitter scales for the K_UU
         Cholesky factors; ``c_jitter`` the same for C.
     :param equilibrate: Jacobi equilibration of both factorizations
@@ -142,65 +148,27 @@ def build_device_woodbury(
     Fs = tuple(chol_jittered(g.KUU_dense, scales=jitter,
                              equilibrate=equilibrate) for g in groups)
     inv_eps = (1.0 / noise_eps).to(dtype)
-
-    def diag_block(F, G):
-        # C_gg = sum_d eps_d^-1 F[d-rows]^T (W_d^T W_d) F[d-rows]
-        D, m = G.shape[0], G.shape[1]
-        Fd = F.reshape(D, m, F.shape[1])
-        T1 = torch.bmm(G, Fd)
-        Fs_scaled = Fd * inv_eps[:, None, None]
-        return Fs_scaled.reshape(D * m, -1).T @ T1.reshape(D * m, -1)
-
-    def cross_block(ga, gb, Fa, Fb):
-        # C_ab = sum_d eps_d^-1 Fa[d-rows]^T (W_ad^T W_bd) Fb[d-rows]
-        ma = groups[ga].W_blocks[0].shape[1]
-        mb = groups[gb].W_blocks[0].shape[1]
-        out = 0.0
-        for d, (wa, wb) in enumerate(
-            zip(groups[ga].W_blocks, groups[gb].W_blocks)
-        ):
-            G_ab = wa.T @ wb
-            Fad = Fa[d * ma:(d + 1) * ma]
-            Fbd = Fb[d * mb:(d + 1) * mb]
-            out = out + inv_eps[d] * (Fad.T @ (G_ab @ Fbd))
-        return out
-
-    nblocks = len(groups)
-    if nblocks == 1:
-        C = diag_block(Fs[0], wtw[0])
-    else:
-        rows = [[None] * nblocks for _ in range(nblocks)]
-        for a in range(nblocks):
-            rows[a][a] = diag_block(Fs[a], wtw[a])
-            for b in range(a + 1, nblocks):
-                rows[a][b] = cross_block(a, b, Fs[a], Fs[b])
-        for a in range(nblocks):
-            for b in range(a):
-                rows[a][b] = rows[b][a].T
-        C = torch.cat([torch.cat(r, dim=1) for r in rows], dim=0)
-    C = C + torch.eye(C.shape[0], dtype=dtype, device=C.device)
+    # C = I + sum_d eps_d^-1 F_{a,d}^T G_{ab,d} F_{b,d} over the blocks
+    # (a, b), C_ba = C_ab^T: kernel K2 (woodbury.py:260-298's diag_block
+    # and cross_block)
+    C = capacitance_matrix(gram_nest(grids), inv_eps, Fs)
     L_C = chol_jittered(C, scales=c_jitter, equilibrate=equilibrate)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L_C))) + torch.sum(
         torch.log(noise_n)
     )
     return DeviceWoodbury(
         Fs=Fs, L_C=L_C, noise_n=noise_n,
-        W_blocks=tuple(g.W_blocks for g in groups), logdet=logdet,
+        interps=tuple(g.interp for g in groups), logdet=logdet,
     )
 
 
 def kinv_diag(wb: DeviceWoodbury):
     """diag(K^-1) from the factorization (parity: woodbury.py:313-337):
     [K^-1]_ii = 1/d_i - ||L_C^-1 V_i||^2 / d_i^2 with V = [W_g F_g]_g,
-    materialized once as an (n, k) matrix whose rows K5 solves with L_C
-    in one launch."""
-    parts = []
-    for blocks, F in zip(wb.W_blocks, wb.Fs):
-        m = blocks[0].shape[1]
-        parts.append(torch.cat(
-            [b @ F[d * m:(d + 1) * m] for d, b in enumerate(blocks)], dim=0
-        ))  # (n, k_g), rows in data order
-    V = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    materialized once as an (n, k) matrix (K9's gather of F_g's columns)
+    whose rows K5 solves with L_C in one launch."""
+    V = torch.cat([W.matvec(F.T) for W, F in zip(wb.interps, wb.Fs)],
+                  dim=0).T.contiguous()  # (n, k), rows in data order
     T = trsm_lower(wb.L_C, V)
     s = torch.sum(T * T, dim=1)
     d = wb.noise_n

@@ -447,7 +447,7 @@ class InterpolatedLLGP(MultiGP):
             )
             self._cache["woodbury32"] = wbm.build_device_woodbury(
                 K32.groups, noise32, K32.noise_n,
-                tuple(gd.WtW for gd in self.precond_data32),
+                self.precond_data32,
                 equilibrate=self._equilibrate,
             )
         return self._cache["woodbury32"]
@@ -463,7 +463,7 @@ class InterpolatedLLGP(MultiGP):
             tight, c_tight = self._model_ladders()
             self._cache["woodbury"] = wbm.build_device_woodbury(
                 K.groups, self.spec.noise(self.params), K.noise_n,
-                tuple(gd.WtW for gd in self.grid_data),
+                self.grid_data,
                 jitter=tight, c_jitter=c_tight,
                 equilibrate=self._equilibrate,
             )

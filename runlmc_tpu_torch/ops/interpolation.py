@@ -5,7 +5,8 @@ Index/weight construction runs on the host in numpy at model-build time
 (it depends only on data locations). The operator :class:`Interp`
 applies W and W^T through kernel K9 (runlmc_tpu_torch/hopper/interp.py):
 a fixed-width gather, and a scatter that reads a transposed CSR of W
-built here once, on the host.
+built here once, on the host; both are differentiable in the operand
+(``InterpApply``: each one's backward is the other).
 """
 
 import dataclasses
@@ -15,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from runlmc_tpu_torch.hopper.interp import interp_gather, interp_scatter
+from runlmc_tpu_torch.hopper.interp import interp_apply
 
 _LOG = logging.getLogger(__name__)
 
@@ -149,14 +150,18 @@ class Interp:
                       ncols=self.ncols, t_ptr=_i(self.t_ptr),
                       t_rows=_i(self.t_rows), t_weights=_f(self.t_weights))
 
+    def _args(self):
+        return (self.indices, self.weights, self.t_ptr, self.t_rows,
+                self.t_weights)
+
     def matvec(self, v):
         """W v: (..., ncols) -> (..., n), kernel K9 gather."""
-        return interp_gather(self.indices, self.weights, v)
+        return interp_apply(v, *self._args())
 
     def rmatvec(self, x):
         """W^T x: (..., n) -> (..., ncols), kernel K9 scatter; duplicate
         (clamped-edge) indices accumulate."""
-        return interp_scatter(self.t_ptr, self.t_rows, self.t_weights, x)
+        return interp_apply(x, *self._args(), transpose=True)
 
 
 def multi_interpolant(Xs, grid_axes):

@@ -12,6 +12,7 @@ import torch
 import runlmc_tpu_torch as T
 from runlmc_tpu_torch import hopper
 from runlmc_tpu_torch.hopper import (
+    capacitance,
     cg,
     cross,
     fourier,
@@ -493,3 +494,87 @@ def test_cho_solve_backward_matches_cholesky_solve(dev):
         grads.append(torch.autograd.grad(fn(L, S), (L, S), G))
     for a, b in zip(*grads):
         _close(a, b, torch.float64)
+
+
+def _k2_problem(dtype, dev, groups):
+    """Grams and tile plans of real interpolants (a 2-D grid, with a
+    1-D second group for cross blocks), seeded lower factors, noise."""
+    from runlmc_tpu_torch.lmc import grid as tgrid
+
+    rng = np.random.RandomState(4)
+    Xs = [rng.uniform(0, 1, (n, 3)) for n in (150, 130)]
+    kw = dict(lmc_kernels=[T.RBF(name="a", active_dims=(0, 1))],
+              lmc_ranks=[1])
+    if groups == 2:
+        kw["indep_gp"] = [T.RBF(name="b", active_dims=(2,))]
+    spec = T.LMCKernelSpec.create(D=2, **kw).with_input_dim(3)
+    gds, _ = tgrid.make_grids(spec, Xs, m=[9, 11, 70])
+    gds = tuple(gd.to(dtype, dev) for gd in gds)
+    g = torch.Generator().manual_seed(5)
+    inv_eps = (torch.rand(2, generator=g, dtype=dtype) + 0.5).to(dev)
+    Fs = [torch.tril(torch.randn(gd.interp.ncols, gd.interp.ncols,
+                                 generator=g, dtype=dtype)).to(dev)
+          for gd in gds]
+    return tgrid.gram_nest(gds), inv_eps, Fs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("groups", [1, 2])
+def test_capacitance(dev, dtype, groups):
+    nest, inv_eps, Fs = _k2_problem(dtype, dev, groups)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = capacitance.capacitance.launches[sfx]
+    C, Ts = capacitance.capacitance(nest, inv_eps, Fs)
+    assert capacitance.capacitance.launches[sfx] == before + 1
+    Cp, Tp = capacitance.capacitance_plain(nest, inv_eps, Fs)
+    _close(C, Cp, dtype)
+    assert torch.equal(C, C.T)
+    # column-major factors, as cuSOLVER leaves them: the same bits
+    Cc, _ = capacitance.capacitance(nest, inv_eps,
+                                    [F.mT.contiguous().mT for F in Fs])
+    assert torch.equal(C, Cc)
+    g = torch.Generator().manual_seed(6)
+    Cbar = torch.randn(C.shape, generator=g, dtype=dtype).to(dev)
+    got = capacitance.capacitance_bwd(nest, inv_eps, Fs, Ts, Cbar)
+    want = capacitance.capacitance_bwd_plain(nest, inv_eps, Fs, Tp, Cbar)
+    again = capacitance.capacitance_bwd(nest, inv_eps, Fs, Ts, Cbar)
+    # the backward sums Dm products of a cotangent of both signs
+    tol = {torch.float32: 1e-4, torch.float64: 1e-12}[dtype]
+    for a, b, c in zip((got[0], *got[1]), (want[0], *want[1]),
+                       (again[0], *again[1])):
+        torch.cuda.synchronize()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+        assert torch.equal(a, c)
+
+
+def test_capacitance_autograd_matches_cpu(dev):
+    """Capacitance's backward through a Cholesky, card vs CPU, float64."""
+    nest, inv_eps, Fs = _k2_problem(torch.float64, dev, 2)
+    grads = []
+    for d in (dev, "cpu"):
+        ie = inv_eps.to(d).requires_grad_(True)
+        Fr = [F.to(d).requires_grad_(True) for F in Fs]
+        nd = [[tuple(t.to(d) for t in e) for e in row] for row in nest]
+        C = capacitance.capacitance_matrix(nd, ie, Fr)
+        out = torch.linalg.cholesky(C).diagonal().log().sum()
+        grads.append(torch.autograd.grad(out, [ie] + Fr))
+    for a, b in zip(*grads):
+        _close(a.cpu(), b, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_interp_apply_autograd(dev, dtype):
+    rng = np.random.RandomState(7)
+    Xs = [rng.uniform(0, 1, (n, 2)) for n in (80, 60)]
+    W = multi_interpolant(Xs, [np.linspace(-0.1, 1.1, 9),
+                               np.linspace(-0.1, 1.1, 10)])
+    grads = []
+    for d in (dev, "cpu"):
+        Wd = W.to(dtype, d)
+        v = torch.as_tensor(rng.standard_normal((4, W.ncols)) if d == dev
+                            else v0, dtype=dtype, device=d)
+        v0 = v.detach().cpu().numpy()
+        v.requires_grad_(True)
+        out = Wd.rmatvec(Wd.matvec(v) ** 2)
+        grads.append(torch.autograd.grad(out.sum(), v)[0].cpu())
+    _close(grads[0], grads[1], dtype)

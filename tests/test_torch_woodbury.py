@@ -93,7 +93,7 @@ def _factors(dtype=np.float64, **kw):
     gt = tuple(gd.to(tdt, "cpu") for gd in gt)
     Kt = tgrid.build_kski(st, pt, gt, lens)
     wt = twb.build_device_woodbury(Kt.groups, st.noise(pt), Kt.noise_n,
-                                   tuple(gd.WtW for gd in gt), **kw)
+                                   gt, **kw)
     return Kj, wj, Kt, wt, sum(lens)
 
 
