@@ -13,8 +13,7 @@ Phases:
    fx2007-shaped synthetic problem (D=13 outputs, n=3113 training and
    150 held-out points, Q=1 RBF of rank 2, m=[234] -> 238 grid points,
    Dm=3094) in float64 on the card — and hold each hand kernel against
-   its plain PyTorch version on the card at the shapes of those paths
-   (K1's backward on a seeded asymmetric (3094, 3094) cotangent), with
+   its plain PyTorch version on the card at the shapes of those paths, with
    times (CUDA events and profiler device time), the library call's time
    where one PyTorch call computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the peak
@@ -33,14 +32,21 @@ Phases:
    the reduced copy's (15, 790), eight steps on a diagonal operator with
    a row that breaks down), K7 and its backward at the weather
    oracle's (15768, 15768) with the weather model's Q=6 table (the plain
-   versions a slab of rows at a time), K1 at the weather twin's
-   Dm=10016, and K5 (``trsm_lower``, its transposed variant and
+   versions a slab of rows at a time), and K5 (``trsm_lower``, its
+   transposed variant and
    ``cho_solve``) at the shapes of its call sites (the weather model's
    own float32 capacitance factor, seeded well-conditioned factors for
    the rest) in both storage orders, by agreement and by normwise
    backward error, plus a NaN factor and ``ChoSolve``'s backward against
    autograd through ``torch.cholesky_solve``; then build the synth model
-   of phase 15 and hold K2 (the capacitance matrix, float32 and float64)
+   of phase 15 and hold K1 with K8 fused in (k(r) on the grid from the
+   kernel table) and its backward (the table's cotangent and d B, on
+   seeded asymmetric cotangents), float32 and float64, at the fx2007
+   grid (Q=1, m=238, D=13), the weather twin (Q=6, m=2504, D=4) and
+   synth's 2-D grid (29 x 29, D=5) on each model's parameters and on a
+   mixed table of every kind, each call relaunched bit-identical, with
+   ``index_add_`` as the backward's library yardstick; K2 (the
+   capacitance matrix, float32 and float64)
    at the fx2007, synth and weather-twin shapes on each model's own
    factors and noise, bit-identical across launches and storage orders,
    K2's backward at the fx2007 and synth shapes on a seeded asymmetric
@@ -78,9 +84,11 @@ Phases:
    two deterministic runs are bit-identical, and the calls torch flags
    as nondeterministic printed); one chunk is profiled, by layer and
    inside ``record_function`` ranges around the Woodbury solve with C,
-   the jittered Cholesky, the capacitance matrix and the W applies;
-   then ``predict`` on the held-out points must certify its residual
-   within tolerance (SMSE and NLPD printed, on synthetic data);
+   the jittered Cholesky, the capacitance matrix and the W applies,
+   and one more with its elementwise layer split by source
+   (:func:`elementwise_sources`); then ``predict`` on the held-out
+   points must certify its residual within tolerance (SMSE and NLPD
+   printed, on synthetic data);
 8. card vs CPU: from the same parameters, the first gradient and one
    chunk of float32 exact training (``CPU_CHUNK_STEPS`` steps) agree
    within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
@@ -102,7 +110,7 @@ Phases:
    ``optimize(AdaDelta())`` to its stopping rule, counters read: every
    kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
    and parameters finite, the objective still stochastic and the worst
-   solve residual within ``_gradient_adopt_bound``; one chunk profiled,
+   solve residual within ``_gradient_adopt_bound``; two chunks profiled,
    as in phase 7;
 10. ``predict`` the two held-out windows: every certified residual
    within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
@@ -139,6 +147,17 @@ Phases:
    copy (every 30th point, m=[8, 8]): the first gradient and a
    ``CPU_CHUNK_STEPS`` chunk within ``TRAIN_RTOL`` (float32) and
    ``MODEL_RTOL`` (``exact_precision='model'``);
+16. checkpoint and resume: fx2007 at full width (exact objective,
+   float32 factors) and the weather model (stochastic, m=2500), each
+   trained 20 steps from a saved start, then restored to it, trained 10
+   steps and saved with its optimizer state (``MultiGP.save``); a fresh
+   model restores that file and resumes for 10 steps: bit-identical
+   parameters, gradient norms and stopping step, the fused K1 launched
+   in the resumed run (counters reset and read around it); the fx2007
+   file restored into the CPU model of phase 4 predicts within
+   ``PREDICT_RTOL`` of the card; an escalated copy of synth's reduced
+   model stays escalated across save and restore and resumes in
+   float64;
 14. print each phase's seconds, the kernel table as one JSON line (each
    row's ``launches`` counted on its own path, named in ``path``), the
    card line again, and as the last line ``{"ok": true, "device":
@@ -152,8 +171,10 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -239,6 +260,12 @@ SYNTH_SMALL_M = [8, 8]
 # the backward sums Dm products of a seeded cotangent of both signs:
 # 1e-4; float64 1e-12 both
 K2_TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
+# operations of one k(r) on the grid (K8, inside K1): a square or a sine
+# and an exponential, about 20 floating-point operations
+K8_OPS = 20.0
+# the ``path`` of a kernel row checked and timed at a shape that no path
+# of the port launches (its ``launches`` are 0)
+OFF_PATH = "not on a path at this shape"
 # rows per slab of the plain K7 and K7 backward at the weather shape,
 # and their timed calls (the plain backward takes about half a second)
 WSLAB = 1024
@@ -398,7 +425,8 @@ LAYERS = (
     ("K10", lambda k: "fourier_fwd_kernel" in k),
     ("K12", lambda k: k == "minres_kernel"),
     ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
-    ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k),
+    ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k
+     or "kuu_table_bwd_kernel" in k),
     ("K1", lambda k: "kuu_dense_kernel" in k),
     ("K7", lambda k: "cross_kernel_kernel" in k),
     ("K9 and K4 W applies (hand, interp.cu)",
@@ -413,9 +441,110 @@ LAYERS = (
 )
 
 
+ELEMENTWISE = "elementwise, reductions, copies"
+
+
 def layer_of(kernel):
-    return next((name for name, hit in LAYERS if hit(kernel)),
-                "elementwise, reductions, copies")
+    return next((name for name, hit in LAYERS if hit(kernel)), ELEMENTWISE)
+
+
+# The sources of the elementwise layer: record_function ranges around
+# the port's functions that launch elementwise kernels of their own,
+# innermost first; a backward kernel is credited to the range of the
+# forward op whose autograd node launched it (the profiler's sequence
+# numbers join the two).
+SOURCES = (
+    ("lk", "build_kski", "build_kski (noise expansion, operator)"),
+    ("lk", "exact_ski_mll", "exact SKI MLL (the rest)"),
+    ("lk", "stochastic_mll_surrogate", "stochastic surrogate (the rest)"),
+    ("wbm", "build_device_woodbury", "Woodbury factorization (the rest)"),
+    ("wbm", "chol_jittered", "jittered Cholesky (equilibrate, jitter)"),
+    ("spec", "coreg_mats", "B_q = A_q^T A_q + diag(kappa_q)"),
+    ("spec", "noise", "noise transform"),
+    ("spec", "table_rows", "kernel-table rows (K1's input)"),
+    ("spec", "eval_kernels_stacked", "k(r) on the grid by torch ops (K8)"),
+)
+
+
+def elementwise_sources(fn, per=1):
+    """(elementwise device ms and launches per call of ``fn``, divided
+    by ``per``, by source: {source: {launches, device_ms}}; the same
+    profile's layers) of ``fn`` under torch.profiler, with ``SOURCES``'
+    ranges in place. Forward kernels outside every range are the
+    optimizer's update and the solves' vector operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from runlmc_tpu_torch.lmc import likelihood as lk
+    from runlmc_tpu_torch.lmc import woodbury as wbm
+    from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
+
+    owners = {"lk": lk, "wbm": wbm, "spec": LMCKernelSpec}
+    saved = []
+
+    def ranged(name, f):
+        def inner(*args, **kwargs):
+            with record_function(name):
+                return f(*args, **kwargs)
+        return inner
+
+    for owner, attr, label in SOURCES:
+        f = getattr(owners[owner], attr, None)
+        if f is not None:
+            saved.append((owners[owner], attr, f))
+            setattr(owners[owner], attr, ranged("src: " + label, f))
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for owner, attr, f in saved:
+            setattr(owner, attr, f)
+
+    def label(e):
+        while e is not None:
+            if e.name.startswith("src: "):
+                return e.name[5:]
+            e = e.cpu_parent
+        return None
+
+    def node(e):
+        while e is not None:
+            if "Backward" in e.name and e.sequence_nr >= 0:
+                return e
+            e = e.cpu_parent
+        return None
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and node(e) is None:
+            forward.setdefault(e.sequence_nr, e)
+    out = {}
+    for e in events:
+        for k in e.kernels:
+            if layer_of(k.name) != ELEMENTWISE:
+                continue
+            nd = node(e)
+            if nd is None:
+                src = label(e) or "optimizer update, solves' vector ops"
+            else:
+                fw = forward.get(nd.sequence_nr)
+                src = "backward of " + ((label(fw) if fw else None)
+                                        or "the rest")
+            acc = out.setdefault(src, [0, 0.0])
+            acc[0] += 1
+            acc[1] += k.duration / 1e3
+    rows = [(e.key, e.count, _self_device_us(e) / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
+            and not e.key.startswith("src: ")]
+    return ({k: {"launches": v[0] / per, "device_ms": v[1] / per}
+             for k, v in sorted(out.items(), key=lambda kv: -kv[1][1])},
+            by_layer(rows, per=per))
 
 
 def by_layer(rows, per=1):
@@ -674,6 +803,7 @@ def main():
         lanczos,
         trsm,
     )
+    from runlmc_tpu_torch.kernels.stationary import eval_table
     from runlmc_tpu_torch.lmc import grid as tgrid
     from runlmc_tpu_torch.lmc import woodbury as wbm
     from runlmc_tpu_torch.lmc.woodbury import woodbury_pcg
@@ -779,67 +909,6 @@ def main():
 
     def randn(*shape, dtype=torch.float64):
         return torch.randn(*shape, generator=gen, dtype=dtype).to(dev)
-
-    # K1: K_UU at the model dtype and for the f32 preconditioner
-    for dtype in (torch.float64, torch.float32):
-        p = cast_params(model.params, dtype)
-        gd = model.grid_data[0] if dtype == torch.float64 else \
-            model.grid_data32[0]
-        tops = spec.eval_kernels_stacked(p, gd.dists, gd.plan.kidxs)
-        B = spec.coreg_mats(p, gd.plan.kidxs)
-        sizes = gd.plan.sizes
-        out = kuu.kuu_dense(tops, B, sizes)
-        want = kuu.kuu_dense_plain(tops, B, sizes)
-        record("kuu_dense", dtype, "cuda",
-               "runlmc_tpu_torch/hopper/csrc/kuu_dense.cu",
-               "runlmc_tpu/lmc/grid.py:537", out, want,
-               1e-12 if dtype == torch.float64 else 1e-6,
-               lambda: kuu.kuu_dense(tops, B, sizes),
-               lambda: kuu.kuu_dense_plain(tops, B, sizes),
-               nbytes(out, tops, B), 2.0 * out.numel() * tops.shape[0])
-
-    # K1 backward: the cotangent of K_UU summed over BTTB offsets, in f32
-    # (each training step) and f64 (after escalation), on a seeded
-    # asymmetric cotangent. The library route: one index_add_ of G into
-    # H through a full (Dm, Dm) offset map, then the same two products.
-    for dtype in (torch.float32, torch.float64):
-        p = cast_params(model.params, dtype)
-        gd = model.grid_data[0] if dtype == torch.float64 else \
-            model.grid_data32[0]
-        tops = spec.eval_kernels_stacked(p, gd.dists, gd.plan.kidxs)
-        B = spec.coreg_mats(p, gd.plan.kidxs)
-        sizes = gd.plan.sizes
-        Q, m = tops.shape
-        D = B.shape[1]
-        G = randn(D * m, D * m, dtype=dtype)
-        got = kuu.kuu_dense_bwd(tops, B, sizes, G)
-        want = kuu.kuu_dense_bwd_plain(tops, B, sizes, G)
-        idx = torch.as_tensor(bttb_index_map(sizes), dtype=torch.int64,
-                              device=dev)
-        ar = torch.arange(D, device=dev)
-        full = (ar[:, None, None, None] * (D * m) + ar[None, None, :, None]
-                * m + idx[None, :, None, :]).reshape(-1)
-        H_lib = torch.zeros(D * D * m, dtype=dtype, device=dev)
-
-        def library(G=G, tops=tops, B=B, full=full, H_lib=H_lib, D=D, m=m):
-            H = H_lib.zero_().index_add_(0, full, G.reshape(-1))
-            H = H.view(D, D, m)
-            return (torch.einsum("qde,deo->qo", B, H),
-                    torch.einsum("qo,deo->qde", tops, H))
-
-        tol = 1e-5 if dtype == torch.float32 else 1e-12
-        require(errors(library(), want)[1] <= tol,
-                "the index_add_ route disagrees with the plain backward")
-        record("kuu_dense_bwd", dtype, "cuda",
-               "runlmc_tpu_torch/hopper/csrc/kuu_dense_bwd.cu",
-               "runlmc_tpu/lmc/grid.py:538", got, want, tol,
-               lambda tops=tops, B=B, sizes=sizes, G=G:
-               kuu.kuu_dense_bwd(tops, B, sizes, G),
-               lambda tops=tops, B=B, sizes=sizes, G=G:
-               kuu.kuu_dense_bwd_plain(tops, B, sizes, G),
-               nbytes(G, tops, B, *got), G.numel() + 4.0 * Q * D * D * m,
-               library_fn=library)
-        del G, full, H_lib, got, want
 
     # K7: K_*X of the prediction path (f64), then a mixed table of all
     # five kernel kinds on a 2-D input
@@ -1054,35 +1123,6 @@ def main():
     require(all(g["mode"] == "fft" and g["rep"] == "slfm" for g in wgroups),
             "the weather model's grid is not an fft 'slfm' group")
     require(wm.objective == "stochastic", "weather objective")
-
-    # K1 at the weather twin's shape: the float32 K_UU (Dm=10016) of the
-    # dense preconditioner twin, built once per stochastic step
-    gd = wm.precond_data32[0]
-    p32 = cast_params(wm.params, torch.float32)
-    tops = wm.spec.eval_kernels_stacked(p32, gd.dists, gd.plan.kidxs)
-    B = wm.spec.coreg_mats(p32, gd.plan.kidxs)
-    sizes = gd.plan.sizes
-    out = kuu.kuu_dense(tops, B, sizes)
-    record("kuu_dense", torch.float32, "cuda",
-           "runlmc_tpu_torch/hopper/csrc/kuu_dense.cu",
-           "runlmc_tpu/lmc/grid.py:537", out,
-           kuu.kuu_dense_plain(tops, B, sizes), 1e-6,
-           lambda: kuu.kuu_dense(tops, B, sizes),
-           lambda: kuu.kuu_dense_plain(tops, B, sizes),
-           nbytes(out, tops, B), 2.0 * out.numel() * tops.shape[0],
-           path="train (stochastic, fft)",
-           extra={"site": "weather preconditioner twin, Dm=%d"
-                  % out.shape[0]})
-    # K8, k(r) on the grid (still torch elementwise ops, to be fused into
-    # K1): its bound, the Q x m values written and the m distances read
-    for what, gd_ in (("fx2007 float32", model.grid_data32[0]),
-                      ("weather twin float32", gd)):
-        q_ = len(gd_.plan.kidxs)
-        k8_bytes = nbytes(gd_.dists) * (1 + q_)
-        print("bound K8 k(r) on the grid (%s, Q=%d, m=%d): %.6f ms (%s)"
-              % ((what, q_, gd_.dists.numel())
-                 + bound_ms(k8_bytes, 0.0, torch.float32)), flush=True)
-    del out, tops, B, p32
 
     # K10 at the weather shapes: the model's own 'slfm' symbols (float64
     # operator and float32 inner twin) on 16 seeded operand spectra
@@ -1417,6 +1457,163 @@ def main():
           flush=True)
     require(len(sm.grid_data) == 1 and sm.grid_data[0].plan.mode == "dense",
             "the synth grid is not one dense group")
+
+    # K1 (+K8): K_UU with k(r) evaluated on the grid inside the launch,
+    # and its backward (the offset sums H, then the table's cotangent and
+    # d B), against their plain versions (k(r) by torch ops, the index-map
+    # gather and the einsum; autograd through them), in float32 and
+    # float64 at the shapes of the fx2007 grid (Q=1, m=238, D=13), the
+    # weather twin (Q=6, m=2504, D=4: the float32 preconditioner's K_UU,
+    # built once per stochastic step) and synth's 2-D grid (29 x 29, D=5),
+    # each on its model's own parameters and a seeded asymmetric
+    # cotangent, then on a mixed table of every kind on a 2-D grid. Every
+    # call is repeated and must be bit-identical. The backward's library
+    # route: one index_add_ of G into H through a full (Dm, Dm) offset
+    # map, then the table's cotangent by autograd through torch's k(r) and
+    # d B by one einsum.
+    k1_checks = []
+
+    def k1_inputs(mdl, dists64, kidxs, dtype):
+        p = cast_params(mdl.params, dtype)
+        kinds, prm = mdl.spec.table_rows(p, kidxs)
+        return kinds, prm, dists64.to(dtype), mdl.spec.coreg_mats(p, kidxs)
+
+    def k1_library(kinds, prm, dists, B, sizes, G):
+        """(H by one index_add_, then d prm and d B by torch ops)"""
+        Q, m, D = len(kinds), dists.shape[0], B.shape[1]
+        idx = torch.as_tensor(bttb_index_map(sizes), dtype=torch.int64,
+                              device=dev)
+        ar = torch.arange(D, device=dev)
+        full = (ar[:, None, None, None] * (D * m) + ar[None, None, :, None]
+                * m + idx[None, :, None, :]).reshape(-1)
+        H_lib = torch.zeros(D * D * m, dtype=G.dtype, device=dev)
+
+        def library():
+            H = H_lib.zero_().index_add_(0, full, G.reshape(-1))
+            H = H.view(D, D, m)
+            with torch.enable_grad():
+                p_ = prm.detach().requires_grad_(True)
+                tops = eval_table(kinds, p_, dists)
+                (dprm,) = torch.autograd.grad(
+                    tops, p_, torch.einsum("qde,deo->qo", B, H))
+            return dprm, torch.einsum("qo,deo->qde", tops.detach(), H)
+
+        return library
+
+    def k1_check(what, kinds, prm, dists, B, sizes, dtype, paths=None,
+                 plain_reps=20):
+        """K1 and its backward against their plain versions (and
+        bit-identical relaunches); with ``paths`` (forward's, backward's)
+        as kernel rows, timed."""
+        Q, m, D = len(kinds), dists.shape[0], B.shape[1]
+        args = (kinds, prm, dists, B, sizes)
+        out = kuu.kuu_dense(*args)
+        want = kuu.kuu_dense_plain(*args)
+        G = randn(D * m, D * m, dtype=dtype)
+        got_b = kuu.kuu_dense_bwd(*args, G)
+        want_b = kuu.kuu_dense_bwd_plain(*args, G)
+        same = (torch.equal(out, kuu.kuu_dense(*args))
+                and all(torch.equal(a, b) for a, b in
+                        zip(got_b, kuu.kuu_dense_bwd(*args, G))))
+        tol_f, tol_b = ((1e-12, 1e-12) if dtype == torch.float64
+                        else (1e-6, 1e-5))
+        chk = {"site": what, "dtype": str(dtype).replace("torch.", ""),
+               "Q": Q, "m": m, "D": D, "sizes": list(sizes),
+               "rel_err": errors(out, want)[1],
+               "bwd_rel_err": errors(got_b, want_b)[1],
+               "bwd_prm_rel_err": errors(got_b[0], want_b[0])[1],
+               "bwd_B_rel_err": errors(got_b[1], want_b[1])[1],
+               "bit_identical": same}
+        k1_checks.append(chk)
+        print("K1 (+K8) %s %s (Q=%d, m=%d, D=%d): forward rel err %.3e (tol "
+              "%.0e), backward d prm %.3e, d B %.3e (tol %.0e), relaunch "
+              "bit-identical %s" % (what, chk["dtype"], Q, m, D,
+                                    chk["rel_err"], tol_f,
+                                    chk["bwd_prm_rel_err"],
+                                    chk["bwd_B_rel_err"], tol_b, same),
+              flush=True)
+        require(same, "K1 %s %s relaunch is not bit-identical"
+                % (what, chk["dtype"]))
+        require(chk["bwd_rel_err"] <= tol_b, "K1 backward %s %s disagrees "
+                "with its plain version" % (what, chk["dtype"]))
+        if paths is None:
+            require(chk["rel_err"] <= tol_f, "K1 %s %s disagrees with its "
+                    "plain version" % (what, chk["dtype"]))
+            return
+        site = {"site": "%s, Dm=%d" % (what, D * m)}
+        record("kuu_dense", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/kuu_dense.cu",
+               "runlmc_tpu/lmc/grid.py:535", out, want, tol_f,
+               lambda: kuu.kuu_dense(*args),
+               lambda: kuu.kuu_dense_plain(*args),
+               nbytes(out, prm, dists, B),
+               2.0 * out.numel() * Q + K8_OPS * Q * m, path=paths[0],
+               plain_reps=plain_reps, extra=site)
+        library = k1_library(*args, G)
+        require(errors(library(), want_b)[1] <= tol_b,
+                "the index_add_ route disagrees with the plain backward")
+        record("kuu_dense_bwd", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/kuu_dense_bwd.cu",
+               "runlmc_tpu/lmc/grid.py:535", got_b, want_b, tol_b,
+               lambda: kuu.kuu_dense_bwd(*args, G),
+               lambda: kuu.kuu_dense_bwd_plain(*args, G),
+               nbytes(G, prm, dists, B, *got_b),
+               G.numel() + 4.0 * Q * D * D * m + K8_OPS * Q * m,
+               library_fn=library, path=paths[1], plain_reps=plain_reps,
+               extra=site)
+
+    # the weather twin keeps the fine grid: its float64 distances are the
+    # fft group's own
+    wtw32 = wm.precond_data32[0]
+    require(wtw32.plan.sizes == wm.grid_data[0].plan.sizes and torch.equal(
+        wtw32.dists, wm.grid_data[0].dists.float()),
+        "the weather twin is not the fine grid")
+    for what, mdl, dists64, kidxs, sizes, paths, reps in (
+            ("fx2007", model, model.grid_data[0].dists,
+             model.grid_data[0].plan.kidxs, model.grid_data[0].plan.sizes,
+             {torch.float32: ("train", "train"),
+              torch.float64: ("predict", "train (model precision)")}, 20),
+            # the twin's float32 K_UU is built without a gradient, and
+            # no path builds it in float64
+            ("weather twin", wm, wm.grid_data[0].dists,
+             wtw32.plan.kidxs, wtw32.plan.sizes,
+             {torch.float32: ("train (stochastic, fft)", OFF_PATH),
+              torch.float64: (OFF_PATH, OFF_PATH)}, 3),
+            ("synth", sm, sm.grid_data[0].dists, sm.grid_data[0].plan.kidxs,
+             sm.grid_data[0].plan.sizes,
+             {torch.float32: ("synth", "synth"),
+              torch.float64: ("synth", "synth")}, 10)):
+        for dtype in (torch.float32, torch.float64):
+            k1_check(what, *k1_inputs(mdl, dists64, kidxs, dtype), sizes,
+                     dtype, paths=paths[dtype], plain_reps=reps)
+        # K8's own work, now inside K1: Q x m values from m distances
+        q_, m_ = len(kidxs), dists64.numel()
+        print("bound K8 k(r) on the grid (%s, Q=%d, m=%d, float32): %.6f ms "
+              "(%s)" % ((what, q_, m_) + bound_ms(
+                  4.0 * m_ * (1 + q_), K8_OPS * q_ * m_, torch.float32)),
+              flush=True)
+    mixed_k1 = T.LMCKernelSpec.create(
+        D=3, lmc_kernels=[T.RBF(name="r"), T.Matern32(name="m")],
+        lmc_ranks=[1, 2], slfm_kernels=[T.StdPeriodic(name="p", period=0.6)],
+        indep_gp=[T.IdentityKern(),
+                  T.Scaled(inner=T.RBF(name="s"), scale=1.5),
+                  T.Scaled(inner=T.Matern32(name="f"),
+                           trainable_scale=False, scale=0.7)],
+        indep_gp_index=[0, 1, 2],
+    ).with_input_dim(2)
+    mk_sizes = (20, 17)
+    mk_grid = np.stack(np.meshgrid(np.linspace(0, 1, 20),
+                                   np.linspace(0, 2, 17), indexing="ij"),
+                       -1).reshape(-1, 2)
+    mk_dists = torch.as_tensor(np.linalg.norm(mk_grid - mk_grid[0], axis=-1),
+                               device=dev)
+    for dtype in (torch.float32, torch.float64):
+        mkp = from_reference_params(mixed_k1.init_raw_params(seed=SEED + 2),
+                                    dtype, dev)
+        kinds_, prm_ = mixed_k1.table_rows(mkp, range(mixed_k1.Q))
+        k1_check("mixed table (5 kinds, 2-D)", kinds_, prm_,
+                 mk_dists.to(dtype), mixed_k1.coreg_mats(mkp), mk_sizes,
+                 dtype)
 
     # K2: the capacitance matrix at its call sites, each model's own
     # factors and noise: the fx2007 and synth models' float32 factors
@@ -1851,6 +2048,12 @@ def main():
     print("training step device time inside the Woodbury solve with C and "
           "the jittered Cholesky (per step):", flush=True)
     print_split(chunk_split, per=tm.chunk_len)
+    chunk_sources = elementwise_sources(
+        lambda: tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW)),
+        per=tm.chunk_len)[0]
+    print("training step elementwise layer by source (per step):",
+          flush=True)
+    print_layers(chunk_sources)
     # least times of the library-routed layers per call, from this cell's
     # shapes (one group, float32): K2 the capacitance assembly, K3 the
     # two Cholesky factorizations (K_UU and C), K4 one W or W^T apply of
@@ -2196,6 +2399,12 @@ def main():
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
     print_split(wchunk_split, per=wm.chunk_len)
+    wchunk_sources = elementwise_sources(
+        lambda: wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED),
+        per=wm.chunk_len)[0]
+    print("stochastic step elementwise layer by source (per step):",
+          flush=True)
+    print_layers(wchunk_sources)
     # the same training (same start, same probe stream) with the float32
     # preconditioner's C by the dense cuBLAS products instead of K2: the
     # PCG iterations follow C's rounding. The wall per step is the host's
@@ -2691,6 +2900,135 @@ def main():
     del rg, rc
     phase_done("15 synth")
 
+    # ----------------------------------------------------------- phase 16
+    # checkpoint and resume on the card. Each configuration: a fresh model
+    # is saved (MultiGP.save) before training, trained 20 steps (the
+    # uninterrupted run), restored from that file, trained 10 steps and
+    # saved with its optimizer state; a second fresh model restores the
+    # 10-step file and resumes for 10 steps (counters reset and read
+    # around the resume). The resumed run must give bit-identical
+    # parameters, gradient norms and stopping step, and the fused K1 must
+    # have launched in it. fx2007 at full width (exact objective, float32
+    # factors, n=3113, Dm=3094), then one weather stochastic chunk pair
+    # (m=2500). The fx2007 file then loads into the phase-4 CPU model,
+    # whose predictions agree with the card's within PREDICT_RTOL; an
+    # escalated copy of synth's reduced model stays escalated across save
+    # and restore, and its resumed steps run at float64.
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt_res = {}
+    try:
+        cfgs = (
+            ("fx2007 exact", lambda: T.InterpolatedLLGP(
+                xss, yss, functional_kernel=spec, m=[234],
+                tolerance=TOLERANCE, seed=SEED, objective="exact",
+                device=dev), OPT_KW, ("kuu_dense/f32", "kuu_dense_bwd/f32")),
+            ("weather stochastic", lambda: T.InterpolatedLLGP(
+                wx, wy, functional_kernel=wspec, m=WEATHER_M,
+                objective="stochastic", seed=SEED, device=dev), {},
+             ("kuu_dense/f32",)))
+        for what, make, okw, k1_keys in cfgs:
+            t0 = time.time()
+            ma = make()
+            f0 = os.path.join(ck_dir, "start.npz")
+            f10 = os.path.join(ck_dir, "step10.npz")
+            ma.save(f0)
+            info_all = ma.optimize(T.AdaDelta(max_it=20, **okw))
+            x_all = ma.param_array
+            ma.restore(f0)
+            info_10 = ma.optimize(T.AdaDelta(max_it=10, **okw))
+            require(info_10["n_iter"] == 10, "%s: the first half stopped at "
+                    "%d" % (what, info_10["n_iter"]))
+            ma.save(f10, opt_state=info_10["state"])
+            mb = make()
+            ck = mb.restore(f10)
+            torch.cuda.synchronize()
+            hopper.reset_launches()
+            info_res = mb.optimize(T.AdaDelta(max_it=20, **okw),
+                                   state=ck["opt_state"])
+            torch.cuda.synchronize()
+            res_launches = hopper.launch_counts()
+            same = (np.array_equal(mb.param_array, x_all)
+                    and info_res["n_iter"] == info_all["n_iter"]
+                    and info_res["grad_norms"] == info_all["grad_norms"][10:])
+            diff = float(np.max(np.abs(mb.param_array - x_all)))
+            ckpt_res[what] = {
+                "n_iter": [int(info_all["n_iter"]), int(info_res["n_iter"])],
+                "bit_identical": same, "max_abs_diff": diff,
+                "s": time.time() - t0,
+                "k1_launches": {k: res_launches[k] for k in k1_keys},
+                "objective": mb.objective,
+                "exact_precision": mb.exact_precision}
+            print("checkpoint %s: uninterrupted n_iter %d, resumed n_iter "
+                  "%d, parameters bit-identical %s (max abs diff %.3e), "
+                  "fused K1 launches in the resumed run %s, %.2f s"
+                  % (what, info_all["n_iter"], info_res["n_iter"], same,
+                     diff, json.dumps(ckpt_res[what]["k1_launches"]),
+                     ckpt_res[what]["s"]), flush=True)
+            require(same, "%s: the resumed run differs from the "
+                    "uninterrupted one" % what)
+            for k in k1_keys:
+                require(res_launches[k] > 0, "%s: %s never launched in the "
+                        "resumed run" % (what, k))
+            if what.startswith("fx2007"):
+                f20 = os.path.join(ck_dir, "fx2007_end.npz")
+                mb.save(f20, opt_state=info_res["state"])
+                mu_g, var_g = mb.predict(txs)
+                t0 = time.time()
+                cpu.restore(f20)
+                mu_c2, var_c2 = cpu.predict(txs)
+                ck_mean = rel(np.concatenate(mu_g), np.concatenate(mu_c2))
+                ck_var = rel(np.concatenate(var_g), np.concatenate(var_c2))
+                ckpt_res[what]["cpu_predict"] = {
+                    "mean_rel_err": ck_mean, "var_rel_err": ck_var,
+                    "s": time.time() - t0}
+                print("checkpoint fx2007: the file restored on the CPU "
+                      "predicts within %.3e (means) and %.3e (variances) of "
+                      "the card (tol %g), CPU %.1f s"
+                      % (ck_mean, ck_var, PREDICT_RTOL,
+                         time.time() - t0), flush=True)
+                require(ck_mean <= PREDICT_RTOL and ck_var <= PREDICT_RTOL,
+                        "the restored CPU model disagrees with the card")
+            del ma, mb
+        # an escalated synth reduced copy: one chunk, escalated by the
+        # ladder's own step when the chunk did not breach
+        t0 = time.time()
+        se = T.InterpolatedLLGP(rx, ry, device=dev, **rkw)
+        se_info = se.optimize(T.AdaDelta(max_it=10))
+        natural = se.exact_precision != "f32"
+        if not natural:
+            se._escalate(2.0 * EXACT_RESIDUAL_THRESHOLD, se.param_array)
+        want_state = (se.objective, se.exact_precision, se._equilibrate,
+                      se._equilibrate_flip_tried)
+        require(want_state[1] == "model", "synth reduced copy not escalated")
+        fesc = os.path.join(ck_dir, "synth_escalated.npz")
+        se.save(fesc, opt_state=se_info["state"])
+        se2 = T.InterpolatedLLGP(rx, ry, device=dev, **rkw)
+        ck = se2.restore(fesc)
+        got_state = (se2.objective, se2.exact_precision, se2._equilibrate,
+                     se2._equilibrate_flip_tried)
+        hopper.reset_launches()
+        se2.optimize(T.AdaDelta(max_it=13), state=ck["opt_state"])
+        esc_launches = hopper.launch_counts()
+        ckpt_res["synth escalated"] = {
+            "escalated_in_training": natural, "saved": list(want_state),
+            "restored": list(got_state), "s": time.time() - t0,
+            "resumed_launches": {k: esc_launches[k] for k in
+                                 ("kuu_dense/f64", "kuu_dense_bwd/f64")}}
+        print("checkpoint synth reduced copy: escalated %s, state %s, "
+              "restored %s, resumed float64 K1 launches %s"
+              % ("in training" if natural else "by the ladder's step",
+                 want_state, got_state,
+                 json.dumps(ckpt_res["synth escalated"]["resumed_launches"])),
+              flush=True)
+        require(got_state == want_state, "the restored synth copy lost its "
+                "escalation")
+        require(esc_launches["kuu_dense_bwd/f64"] > 0,
+                "the restored escalated copy did not train in float64")
+        del se, se2
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    phase_done("16 checkpoint and resume")
+
     # ------------------------------------------------------------ phase 14
     path_launches = {
         "report (fx2007)": rep_launches, "slq (weather)": slq_launches,
@@ -2704,7 +3042,9 @@ def main():
         row["train_launches"] = train_launches[key]
         row["stochastic_launches"] = st_launches[key]
         row["predict_fft_launches"] = fp_launches[key]
-        if "path" in row:  # named where the row was recorded
+        if row.get("path") == OFF_PATH:
+            row["launches"] = 0
+        elif "path" in row:  # named where the row was recorded
             row["launches"] = path_launches[row["path"]][key]
             require(row["launches"] > 0, "%s never launched on its path %s"
                     % (key, row["path"]))
@@ -2719,14 +3059,6 @@ def main():
         elif row["name"] == "minres_update":
             require(key in hopper.MINRES_PATH, "%s is on no path" % key)
             row["path"], row["launches"] = "minres rung", mr_launches[key]
-        elif row["name"] == "kuu_dense_bwd":
-            if key in hopper.TRAIN_PATH:
-                row["path"], row["launches"] = "train", train_launches[key]
-            else:
-                require(key in hopper.MODEL_PRECISION_PATH,
-                        "%s is on no path" % key)
-                row["path"] = "train (model precision)"
-                row["launches"] = mp_launches[key]
         elif key in hopper.PREDICT_PATH:
             row["path"], row["launches"] = "predict", launches[key]
         else:
@@ -2871,7 +3203,10 @@ def main():
                                 "deterministic_runs_identical": det_same,
                                 "flagged": sorted(flagged)},
         "train_split": chunk_split, "train_stops": stops,
-        "stochastic_split": wchunk_split, "loo_zsq": loo,
+        "train_elementwise_sources": chunk_sources,
+        "stochastic_split": wchunk_split,
+        "stochastic_elementwise_sources": wchunk_sources, "loo_zsq": loo,
+        "k1_checks": k1_checks, "checkpoint": ckpt_res,
         "phase_s": phase_s,
     }
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -5,7 +5,7 @@ for CUDA tensors and counts the launch by dtype (``wrapper.launches``,
 ``{"f32": n, "f64": n}``); for CPU tensors the wrapper runs the plain
 PyTorch version beside it.
 
-  K1  kuu.kuu_dense               CUDA  csrc/kuu_dense.cu
+  K1 (+K8, k(r) on the grid)  kuu.kuu_dense  CUDA  csrc/kuu_dense.cu
   K1 backward  kuu.kuu_dense_bwd  CUDA  csrc/kuu_dense_bwd.cu
   K6  cg.cg_update_xr / cg_update_p  Triton  triton_cg.py
   K7  cross.cross_kernel          CUDA  csrc/cross_kernel.cu

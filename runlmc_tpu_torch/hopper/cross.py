@@ -28,28 +28,11 @@ forward) is what the backward wrapper runs for CPU tensors.
 """
 
 import ctypes
-import math
 
 import torch
 
 from runlmc_tpu_torch.hopper import build
-from runlmc_tpu_torch.kernels.stationary import (
-    KIND_MATERN32,
-    KIND_RBF,
-    KIND_STD_PERIODIC,
-)
-
-
-def _k_of_r(kind, r, gamma, period):
-    if kind == KIND_RBF:
-        return torch.exp(-0.5 * torch.square(r) * gamma)
-    if kind == KIND_MATERN32:
-        s = r * (math.sqrt(3.0) * gamma)
-        return (1.0 + s) * torch.exp(-s)
-    if kind == KIND_STD_PERIODIC:
-        s = torch.sin((math.pi / period) * r)
-        return torch.exp(-0.5 * torch.square(s) * gamma)
-    return (r == 0.0).to(r.dtype)
+from runlmc_tpu_torch.kernels.stationary import eval_kind
 
 
 def cross_kernel_plain(xa, oa, xb, ob, B, kinds, masks, prm):
@@ -67,7 +50,7 @@ def cross_kernel_plain(xa, oa, xb, ob, B, kinds, masks, prm):
             diff = xa[:, None, dims] - xb[None, :, dims]
             d2 = torch.sum(diff * diff, dim=-1)
             dists[mask] = torch.sqrt(torch.clamp(d2, min=0.0))
-        k = prm[q, 2] * _k_of_r(kind, dists[mask], prm[q, 0], prm[q, 1])
+        k = prm[q, 2] * eval_kind(kind, dists[mask], prm[q, 0], prm[q, 1])
         K = K + B[q][oa][:, ob] * k
     return K
 

@@ -24,26 +24,6 @@
 
 namespace {
 
-constexpr int kRBF = 0;
-constexpr int kMatern32 = 1;
-constexpr int kStdPeriodic = 2;
-
-template <typename T>
-__device__ __forceinline__ T kern_eval(int kind, T r, T gamma, T period) {
-    if (kind == kRBF) {
-        return runlmc::dexp(T(-0.5) * (r * r) * gamma);
-    }
-    if (kind == kMatern32) {
-        const T s = r * (T(1.7320508075688772) * gamma);
-        return (T(1) + s) * runlmc::dexp(-s);
-    }
-    if (kind == kStdPeriodic) {
-        const T s = runlmc::dsin((T(3.141592653589793) / period) * r);
-        return runlmc::dexp(T(-0.5) * (s * s) * gamma);
-    }
-    return r == T(0) ? T(1) : T(0);  // IdentityKern
-}
-
 template <typename T>
 __global__ void cross_kernel_kernel(
     const T* __restrict__ xa, const int* __restrict__ oa,
@@ -68,7 +48,8 @@ __global__ void cross_kernel_kernel(
             }
             const T r = runlmc::dsqrt(d2 > T(0) ? d2 : T(0));
             const T k = prm[q * 3 + 2] *
-                        kern_eval<T>(kinds[q], r, prm[q * 3], prm[q * 3 + 1]);
+                        runlmc::kern_eval<T>(kinds[q], r, prm[q * 3],
+                                             prm[q * 3 + 1]);
             acc += B[((int64_t)q * D + da) * D + db] * k;
         }
         out[a * nb + b] = acc;

@@ -39,41 +39,8 @@
 
 namespace {
 
-constexpr int kRBF = 0;
-constexpr int kMatern32 = 1;
-constexpr int kStdPeriodic = 2;
 constexpr int kMaxQ = 8;
 constexpr int kWarps = 4;  // warps per block
-
-// k~(r) and its derivatives in gamma and period; k~ is computed as the
-// forward kernel computes it (cross_kernel.cu kern_eval)
-template <typename T>
-__device__ __forceinline__ void kern_grads(int kind, T r, T gamma, T period,
-                                           T& k, T& dg, T& dp) {
-    if (kind == kRBF) {
-        const T r2 = r * r;
-        k = runlmc::dexp(T(-0.5) * r2 * gamma);
-        dg = T(-0.5) * r2 * k;
-        dp = T(0);
-    } else if (kind == kMatern32) {
-        const T s = r * (T(1.7320508075688772) * gamma);
-        const T e = runlmc::dexp(-s);
-        k = (T(1) + s) * e;
-        dg = -(T(1.7320508075688772) * r) * s * e;
-        dp = T(0);
-    } else if (kind == kStdPeriodic) {
-        const T arg = (T(3.141592653589793) / period) * r;
-        const T s = runlmc::dsin(arg);
-        k = runlmc::dexp(T(-0.5) * (s * s) * gamma);
-        dg = T(-0.5) * (s * s) * k;
-        dp = gamma * s * runlmc::dcos(arg) *
-             (T(3.141592653589793) * r / (period * period)) * k;
-    } else {  // IdentityKern
-        k = r == T(0) ? T(1) : T(0);
-        dg = T(0);
-        dp = T(0);
-    }
-}
 
 template <typename T>
 __global__ void cross_kernel_bwd_kernel(
@@ -112,8 +79,8 @@ __global__ void cross_kernel_bwd_kernel(
                 }
                 const T r = runlmc::dsqrt(d2 > T(0) ? d2 : T(0));
                 T k, dg, dp;
-                kern_grads<T>(kinds[q], r, prm[q * 3], prm[q * 3 + 1], k,
-                              dg, dp);
+                runlmc::kern_grads<T>(kinds[q], r, prm[q * 3],
+                                      prm[q * 3 + 1], k, dg, dp);
                 acc[3 * qq] += g * k;
                 acc[3 * qq + 1] += g * dg;
                 acc[3 * qq + 2] += g * dp;

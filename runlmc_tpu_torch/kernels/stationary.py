@@ -11,11 +11,12 @@ Constrained-space formulas:
   IdentityKern k(r) = 1[r = 0]
   Scaled       k(r) = sigma * k_inner(r)
 
-Besides ``from_dist``, each kernel describes itself as one row of a
-small table (:meth:`StationaryKernel.table_row`): a kind code and its
-constrained parameters ``(gamma, period, scale)``. The cross-kernel
-CUDA kernel (runlmc_tpu_torch/hopper/cross.py) evaluates k(r)
-from that table.
+Each kernel describes itself as one row of a small table
+(:meth:`StationaryKernel.table_row`): a kind code and its constrained
+parameters ``(gamma, period, scale)``. The cross-kernel and K_UU CUDA
+kernels (runlmc_tpu_torch/hopper/cross.py, kuu.py) evaluate k(r) from
+that table; :func:`eval_kind` and :func:`eval_table` are the torch
+version of that evaluation, and ``from_dist`` goes through them.
 """
 
 import dataclasses
@@ -27,11 +28,37 @@ import torch
 
 from runlmc_tpu_torch.params import POSITIVE
 
-# kind codes of the cross-kernel table (hopper/csrc/cross_kernel.cu)
+# kind codes of the kernel table (hopper/csrc/common.cuh kern_eval)
 KIND_RBF = 0
 KIND_MATERN32 = 1
 KIND_STD_PERIODIC = 2
 KIND_IDENTITY = 3
+
+
+def eval_kind(kind, r, gamma, period):
+    """The unscaled k~(r) of table kind ``kind`` at constrained ``gamma``
+    and ``period``, with the operation order of common.cuh's
+    ``kern_eval``."""
+    if kind == KIND_RBF:
+        return torch.exp(-0.5 * torch.square(r) * gamma)
+    if kind == KIND_MATERN32:
+        s = r * (math.sqrt(3.0) * gamma)
+        return (1.0 + s) * torch.exp(-s)
+    if kind == KIND_STD_PERIODIC:
+        s = torch.sin((math.pi / period) * r)
+        return torch.exp(-0.5 * torch.square(s) * gamma)
+    return (r == 0.0).to(r.dtype)
+
+
+def eval_table(kinds, prm, dists):
+    """scale_q k~_q(dists), stacked (Q, ...), from the table rows
+    ``kinds`` (ints) and ``prm`` (Q, 3): the port's one torch k(r),
+    behind :meth:`StationaryKernel.from_dist`, the fft groups' first rows
+    and the plain versions of the K_UU and cross-kernel kernels."""
+    return torch.stack([
+        prm[i, 2] * eval_kind(kind, dists, prm[i, 0], prm[i, 1])
+        for i, kind in enumerate(kinds)
+    ])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +81,10 @@ class StationaryKernel:
         }
 
     def from_dist(self, raw_params, dists):
-        """Evaluate k on a distance tensor given raw parameters."""
-        raise NotImplementedError
+        """Evaluate k on a distance tensor given raw parameters (through
+        the kernel's table row)."""
+        kind, row = self.table_row(raw_params, dists)
+        return eval_table((kind,), row[None], dists)[0]
 
     def table_row(self, raw_params, like):
         """``(kind code, tensor [gamma, period, scale])`` with the
@@ -82,10 +111,6 @@ class RBF(StationaryKernel):
     def param_spec(self):
         return {"inv_lengthscale": (self.inv_lengthscale, POSITIVE)}
 
-    def from_dist(self, raw_params, dists):
-        gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
-        return torch.exp(-0.5 * torch.square(dists) * gamma)
-
     def table_row(self, raw_params, like):
         gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
         return KIND_RBF, _row(gamma, 1.0, 1.0, like)
@@ -98,11 +123,6 @@ class Matern32(StationaryKernel):
 
     def param_spec(self):
         return {"inv_lengthscale": (self.inv_lengthscale, POSITIVE)}
-
-    def from_dist(self, raw_params, dists):
-        gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
-        scaled = dists * (math.sqrt(3.0) * gamma)
-        return (1.0 + scaled) * torch.exp(-scaled)
 
     def table_row(self, raw_params, like):
         gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
@@ -121,12 +141,6 @@ class StdPeriodic(StationaryKernel):
             "period": (self.period, POSITIVE),
         }
 
-    def from_dist(self, raw_params, dists):
-        gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
-        period = POSITIVE.forward(raw_params["period"])
-        sin = torch.sin((math.pi / period) * dists)
-        return torch.exp(-0.5 * torch.square(sin) * gamma)
-
     def table_row(self, raw_params, like):
         gamma = POSITIVE.forward(raw_params["inv_lengthscale"])
         period = POSITIVE.forward(raw_params["period"])
@@ -136,9 +150,6 @@ class StdPeriodic(StationaryKernel):
 @dataclasses.dataclass(frozen=True)
 class IdentityKern(StationaryKernel):
     name: str = "id"
-
-    def from_dist(self, raw_params, dists):
-        return (dists == 0.0).to(dists.dtype)
 
     def table_row(self, raw_params, like):
         return KIND_IDENTITY, _row(1.0, 1.0, 1.0, like)
@@ -182,10 +193,6 @@ class Scaled(StationaryKernel):
         else:
             sigma = self.scale
         return inner_params, sigma
-
-    def from_dist(self, raw_params, dists):
-        inner_params, sigma = self._split(raw_params)
-        return sigma * self.inner.from_dist(inner_params, dists)
 
     def table_row(self, raw_params, like):
         inner_params, sigma = self._split(raw_params)

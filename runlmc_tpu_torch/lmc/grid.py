@@ -6,8 +6,9 @@ one of two modes:
 
 - 'dense' (D*m <= ``DENSE_MAX_GRID``): K_UU materialized once per
   parameter setting as one (Dm, Dm) matrix through kernel K1 and its
-  backward (runlmc_tpu_torch/hopper/kuu.py); its matvec is one GEMM, in
-  any dtype — on the H100 in native f64;
+  backward (runlmc_tpu_torch/hopper/kuu.py), which evaluate k(r) on the
+  grid (K8) inside the launch; its matvec is one GEMM, in any dtype — on
+  the H100 in native f64;
 - 'fft' (larger grids): K_UU u = irfftn(contract(rfftn(u))), the
   circulant embedding's Fourier symbol (ops/bttb.py, K11) contracted
   with the coregionalization per frequency by kernel K10
@@ -391,18 +392,23 @@ class GroupState:
 def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     """Evaluate the kernels on the grid and assemble the group's operator
     (parity: grid.py:524-596): dense mode materializes K_UU through
-    kernel K1 (gradients reach ``tops`` and ``B`` through K1's backward);
-    fft mode precomputes the Fourier symbol of its representation, which
+    kernel K1, which evaluates k(r) on the grid itself from the group's
+    rows of the kernel table (gradients reach the table and ``B`` through
+    K1's backward, the raw parameters through the table's transforms);
+    fft mode evaluates k(r) on the first rows with torch ops and
+    precomputes the Fourier symbol of its representation (K11), which
     kernel K10 and its backward contract."""
     plan = gd.plan
     kidxs = plan.kidxs
-    tops = spec.eval_kernels_stacked(raw_params, gd.dists, kidxs)
     base = dict(interp=gd.interp, sizes=plan.sizes, rep=plan.rep,
                 mode=plan.mode)
     if plan.mode == "dense":
+        kinds, prm = spec.table_rows(raw_params, kidxs)
         B = spec.coreg_mats(raw_params, kidxs)
-        return GroupState(KUU_dense=KUUDense.apply(tops, B, plan.sizes),
-                          **base)
+        return GroupState(
+            KUU_dense=KUUDense.apply(kinds, prm, gd.dists, B, plan.sizes),
+            **base)
+    tops = spec.eval_kernels_stacked(raw_params, gd.dists, kidxs)
     that = bttb.bttb_fft(tops, plan.sizes).reshape(len(kidxs), -1)
     if plan.rep == "sum":
         return GroupState(B=spec.coreg_mats(raw_params, kidxs), That=that,

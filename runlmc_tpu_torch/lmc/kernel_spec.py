@@ -25,7 +25,7 @@ import numpy as np
 import scipy.stats
 import torch
 
-from runlmc_tpu_torch.kernels.stationary import StationaryKernel
+from runlmc_tpu_torch.kernels.stationary import StationaryKernel, eval_table
 from runlmc_tpu_torch.params import POSITIVE
 
 
@@ -220,27 +220,36 @@ class LMCKernelSpec:
         return self.kernels[q].from_dist(kp, dists)
 
     def eval_kernels_stacked(self, raw_params, dists, idxs):
-        """Stacked k_q(dists) for kernel indices ``idxs`` — (|idxs|, ...)."""
-        return torch.stack(
-            [self.eval_kernel(raw_params, q, dists) for q in idxs]
-        )
+        """Stacked k_q(dists) for kernel indices ``idxs`` — (|idxs|, ...),
+        from their table rows."""
+        return eval_table(*self.table_rows(raw_params, idxs), dists)
+
+    def table_rows(self, raw_params, idxs):
+        """Kernel K1's slice of the kernel table: the kind codes of the
+        kernels ``idxs`` as a tuple of ints, and their constrained
+        ``[gamma, period, scale]`` as a (|idxs|, 3) tensor, stacked row
+        by row (no index tensor, whose backward would accumulate with
+        atomics)."""
+        like = self._like(raw_params)
+        kinds, rows = [], []
+        for q in idxs:
+            kp = raw_params["kernels"].get("q%d" % q, {})
+            kind, row = self.kernels[q].table_row(kp, like)
+            kinds.append(kind)
+            rows.append(row)
+        return tuple(kinds), torch.stack(rows)
 
     def kernel_table(self, raw_params):
         """The cross-kernel table: ``(kinds, dim_masks, params)`` with
         per-q int32 kind codes, int32 bitmasks of active input dims and
         an (Q, 3) tensor of constrained ``[gamma, period, scale]``
         (hopper/cross.py)."""
-        like = self._like(raw_params)
-        kinds, masks, rows = [], [], []
-        for q, k in enumerate(self.kernels):
-            kp = raw_params["kernels"].get("q%d" % q, {})
-            kind, row = k.table_row(kp, like)
-            kinds.append(kind)
-            masks.append(sum(1 << int(p) for p in k.active_dims))
-            rows.append(row)
-        dev = like.device
+        kinds, prm = self.table_rows(raw_params, range(self.Q))
+        masks = [sum(1 << int(p) for p in k.active_dims)
+                 for k in self.kernels]
+        dev = prm.device
         return (
             torch.as_tensor(kinds, dtype=torch.int32, device=dev),
             torch.as_tensor(masks, dtype=torch.int32, device=dev),
-            torch.stack(rows),
+            prm,
         )

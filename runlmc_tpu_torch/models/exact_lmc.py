@@ -52,6 +52,7 @@ class ExactLMC(MultiGP):
         self.y = torch.as_tensor(self.data.y, dtype=self.dtype, device=dev)
         self._X = torch.as_tensor(self.data.X, dtype=self.dtype, device=dev)
         self._oidx = torch.as_tensor(self.data.output_idx, device=dev)
+        self.seed = seed
         self.params = from_reference_params(
             self.spec.init_raw_params(seed=seed), self.dtype, dev)
 

@@ -66,6 +66,7 @@ from runlmc_tpu_torch.utils.carry import (
     ravel_params,
     unravel_params,
 )
+from runlmc_tpu_torch.utils.checkpoint import is_jax_key, warn_foreign_key
 
 _LOG = logging.getLogger(__name__)
 
@@ -136,6 +137,20 @@ def _run_seed_of(key):
         return (int(k[0]) << 32) | int(k[1])
     raise ValueError("warm_rescue: key must be None, an int or a uint32[2] "
                      "array, got %r" % (key,))
+
+
+def _resumed_run_seed(state):
+    """The run seed that ``optimize(state=...)`` continues: the int
+    ``rng_key`` of an earlier ``info['state']`` (or of a port
+    checkpoint's ``opt_state``); None without one, and, with a warning,
+    for a JAX package's ``uint32[2]`` key, whose probe stream the port
+    cannot continue."""
+    if state is None or "rng_key" not in state:
+        return None
+    if is_jax_key(state["rng_key"]):
+        warn_foreign_key("optimize")
+        return None
+    return int(np.asarray(state["rng_key"]).reshape(()))
 
 
 class InterpolatedLLGP(MultiGP):
@@ -282,6 +297,9 @@ class InterpolatedLLGP(MultiGP):
                 int(np.prod(gd.plan.sizes)), gd.plan.active_dim,
             )
 
+        # the seed of the initial parameters and of the run-seed stream;
+        # a checkpoint's rng_key is jax.random.PRNGKey(seed)'s layout
+        self.seed = seed
         self.params = from_reference_params(
             self.spec.init_raw_params(seed=seed), self.dtype, dev
         )
@@ -873,9 +891,8 @@ class InterpolatedLLGP(MultiGP):
                     "objective='auto': exact objective validates on "
                     "held-out blocks (z^2 %.3g, zero-var %.2f)", z2v, zfrac,
                 )
-        if state is not None and "rng_key" in state:
-            run_seed = int(np.asarray(state["rng_key"]).reshape(()))
-        else:
+        run_seed = _resumed_run_seed(state)
+        if run_seed is None:
             run_seed = self._next_run_seed()
         if self.metrics is not None or not isinstance(optimizer, AdaDelta):
             # step by step on the host (parity: interpolated_llgp.py:

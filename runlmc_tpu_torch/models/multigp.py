@@ -4,6 +4,11 @@ plumbing (host numpy copy of runlmc_tpu/models/multigp.py)."""
 import numpy as np
 import scipy.stats
 
+from runlmc_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    restore_model,
+    save_checkpoint,
+)
 from runlmc_tpu_torch.utils.normalizer import IdentityNormalizer, Normalizer
 
 
@@ -106,6 +111,23 @@ class MultiGP:
 
     def optimize(self, **kwargs):
         raise NotImplementedError
+
+    def save(self, path, opt_state=None, extra=None):
+        """Write a single-file ``.npz`` checkpoint (parameters, normalizer
+        stats, optional optimizer state / extras, and the port's own
+        run-seed, escalation and prior state), which the JAX package's
+        ``load_checkpoint`` reads too (parity: multigp.py:119-125). See
+        :mod:`runlmc_tpu_torch.utils.checkpoint`."""
+        save_checkpoint(path, self, opt_state=opt_state, extra=extra)
+
+    def restore(self, path):
+        """Restore the model from a checkpoint written by :meth:`save`
+        (or by the JAX package's); returns the loaded dict, whose
+        ``opt_state`` resumes training through ``optimize(state=...)``
+        (parity: multigp.py:127-141)."""
+        ckpt = load_checkpoint(path)
+        restore_model(self, ckpt)
+        return ckpt
 
     def _predict(self, Xs, normalize):
         if len(Xs) != self.output_dim:

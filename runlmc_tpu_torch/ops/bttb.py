@@ -1,5 +1,5 @@
 """Symmetric block-Toeplitz-with-Toeplitz-blocks (BTTB) helpers (parity:
-runlmc_tpu/ops/bttb.py:35-172, 254-263).
+runlmc_tpu/ops/bttb.py:35-172, 243-263).
 
 A symmetric P-level BTTB matrix over a grid of per-axis sizes ``sizes``
 is fully described by its first row ``top`` (length ``prod(sizes)``).
@@ -125,6 +125,18 @@ def bttb_index_map(sizes):
         c = (np.arange(m) // stride) % n  # this dim's coordinate
         idx += np.abs(c[:, None] - c[None, :]) * stride
     return idx.astype(np.int32)
+
+
+def toeplitz_eig_upper_bound(top):
+    """Gershgorin upper bound on the eigenvalues of a symmetric Toeplitz
+    matrix: the largest absolute row sum, in O(n) with prefix sums
+    (parity: runlmc_tpu/ops/bttb.py:243-251; 0 for an empty ``top``, where
+    the JAX package's version indexes past the end)."""
+    a = np.abs(np.asarray(top))
+    if not len(a):
+        return 0.0
+    prefix = np.cumsum(a)
+    return float((prefix + prefix[::-1] - a[0]).max())
 
 
 def bttb_eig_upper_bound(top, sizes):

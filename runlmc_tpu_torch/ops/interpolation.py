@@ -6,7 +6,9 @@ Index/weight construction runs on the host in numpy at model-build time
 applies W and W^T through kernel K9 (runlmc_tpu_torch/hopper/interp.py):
 a fixed-width gather, and a scatter that reads a transposed CSR of W
 built here once, on the host; both are differentiable in the operand
-(``InterpApply``: each one's backward is the other).
+(``InterpApply``: each one's backward is the other). ``Interp.T`` and
+:class:`SKI` (W K_UU W^T over any grid operator) join it to the operator
+algebra of ops/operators.py.
 """
 
 import dataclasses
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from runlmc_tpu_torch.hopper.interp import interp_apply
+from runlmc_tpu_torch.ops.operators import LinearOperator
 
 _LOG = logging.getLogger(__name__)
 
@@ -114,7 +117,7 @@ def transposed_csr(indices, weights, ncols):
 
 
 @dataclasses.dataclass(frozen=True)
-class Interp:
+class Interp(LinearOperator):
     """Fixed-width sparse interpolation operator W: (n, ncols) with
     ``taps`` nonzeros per row (gather ``indices`` + ``weights``), and
     its transposed CSR (``t_ptr``, ``t_rows``, ``t_weights``) for W^T.
@@ -162,6 +165,65 @@ class Interp:
         """W^T x: (..., n) -> (..., ncols), kernel K9 scatter; duplicate
         (clamped-edge) indices accumulate."""
         return interp_apply(x, *self._args(), transpose=True)
+
+    @property
+    def T(self):
+        """W^T as an operator (parity: interpolation.py:244-246)."""
+        return _InterpT(interp=self)
+
+    def as_dense(self):
+        """W (n, ncols) in float64 on the host, duplicate indices summed
+        (test oracle)."""
+        n, m = self.shape
+        idx = torch.as_tensor(self.indices).to("cpu", torch.int64)
+        w = torch.as_tensor(self.weights).to("cpu", torch.float64)
+        rows = torch.arange(n).repeat_interleave(idx.shape[1])
+        out = torch.zeros((n, m), dtype=torch.float64)
+        return out.index_put_((rows, idx.reshape(-1)), w.reshape(-1),
+                              accumulate=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class _InterpT(LinearOperator):
+    """W^T of an :class:`Interp` (parity: interpolation.py:259-272)."""
+
+    interp: Interp
+
+    @property
+    def shape(self):
+        n, m = self.interp.shape
+        return (m, n)
+
+    def matvec(self, v):
+        return self.interp.rmatvec(v)
+
+    def as_dense(self):
+        return self.interp.as_dense().T
+
+
+@dataclasses.dataclass(frozen=True)
+class SKI(LinearOperator):
+    """The SKI composition W K_UU W^T of a grid operator ``grid_K`` and a
+    placed interpolant ``W`` (parity: interpolation.py:275-298)."""
+
+    grid_K: Any
+    W: Interp
+
+    @property
+    def shape(self):
+        n = self.W.shape[0]
+        return (n, n)
+
+    def matvec(self, v):
+        return self.W.matvec(self.grid_K.matvec(self.W.rmatvec(v)))
+
+    def as_dense(self):
+        Wd = self.W.as_dense().to(self.grid_K.as_dense().dtype)
+        return Wd @ self.grid_K.as_dense() @ Wd.T
+
+    def upper_eig_bound(self):
+        n, m = self.W.shape
+        return self.grid_K.upper_eig_bound() * n / m
 
 
 def multi_interpolant(Xs, grid_axes):

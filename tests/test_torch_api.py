@@ -1,6 +1,6 @@
 """The port's public API against the JAX package's: the parameter names
-of the public signatures, ``mesh``/``max_procs``, ``warm_rescue``'s key
-and ``MultiGP.optimize``."""
+of the public signatures (``MultiGP.save``/``restore`` included),
+``mesh``/``max_procs``, ``warm_rescue``'s key and ``MultiGP.optimize``."""
 
 import inspect
 
@@ -16,8 +16,6 @@ from runlmc_tpu_torch.models.multigp import MultiGP as TMultiGP
 
 # The port's only extra parameter: the device its tensors live on.
 PORT_ONLY_PARAMS = ("device",)
-# MultiGP's checkpoint methods, not ported yet (ROADMAP.md, queue 1 item 1).
-NOT_PORTED_METHODS = ("save", "restore")
 
 
 def _names(fn):
@@ -42,8 +40,8 @@ def test_signature_matches_jax(owner, method):
 
 
 def test_multigp_methods_match_jax():
-    want = [m for m in _public_methods(JMultiGP)
-            if m not in NOT_PORTED_METHODS]
+    want = _public_methods(JMultiGP)
+    assert "save" in want and "restore" in want
     assert _public_methods(TMultiGP) == want
     for m in want:
         assert _names(getattr(TMultiGP, m)) == _names(getattr(JMultiGP, m))

@@ -45,19 +45,42 @@ def _close(got, want, dtype):
     assert float((got - want).abs().max()) <= RTOL[dtype] * scale
 
 
+def _kuu_table(Q, m, dtype, dev, seed):
+    """K1's inputs: kind codes cycling through every kind (RBF,
+    Matern32, StdPeriodic, Identity), positive table rows and first-row
+    distances (0 first) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    kinds = tuple(q % 4 for q in range(Q))
+    prm = (0.5 + torch.rand(Q, 3, generator=g, dtype=dtype)).to(dev)
+    dists = torch.cat([torch.zeros(1, dtype=dtype), torch.sort(
+        2.0 * torch.rand(m - 1, generator=g, dtype=dtype))[0]]).to(dev)
+    return kinds, prm, dists
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sizes", [(37,), (6, 7), (3, 4, 5)])
 def test_kuu_dense(dev, dtype, sizes):
-    g = torch.Generator().manual_seed(0)
     m = int(np.prod(sizes))
-    tops = torch.rand(2, m, generator=g, dtype=dtype).to(dev)
-    B = torch.randn(2, 3, 3, generator=g, dtype=dtype).to(dev)
+    kinds, prm, dists = _kuu_table(4, m, dtype, dev, 0)
+    g = torch.Generator().manual_seed(0)
+    B = torch.randn(4, 3, 3, generator=g, dtype=dtype).to(dev)
+    args = (kinds, prm, dists, B, sizes)
     sfx = "f32" if dtype == torch.float32 else "f64"
     before = dict(kuu.kuu_dense.launches)
-    _close(kuu.kuu_dense(tops, B, sizes), kuu.kuu_dense_plain(tops, B, sizes),
-           dtype)
+    out = kuu.kuu_dense(*args)
+    _close(out, kuu.kuu_dense_plain(*args), dtype)
     before[sfx] += 1
     assert kuu.kuu_dense.launches == before
+    assert torch.equal(out, kuu.kuu_dense(*args))
+
+
+def test_kuu_dense_tables_past_the_shared_memory_budget(dev):
+    """Four float64 rows of m=4096 exceed one launch's table budget: the
+    q's run as two launches, the second adding into the output."""
+    kinds, prm, dists = _kuu_table(4, 4096, torch.float64, dev, 1)
+    B = torch.randn(4, 1, 1, dtype=torch.float64, device=dev)
+    args = (kinds, prm, dists, B, (64, 64))
+    _close(kuu.kuu_dense(*args), kuu.kuu_dense_plain(*args), torch.float64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -126,18 +149,21 @@ def test_cg_passes(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sizes", [(37,), (6, 7), (3, 4, 5)])
 def test_kuu_dense_bwd(dev, dtype, sizes):
-    g = torch.Generator().manual_seed(4)
     m = int(np.prod(sizes))
-    tops = torch.rand(2, m, generator=g, dtype=dtype).to(dev)
-    B = torch.randn(2, 3, 3, generator=g, dtype=dtype).to(dev)
+    kinds, prm, dists = _kuu_table(4, m, dtype, dev, 4)
+    g = torch.Generator().manual_seed(4)
+    B = torch.randn(4, 3, 3, generator=g, dtype=dtype).to(dev)
     G = torch.randn(3 * m, 3 * m, generator=g, dtype=dtype).to(dev)
+    args = (kinds, prm, dists, B, sizes, G)
     sfx = "f32" if dtype == torch.float32 else "f64"
     before = dict(kuu.kuu_dense_bwd.launches)
-    got = kuu.kuu_dense_bwd(tops, B, sizes, G)
+    got = kuu.kuu_dense_bwd(*args)
     before[sfx] += 1
     assert kuu.kuu_dense_bwd.launches == before
-    for a, b in zip(got, kuu.kuu_dense_bwd_plain(tops, B, sizes, G)):
+    for a, b in zip(got, kuu.kuu_dense_bwd_plain(*args)):
         _close(a, b, dtype)
+    for a, b in zip(got, kuu.kuu_dense_bwd(*args)):
+        assert torch.equal(a, b)
 
 
 def test_training_chunk_matches_cpu(dev):
@@ -164,6 +190,39 @@ def test_training_chunk_matches_cpu(dev):
     for a, b in zip(out_g, out_c):
         np.testing.assert_allclose(a, b, rtol=1e-8,
                                    atol=1e-10 * max(np.abs(b).max(), 1.0))
+
+
+@pytest.mark.parametrize("objective", ["exact", "stochastic"])
+def test_checkpoint_resumes_on_the_card(dev, tmp_path, objective):
+    """A file saved by a CPU model restores onto the card (parameters on
+    the card, equal), and on the card 10 steps, a checkpoint and 10
+    resumed steps in a fresh model equal 20 uninterrupted steps bit for
+    bit, the fused K1 launching in the resumed run."""
+    rng = np.random.RandomState(2)
+    Xs = [np.sort(rng.uniform(0, 5, 40)) for _ in range(2)]
+    Ys = [np.sin(X) + 0.1 * rng.randn(40) for X in Xs]
+    spec = T.LMCKernelSpec.create(D=2, lmc_kernels=[T.RBF()], lmc_ranks=[1])
+    kw = dict(functional_kernel=spec, m=[20], objective=objective)
+    mc = T.InterpolatedLLGP(Xs, Ys, device="cpu", **kw)
+    mc.param_array = mc.param_array + 0.1
+    mc.save(str(tmp_path / "cpu.npz"))
+    mg = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    mg.restore(str(tmp_path / "cpu.npz"))
+    assert mg.params["noise"].device.type == "cuda"
+    np.testing.assert_array_equal(mg.param_array, mc.param_array)
+
+    full = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    info_full = full.optimize(T.AdaDelta(max_it=20))
+    half = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    info_half = half.optimize(T.AdaDelta(max_it=10))
+    half.save(str(tmp_path / "half.npz"), opt_state=info_half["state"])
+    res = T.InterpolatedLLGP(Xs, Ys, device=dev, **kw)
+    ckpt = res.restore(str(tmp_path / "half.npz"))
+    hopper.reset_launches()
+    info_res = res.optimize(T.AdaDelta(max_it=20), state=ckpt["opt_state"])
+    assert hopper.launch_counts()["kuu_dense/f32"] > 0
+    assert info_res["n_iter"] == info_full["n_iter"]
+    np.testing.assert_array_equal(res.param_array, full.param_array)
 
 
 def test_model_predict_launches_every_kernel(dev):

@@ -91,9 +91,9 @@ def test_kuu_dense_plain_matches_build_group_state(kind):
             gd.W_blocks,
         ).KUU_dense
         dists = torch.as_tensor(np.asarray(gd.dists))
-        tops = st.eval_kernels_stacked(pt, dists, gd.plan.kidxs)
+        kinds, prm = st.table_rows(pt, gd.plan.kidxs)
         B = st.coreg_mats(pt, gd.plan.kidxs)
-        got = kuu_dense_plain(tops, B, gd.plan.sizes)
+        got = kuu_dense_plain(kinds, prm, dists, B, gd.plan.sizes)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                    atol=RTOL * float(np.abs(want).max()))
 

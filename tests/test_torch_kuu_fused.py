@@ -1,0 +1,301 @@
+"""Kernel K1 with K8 fused in: the dense branch of ``build_group_state``
+evaluates k(r) on the grid from the group's rows of the kernel table.
+Its plain path (what the wrappers run for CPU tensors) against the JAX
+package's ``build_group_state`` in float64 — K_UU and the gradient of
+<G, K_UU> with respect to the raw parameters — for every kernel kind,
+Scaled (trainable and frozen), split active dims, and 1-D and 2-D grids;
+and numpy mirrors of the forward kernel's tile walk (csrc/kuu_dense.cu)
+and of the backward kernel's reduction over offsets (csrc/kuu_dense_bwd.cu,
+stage 2: the derivative formulas of common.cuh ``kern_grads``) against
+the plain versions."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import runlmc_tpu as R
+import runlmc_tpu_torch as T
+from runlmc_tpu.lmc import grid as jgrid
+from runlmc_tpu_torch.hopper import kuu
+from runlmc_tpu_torch.lmc import grid as tgrid
+from runlmc_tpu_torch.utils.carry import (
+    _leaves,
+    cast_params,
+    from_reference_params,
+)
+
+# the same products and sums, in another order: float64 rounding
+RTOL = 1e-12
+
+
+def _spec(pkg, case):
+    """Every kind (RBF, Matern32, StdPeriodic, Identity, Scaled with a
+    trainable and a frozen scale) over D=3 outputs: on one 1-D input
+    ('1d'), on two input dims together ('2d', one 2-D grid), or split
+    over the two dims ('split': a group per dim and one for both)."""
+    if case == "split":
+        dims = [(0,), (1,), None, (0,), (1,), (0, 1)]
+    else:
+        dims = [None] * 6
+    kern = [
+        pkg.RBF(name="r", active_dims=dims[0]),
+        pkg.Matern32(name="m", active_dims=dims[1]),
+        pkg.StdPeriodic(name="p", period=0.7, active_dims=dims[2]),
+        pkg.IdentityKern(active_dims=dims[3]),
+        pkg.Scaled(inner=pkg.RBF(name="s", active_dims=dims[4]), scale=1.5),
+        pkg.Scaled(inner=pkg.Matern32(name="f", active_dims=dims[5]),
+                   trainable_scale=False, scale=0.7),
+    ]
+    return pkg.LMCKernelSpec.create(
+        D=3, lmc_kernels=kern[:2], lmc_ranks=[1, 2], slfm_kernels=kern[2:3],
+        indep_gp=kern[3:], indep_gp_index=[0, 1, 2],
+    ).with_input_dim(1 if case == "1d" else 2)
+
+
+M = {"1d": [14], "2d": [5, 6], "split": [9, 7]}
+
+
+def _problem(case, seed=3):
+    rng = np.random.RandomState(seed)
+    P = 1 if case == "1d" else 2
+    Xs = [rng.uniform(0, 1, (n, P)) for n in (25, 20, 22)]
+    sj, st = _spec(R, case), _spec(T, case)
+    raw = jax.tree.map(
+        lambda a: np.asarray(a) + 0.2 * rng.standard_normal(np.shape(a)),
+        sj.init_raw_params(seed=seed),
+    )
+    gj, _ = jgrid.make_grids(sj, Xs, m=M[case], mode="dense")
+    gt, _ = tgrid.make_grids(st, Xs, m=M[case], mode="dense")
+    return sj, st, raw, gj, gt
+
+
+def _cotangents(grids, seed=7):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal((g.interp.ncols, g.interp.ncols))
+            for g in grids]
+
+
+@pytest.mark.parametrize("case", ["1d", "2d", "split"])
+def test_value_and_raw_gradient_match_jax(case):
+    sj, st, raw, gj, gt = _problem(case)
+    if case == "split":
+        assert len(gt) == 3
+        assert sorted(len(g.plan.sizes) for g in gt) == [1, 1, 2]
+    Gs = _cotangents(gj)
+
+    def kuus_j(p):
+        return [jgrid.build_group_state(
+            sj, p, g.plan, jnp.asarray(g.dists), None,
+            jnp.asarray(g.idx_map)).KUU_dense for g in gj]
+
+    def loss_j(p):
+        return sum(jnp.sum(jnp.asarray(G) * k)
+                   for G, k in zip(Gs, kuus_j(p)))
+
+    pj = jax.tree.map(jnp.asarray, raw)
+    want_k = kuus_j(pj)
+    want_g = jax.tree_util.tree_leaves(jax.grad(loss_j)(pj))
+
+    pt = from_reference_params(raw, torch.float64, "cpu")
+    leaves = [leaf.requires_grad_(True) for _, leaf in _leaves(pt)]
+    kt = [tgrid.build_group_state(st, pt, g.to(torch.float64, "cpu"))
+          .KUU_dense for g in gt]
+    for got, want in zip(kt, want_k):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                                   atol=RTOL * np.abs(want).max())
+    loss = sum(torch.sum(torch.as_tensor(G) * k) for G, k in zip(Gs, kt))
+    got_g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    assert len(got_g) == len(want_g)
+    for g, w in zip(got_g, want_g):
+        w = np.asarray(w)
+        g = np.zeros_like(w) if g is None else g.numpy()
+        np.testing.assert_allclose(g, w, rtol=RTOL,
+                                   atol=RTOL * max(np.abs(w).max(), 1.0))
+
+
+def test_dense_branch_does_not_evaluate_kernels_stacked(monkeypatch):
+    _, st, raw, _, gt = _problem("split")
+
+    def boom(*args, **kwargs):
+        raise AssertionError("the dense branch called eval_kernels_stacked")
+
+    monkeypatch.setattr(T.LMCKernelSpec, "eval_kernels_stacked", boom)
+    pt = from_reference_params(raw, torch.float64, "cpu")
+    for g in gt:
+        assert tgrid.build_group_state(
+            st, pt, g.to(torch.float64, "cpu")).KUU_dense is not None
+
+
+def test_float32_twin_gets_a_float32_table():
+    """The float32 preconditioner twin (``to_dense_f32``) builds K_UU from
+    a float32 table of the same parameters."""
+    _, st, raw, _, gt = _problem("2d")
+    placed = tuple(g.to(torch.float64, "cpu") for g in gt)
+    p64 = from_reference_params(raw, torch.float64, "cpu")
+    p32 = cast_params(p64, torch.float32)
+    kinds, prm = st.table_rows(p32, placed[0].plan.kidxs)
+    assert prm.dtype == torch.float32
+    k32 = tgrid.build_group_state(st, p32, tgrid.to_dense_f32(placed)[0])
+    k64 = tgrid.build_group_state(st, p64, placed[0])
+    assert k32.KUU_dense.dtype == torch.float32
+    want = k64.KUU_dense.numpy()
+    np.testing.assert_allclose(k32.KUU_dense.double().numpy(), want,
+                               rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+def _kern_grads_np(kind, r, gamma, period):
+    """numpy mirror of common.cuh ``kern_grads``: (k~, dk~/dgamma,
+    dk~/dperiod)."""
+    z = np.zeros_like(r)
+    if kind == 0:
+        k = np.exp(-0.5 * r * r * gamma)
+        return k, -0.5 * r * r * k, z
+    if kind == 1:
+        s = r * (np.sqrt(3.0) * gamma)
+        e = np.exp(-s)
+        return (1 + s) * e, -(np.sqrt(3.0) * r) * s * e, z
+    if kind == 2:
+        arg = (np.pi / period) * r
+        s = np.sin(arg)
+        k = np.exp(-0.5 * s * s * gamma)
+        return (k, -0.5 * s * s * k,
+                gamma * s * np.cos(arg) * (np.pi * r / (period * period)) * k)
+    return (r == 0).astype(float), z, z
+
+
+def _stage2_mirror(kinds, prm, dists, B, H, threads=256):
+    """d prm and d B as the backward's stage 2 forms them: per (q, d, e)
+    the sums S of H against k~, dk~/dgamma and dk~/dperiod (per-thread
+    strided partials over the offsets, then a halving tree), then per q
+    the sums over (d, e) in order."""
+    Q, D = B.shape[0], B.shape[1]
+    m = len(dists)
+
+    def reduce(vals):
+        part = np.zeros(threads)
+        for o in range(m):
+            part[o % threads] += vals[o]
+        s = threads // 2
+        while s:
+            part[:s] += part[s:2 * s]
+            s //= 2
+        return part[0]
+
+    dprm = np.zeros((Q, 3))
+    dB = np.zeros((Q, D, D))
+    for q, kind in enumerate(kinds):
+        g, p, sc = prm[q]
+        kg = _kern_grads_np(kind, dists, g, p)
+        acc = np.zeros(3)
+        for d in range(D):
+            for e in range(D):
+                S = [reduce(H[d, e] * f) for f in kg]
+                dB[q, d, e] = sc * S[0]
+                acc += B[q, d, e] * np.asarray(S)
+        dprm[q] = (sc * acc[1], sc * acc[2], acc[0])
+    return dprm, dB
+
+
+@pytest.mark.parametrize("sizes", [(300,), (7, 6)])
+def test_backward_reduction_mirror_matches_autograd(sizes):
+    """The backward kernel's stage 2 (derivatives at r = 0 included: the
+    first offset is 0) mirrored in numpy, from the offset sums H, gives
+    the plain backward's (d prm, d B) for a table of every kind."""
+    m = int(np.prod(sizes))
+    D = 2
+    rng = np.random.RandomState(5)
+    kinds = (0, 1, 2, 3, 0)
+    prm = rng.uniform(0.5, 1.5, (len(kinds), 3))
+    axes = [np.linspace(0.0, 0.2 * n, n) for n in sizes]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(m, -1)
+    dists = np.linalg.norm(grid - grid[0], axis=-1)
+    B = rng.standard_normal((len(kinds), D, D))
+    G = rng.standard_normal((D * m, D * m))
+    idx = np.asarray(tgrid.bttb.bttb_index_map(sizes))
+    H = np.zeros((D, D, m))
+    for d in range(D):
+        for e in range(D):
+            np.add.at(H[d, e], idx.reshape(-1),
+                      G[d * m:(d + 1) * m, e * m:(e + 1) * m].reshape(-1))
+    got = _stage2_mirror(kinds, prm, dists, B, H)
+    want = kuu.kuu_dense_bwd(kinds, torch.as_tensor(prm),
+                             torch.as_tensor(dists), torch.as_tensor(B),
+                             sizes, torch.as_tensor(G))
+    for g, w in zip(got, want):
+        w = w.numpy()
+        np.testing.assert_allclose(g, w, rtol=RTOL,
+                                   atol=RTOL * np.abs(w).max())
+
+
+def _forward_mirror(kinds, prm, dists, B, sizes, rows=8, per_launch=None):
+    """K_UU as kuu_dense_kernel forms it (all columns of a tile's rows at
+    once): the table's values per offset, tiles of ``rows`` rows, each
+    column's row
+    offsets stepped through the grid coordinates (wrapping past the last
+    row), one B read per q where the tile stays in one output block, the
+    q's in launches of ``per_launch``, later ones adding in."""
+    Q, D, m = len(kinds), B.shape[1], len(dists)
+    n0, n1, n2 = kuu._sizes3(sizes)
+    dm = D * m
+    s1, s0 = n2, n1 * n2
+    tops = np.stack([prm[q, 2] * _kern_grads_np(k, dists, prm[q, 0],
+                                                prm[q, 1])[0]
+                     for q, k in enumerate(kinds)])
+    out = np.zeros((dm, dm))
+    per_launch = per_launch or Q
+    cols = np.arange(dm)
+    e, j = cols // m, cols % m
+    j0, j1, j2 = j // s0, (j // s1) % n1, j % n2
+    for q0 in range(0, Q, per_launch):
+        for row0 in range(0, dm, rows):
+            d0 = row0 // m
+            i = row0 - d0 * m
+            i0, i1, i2 = i // s0, (i // s1) % n1, i % n2
+            offs = []
+            for _ in range(rows):
+                offs.append(abs(i0 - j0) * s0 + abs(i1 - j1) * s1
+                            + abs(i2 - j2))
+                i2 += 1
+                if i2 == n2:
+                    i2, i1 = 0, i1 + 1
+                    if i1 == n1:
+                        i1, i0 = 0, i0 + 1
+                        if i0 == n0:
+                            i0 = 0
+            d_last = min((row0 + rows - 1) // m, D - 1)
+            acc = np.zeros((rows, dm))
+            for q in range(q0, min(Q, q0 + per_launch)):
+                for r in range(rows):
+                    d = d0 if d_last == d0 else min((row0 + r) // m, D - 1)
+                    acc[r] += B[q, d, e] * tops[q, offs[r]]
+            for r in range(rows):
+                if row0 + r < dm:
+                    out[row0 + r] = acc[r] + (out[row0 + r] if q0 else 0.0)
+    return out
+
+
+@pytest.mark.parametrize("sizes,D", [((37,), 3), ((6, 7), 2), ((3, 4, 5), 2),
+                                     ((5,), 3)])
+def test_forward_tile_walk_mirror_matches_plain(sizes, D):
+    """The forward kernel's tile walk mirrored in numpy (tiles crossing
+    output blocks, grids shorter than a tile, two launches of q's) gives
+    the plain version's K_UU."""
+    m = int(np.prod(sizes))
+    rng = np.random.RandomState(8)
+    kinds = (0, 1, 2, 3)
+    prm = rng.uniform(0.5, 1.5, (4, 3))
+    axes = [np.linspace(0.0, 0.3 * n, n) for n in sizes]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(m, -1)
+    dists = np.linalg.norm(grid - grid[0], axis=-1)
+    B = rng.standard_normal((4, D, D))
+    want = kuu.kuu_dense_plain(kinds, torch.as_tensor(prm),
+                               torch.as_tensor(dists), torch.as_tensor(B),
+                               sizes).numpy()
+    for per_launch in (None, 3):
+        got = _forward_mirror(kinds, prm, dists, B, sizes,
+                              per_launch=per_launch)
+        np.testing.assert_allclose(got, want, rtol=RTOL,
+                                   atol=RTOL * np.abs(want).max())

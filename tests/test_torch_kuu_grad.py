@@ -1,6 +1,6 @@
-"""Kernel K1's backward: the plain version and the autograd function
-against JAX's autodiff of its dense ``build_group_state``, and a
-line-by-line numpy mirror of the CUDA kernel's walk over offsets (the
+"""Kernel K1's backward (K8 fused in): the plain version and the autograd
+function against JAX's autodiff of its dense ``build_group_state``, and
+a line-by-line numpy mirror of the CUDA kernel's walk over offsets (the
 kernel itself runs only on the card: tests/test_torch_cuda.py)."""
 
 import jax
@@ -14,6 +14,7 @@ import runlmc_tpu_torch as T
 from runlmc_tpu.lmc import grid as jgrid
 from runlmc_tpu.ops.bttb import bttb_index_map as j_index_map
 from runlmc_tpu_torch.hopper import kuu
+from runlmc_tpu_torch.kernels.stationary import eval_table
 from runlmc_tpu_torch.lmc import grid as tgrid
 from runlmc_tpu_torch.utils.carry import _leaves, from_reference_params
 from runlmc_tpu_torch.utils.np_utils import cartesian_product
@@ -102,28 +103,59 @@ def test_param_gradient_matches_jax_vjp(grid, Q, D):
                                    atol=RTOL * max(np.abs(w).max(), 1.0))
 
 
+def _table(Q, m, seed):
+    """Kind codes (RBF, Matern32, StdPeriodic)[:Q], positive table rows
+    [gamma, period, scale] and a (Q, m) sample of first-row distances
+    (0 first)."""
+    rng = np.random.RandomState(seed)
+    kinds = (0, 1, 2)[:Q]
+    prm = rng.uniform(0.5, 1.5, (Q, 3))
+    dists = np.concatenate([[0.0], np.sort(rng.uniform(0.05, 2.0, m - 1))])
+    return kinds, prm, dists
+
+
+def _tops_j(kinds, prm, dists):
+    """scale_q k~_q(dists) in jnp, the formulas of
+    runlmc_tpu/kernels/stationary.py on the constrained table rows."""
+    rows = []
+    for q, kind in enumerate(kinds):
+        g, p, s = prm[q, 0], prm[q, 1], prm[q, 2]
+        if kind == 0:
+            k = jnp.exp(-0.5 * jnp.square(dists) * g)
+        elif kind == 1:
+            sc = dists * (np.sqrt(3.0) * g)
+            k = (1.0 + sc) * jnp.exp(-sc)
+        else:
+            k = jnp.exp(-0.5 * jnp.square(jnp.sin((np.pi / p) * dists)) * g)
+        rows.append(s * k)
+    return jnp.stack(rows)
+
+
 @pytest.mark.parametrize("grid,Q,D", CASES)
 def test_plain_backward_matches_jax_vjp_of_gather_einsum(grid, Q, D):
-    """(d tops, d B) of kuu_dense_bwd's plain version vs jax.vjp of the
-    JAX package's dense branch (grid.py:538-540) on the same tops, B."""
+    """(d prm, d B) of kuu_dense_bwd's plain version vs jax.vjp of the
+    JAX package's dense branch (grid.py:535-540: k(r) on the first rows,
+    the gather and the einsum) on the same table rows and B."""
     sizes = GRIDS[grid]
     m = int(np.prod(sizes))
     rng = np.random.RandomState(Q + 5 * D)
-    tops = rng.uniform(0.1, 1.0, (Q, m))
+    kinds, prm, dists = _table(Q, m, Q + 5 * D)
     B = rng.standard_normal((Q, D, D))
     G = _asym(D * m, 3)
     idx = jnp.asarray(j_index_map(sizes))
 
-    def f(t, b):
+    def f(p, b):
+        t = _tops_j(kinds, p, jnp.asarray(dists))
         return jnp.einsum("qde,qij->diej", b, t[:, idx],
                           precision=jax.lax.Precision.HIGHEST
                           ).reshape(D * m, D * m)
 
-    _, vjp = jax.vjp(f, jnp.asarray(tops), jnp.asarray(B))
-    dt_j, db_j = vjp(jnp.asarray(G))
-    dt_t, db_t = kuu.kuu_dense_bwd(torch.as_tensor(tops), torch.as_tensor(B),
+    _, vjp = jax.vjp(f, jnp.asarray(prm), jnp.asarray(B))
+    dp_j, db_j = vjp(jnp.asarray(G))
+    dp_t, db_t = kuu.kuu_dense_bwd(kinds, torch.as_tensor(prm),
+                                   torch.as_tensor(dists), torch.as_tensor(B),
                                    sizes, torch.as_tensor(G))
-    for got, want in ((dt_t, dt_j), (db_t, db_j)):
+    for got, want in ((dp_t, dp_j), (db_t, db_j)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                    atol=RTOL * np.abs(want).max())
@@ -180,20 +212,23 @@ def test_kernel_walk_visits_every_pair_once(sizes):
     m = int(np.prod(sizes))
     G = _asym(D * m, 5)
     H = _kernel_mirror(G, D, m, sizes)
-    # H from the plain backward: d tops at B = e_(d,e) unit matrices
+    # H from np.add.at through the index map, and the plain backward's
+    # d B = sum_o tops[o] H[d, e, o] on one RBF row
     idx = j_index_map(sizes)
     want = np.zeros((D, D, m))
     for d in range(D):
         for e in range(D):
             np.add.at(want[d, e], idx.reshape(-1),
                       G[d * m:(d + 1) * m, e * m:(e + 1) * m].reshape(-1))
-            B = np.zeros((1, D, D))
-            B[0, d, e] = 1.0
-            dt, _ = kuu.kuu_dense_bwd(torch.zeros(1, m, dtype=torch.float64),
-                                      torch.as_tensor(B), sizes,
-                                      torch.as_tensor(G))
-            np.testing.assert_allclose(dt.numpy()[0], want[d, e],
-                                       rtol=RTOL, atol=RTOL)
+    kinds, prm, dists = _table(1, m, 2)
+    _, dB = kuu.kuu_dense_bwd(kinds, torch.as_tensor(prm),
+                              torch.as_tensor(dists),
+                              torch.ones(1, D, D, dtype=torch.float64),
+                              sizes, torch.as_tensor(G))
+    tops = eval_table(kinds, torch.as_tensor(prm),
+                      torch.as_tensor(dists)).numpy()[0]
+    np.testing.assert_allclose(dB.numpy()[0], want @ tops, rtol=RTOL,
+                               atol=RTOL * np.abs(want @ tops).max())
     np.testing.assert_allclose(H, want, rtol=RTOL,
                                atol=RTOL * np.abs(want).max())
 
@@ -201,24 +236,26 @@ def test_kernel_walk_visits_every_pair_once(sizes):
 @pytest.mark.parametrize("sizes", [(5,), (3, 2), (2, 2, 2)])
 def test_kuu_dense_function_gradcheck(sizes):
     m = int(np.prod(sizes))
+    kinds, prm, dists = _table(3, m, 0)
     g = torch.Generator().manual_seed(0)
-    tops = torch.rand(2, m, generator=g, dtype=torch.float64,
-                      requires_grad=True)
-    B = torch.randn(2, 2, 2, generator=g, dtype=torch.float64,
+    prm = torch.as_tensor(prm).requires_grad_(True)
+    B = torch.randn(3, 2, 2, generator=g, dtype=torch.float64,
                     requires_grad=True)
+    dists = torch.as_tensor(dists)
     assert torch.autograd.gradcheck(
-        lambda t, b: kuu.KUUDense.apply(t, b, sizes), (tops, B))
+        lambda p, b: kuu.KUUDense.apply(kinds, p, dists, b, sizes), (prm, B))
 
 
 def test_function_forward_is_kuu_dense_and_skips_unneeded_grads():
     sizes = (4, 3)
+    kinds, prm, dists = _table(1, 12, 1)
+    prm, dists = torch.as_tensor(prm), torch.as_tensor(dists)
     g = torch.Generator().manual_seed(1)
-    tops = torch.rand(1, 12, generator=g, dtype=torch.float64)
     B = torch.randn(1, 2, 2, generator=g, dtype=torch.float64,
                     requires_grad=True)
-    out = kuu.KUUDense.apply(tops, B, sizes)
-    torch.testing.assert_close(out.detach(),
-                               kuu.kuu_dense_plain(tops, B.detach(), sizes),
-                               rtol=0, atol=0)
+    out = kuu.KUUDense.apply(kinds, prm, dists, B, sizes)
+    torch.testing.assert_close(
+        out.detach(), kuu.kuu_dense_plain(kinds, prm, dists, B.detach(),
+                                          sizes), rtol=0, atol=0)
     out.sum().backward()
-    assert tops.grad is None and B.grad is not None
+    assert prm.grad is None and B.grad is not None
