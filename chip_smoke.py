@@ -56,7 +56,13 @@ Phases:
    preconditioner, kinv_diag's V = W F and the synth step) against
    their plain versions, with the dense products (``torch.bmm`` +
    ``matmul``), ``index_add_`` and ``embedding_bag`` as library
-   yardsticks;
+   yardsticks; K3 (the jittered Cholesky's prologue, epilogue and their
+   backward, around cuSOLVER's Cholesky) on each model's own K_UU and C
+   at the fx2007 (float32, float64), weather-twin (float32) and synth
+   (float32, float64) shapes, both equilibration modes, the forward bit
+   for bit against its plain version, every relaunch bit-identical, and
+   its flag on an indefinite matrix (the ladder landing where the CPU's
+   does);
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -86,9 +92,10 @@ Phases:
    inside ``record_function`` ranges around the Woodbury solve with C,
    the jittered Cholesky, the capacitance matrix and the W applies,
    and one more with its elementwise layer split by source
-   (:func:`elementwise_sources`); then ``predict`` on the held-out
-   points must certify its residual within tolerance (SMSE and NLPD
-   printed, on synthetic data);
+   (:func:`elementwise_sources`), and one more with K3's factorizations,
+   attempts and host reads per step (:func:`ladder_log`); then
+   ``predict`` on the held-out points must certify its residual within
+   tolerance (SMSE and NLPD printed, on synthetic data);
 8. card vs CPU: from the same parameters, the first gradient and one
    chunk of float32 exact training (``CPU_CHUNK_STEPS`` steps) agree
    within ``TRAIN_RTOL``, and one chunk at ``exact_precision='model'``
@@ -110,8 +117,8 @@ Phases:
    ``optimize(AdaDelta())`` to its stopping rule, counters read: every
    kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
    and parameters finite, the objective still stochastic and the worst
-   solve residual within ``_gradient_adopt_bound``; two chunks profiled,
-   as in phase 7;
+   solve residual within ``_gradient_adopt_bound``; chunks profiled and
+   K3's attempts and host reads counted, as in phase 7;
 10. ``predict`` the two held-out windows: every certified residual
    within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
    (SMSE and NLPD printed, on synthetic data);
@@ -143,10 +150,13 @@ Phases:
    kernel of ``hopper.SYNTH_PATH``), ms per step, one chunk profiled by
    layer and range, idle share and peak memory; ``predict`` of the
    held-out quadrant with every certified residual within 1e-3 (SMSE and
-   NLPD printed, on synthetic data); card vs CPU on bench.py's reduced
-   copy (every 30th point, m=[8, 8]): the first gradient and a
-   ``CPU_CHUNK_STEPS`` chunk within ``TRAIN_RTOL`` (float32) and
-   ``MODEL_RTOL`` (``exact_precision='model'``);
+   NLPD printed, on synthetic data); the float32 chunks from the start
+   to the first residual breach, with the jitter-ladder rung each K_UU
+   and C factorization landed on beside the chunk's worst residual;
+   card vs CPU on bench.py's reduced copy (every 30th point, m=[8, 8]):
+   the first gradient and a ``CPU_CHUNK_STEPS`` chunk within
+   ``TRAIN_RTOL`` (float32; every factorization on the same rung on both
+   sides) and ``MODEL_RTOL`` (``exact_precision='model'``);
 16. checkpoint and resume: fx2007 at full width (exact objective,
    float32 factors) and the weather model (stochastic, m=2500), each
    trained 20 steps from a saved start, then restored to it, trained 10
@@ -406,8 +416,9 @@ def device_profile(fn, reps=1, ranges=False):
 
 
 # device kernels by the layer of the kernel table they belong to; the
-# library-routed layer (K3) is told apart by its cuBLAS and cuSOLVER
-# kernel names. Every triangular solve of the port is the hand K5; the
+# library-routed part of K3 (the factorization and its VJP) is told apart
+# by its cuBLAS and cuSOLVER kernel names, the hand part around it by
+# its own. Every triangular solve of the port is the hand K5; the
 # cuBLAS trsm kernels left are K3's: torch's Cholesky backward (autograd
 # of cholesky_ex) solves with the factor through them. K2 and K4 are hand
 # kernels: the GEMMs left are the products with the factors F
@@ -432,6 +443,13 @@ LAYERS = (
     ("K9 and K4 W applies (hand, interp.cu)",
      lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
+    ("K3 backward (hand, chol_jitter.cu)",
+     lambda k: any(p in k for p in ("k3_tile_bwd_kernel<", "k3_reduce_kernel<",
+                                    "k3_trace_kernel<",
+                                    "k3_add_diag_kernel<"))),
+    ("K3 equilibrate, jitter, de-scale (hand, chol_jitter.cu)",
+     lambda k: any(p in k for p in ("k3_scale_kernel<", "k3_prologue_kernel<",
+                                    "k3_descale_kernel<"))),
     ("K3's trsm (cuBLAS, Cholesky VJP)",
      lambda k: "trsm" in k or "trsv" in k),
     ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
@@ -458,7 +476,7 @@ SOURCES = (
     ("lk", "exact_ski_mll", "exact SKI MLL (the rest)"),
     ("lk", "stochastic_mll_surrogate", "stochastic surrogate (the rest)"),
     ("wbm", "build_device_woodbury", "Woodbury factorization (the rest)"),
-    ("wbm", "chol_jittered", "jittered Cholesky (equilibrate, jitter)"),
+    ("wbm", "chol_jittered", "jittered Cholesky (torch ops)"),
     ("spec", "coreg_mats", "B_q = A_q^T A_q + diag(kappa_q)"),
     ("spec", "noise", "noise transform"),
     ("spec", "table_rows", "kernel-table rows (K1's input)"),
@@ -765,6 +783,54 @@ def library_capacitance(wbm):
         wbm.capacitance_matrix = orig
 
 
+@contextlib.contextmanager
+def ladder_log(wbm):
+    """Inside: each ``chol_jittered`` call appends ``{"kind", "dtype",
+    "rung", "scale", "reads"}`` to the yielded list: ``kind`` "C" for the
+    capacitance ladder (its first scale is 0), else "K_UU"; ``rung`` the
+    first scale whose flag was read as set (the last when none was);
+    ``reads`` the host reads of its flags."""
+    real, real_acc = wbm.chol_jittered, wbm._accepted
+    log, reads = [], []
+
+    def accepted(flag):
+        ok = real_acc(flag)
+        reads.append(ok)
+        return ok
+
+    def jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
+        start = len(reads)
+        L = real(A, scales=scales, equilibrate=equilibrate)
+        mine = reads[start:]
+        rung = mine.index(True) if True in mine else len(scales) - 1
+        log.append({"kind": "C" if scales[0] == 0.0 else "K_UU",
+                    "dtype": str(A.dtype).replace("torch.", ""),
+                    "rung": rung, "scale": scales[rung],
+                    "reads": len(mine)})
+        return L
+
+    wbm.chol_jittered, wbm._accepted = jittered, accepted
+    try:
+        yield log
+    finally:
+        wbm.chol_jittered, wbm._accepted = real, real_acc
+
+
+def ladder_summary(log, steps):
+    """Factorizations, attempts and host reads per step of a
+    :func:`ladder_log` list, and how many landed on each rung by kind."""
+    rungs = {}
+    for e in log:
+        key = "%s %s" % (e["kind"], e["dtype"])
+        rungs.setdefault(key, {})
+        rungs[key][e["scale"]] = rungs[key].get(e["scale"], 0) + 1
+    return {"factorizations_per_step": len(log) / steps,
+            "attempts_per_step": sum(e["rung"] + 1 for e in log) / steps,
+            "host_reads_per_step": sum(e["reads"] for e in log) / steps,
+            "landed": {k: {str(c): n for c, n in sorted(v.items())}
+                       for k, v in rungs.items()}}
+
+
 def synth_spec(T, D):
     """The synth configuration's kernel (bench.py:114-130): SLFM rank 2
     plus an RBF per output."""
@@ -797,6 +863,7 @@ def main():
         build,
         capacitance as cap,
         cg,
+        chol_jitter,
         cross,
         interp,
         kuu,
@@ -1776,6 +1843,228 @@ def main():
                           "forward_rel_err": e_f, "backward_rel_err": e_b})
         del C, Ts, Cp, Tp, Cbar, got, want, Fs_
 
+    # K3: the jittered Cholesky's prologue (equilibrate and jitter; the
+    # first attempt, with the pre-pass that computes the kept scale),
+    # epilogue (de-scale and the attempt's flag) and their backward at the
+    # call sites of chol_jittered: each model's own K_UU and C, captured
+    # while its Woodbury factorization is built (fx2007 and synth in
+    # float32, as training factors, and float64, as at model precision;
+    # the weather twin's float32 preconditioner), at the scale where the
+    # ladder lands. The backward on seeded cotangents in the storage
+    # orders the path gives them (O-bar row-major, M-bar column-major as
+    # torch's Cholesky VJP leaves it). Every launch is repeated and must
+    # be bit-identical; the forward must also equal its plain version bit
+    # for bit. The timed rows are C's (both sites share the shape); the
+    # unequilibrated mode (the flip rung) is held, untimed, at fx2007 and
+    # synth. No PyTorch call computes any of the four functions: no
+    # library column.
+    k3_checks = []
+
+    def k3_sites(build_fn):
+        """[(kind, A, scales, equilibrate)] of the chol_jittered calls of
+        one Woodbury build."""
+        seen, real = [], wbm.chol_jittered
+
+        def spy(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
+            seen.append(("C" if scales[0] == 0.0 else "K_UU", A.detach(),
+                         tuple(scales), wbm.EQUILIBRATE_DEFAULT
+                         if equilibrate is None else equilibrate))
+            return real(A, scales=scales, equilibrate=equilibrate)
+
+        wbm.chol_jittered = spy
+        try:
+            build_fn()
+        finally:
+            wbm.chol_jittered = real
+        return seen
+
+    def k3_check(what, kind, A, scales, equil, paths=None, reps=20):
+        dtype, n = A.dtype, A.shape[0]
+        dts = str(dtype).replace("torch.", "")
+        tol = 1e-14 if dtype == torch.float64 else 1e-6
+        sd = None
+        for scale in scales:  # the rung the ladder lands on
+            M, s, sd = chol_jitter.chol_prologue(A, scale, equil, sd)
+            L, info = torch.linalg.cholesky_ex(M)
+            O, flag = chol_jitter.chol_descale(L, info.clone(),
+                                               s if equil else None)
+            if int(flag) == 0:
+                break
+        rung = scales.index(scale)
+        sd1 = chol_jitter.chol_prologue(A, scale, equil)[2]
+        sd_p = chol_jitter.chol_scale_plain(A, equil)
+        Mp, sp = chol_jitter.chol_prologue_plain(A, scale, equil, sd_p)
+        Op, flag_p = chol_jitter.chol_descale_plain(L, info, sp)
+        gk = torch.Generator(device=dev).manual_seed(SEED + n)
+        Ob = torch.randn(n, n, generator=gk, dtype=dtype, device=dev)
+        Mb = torch.randn(n, n, generator=gk, dtype=dtype, device=dev).mT
+        bwd_d = bwd_dp = None
+        if equil:
+            bwd_d = chol_jitter.chol_descale_bwd(L, s, Ob)
+            bwd_dp = chol_jitter.chol_descale_bwd_plain(L, s, Ob)
+        sb = bwd_d[1] if equil else None
+        Ab = chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, scale, equil)
+        Ab_p = chol_jitter.chol_prologue_bwd_plain(A, sd, Mb, sb, scale,
+                                                   equil)
+        same = (torch.equal(M, chol_jitter.chol_prologue(A, scale, equil,
+                                                         sd)[0])
+                and torch.equal(sd1, sd)
+                and torch.equal(Ab, chol_jitter.chol_prologue_bwd(
+                    A, sd, Mb, sb, scale, equil))
+                and (not equil or all(torch.equal(a, b) for a, b in zip(
+                    bwd_d, chol_jitter.chol_descale_bwd(L, s, Ob)))))
+        chk = {"site": what, "factor": kind, "dtype": dts, "n": n,
+               "equilibrate": equil, "rung": rung, "scale": scale,
+               "flag": int(flag), "plain_flag": int(flag_p),
+               "prologue_equal_to_plain": bool(torch.equal(M, Mp)
+                                               and torch.equal(sd, sd_p)),
+               "descale_equal_to_plain": bool(torch.equal(O, Op)),
+               "prologue_rel_err": errors((M, sd), (Mp, sd_p))[1],
+               "descale_rel_err": errors(O, Op)[1],
+               "prologue_bwd_rel_err": errors(Ab, Ab_p)[1],
+               "descale_bwd_rel_err": (errors(bwd_d, bwd_dp)[1] if equil
+                                       else None),
+               "bit_identical": bool(same)}
+        k3_checks.append(chk)
+        print("K3 %s %s %s (n=%d, equilibrate %s): lands on rung %d (scale "
+              "%g), flag %d (plain %d); prologue rel err %.3e (equal %s), "
+              "descale %.3e (equal %s), backward prologue %.3e, descale %s "
+              "(tol %.0e); relaunch bit-identical %s"
+              % (what, kind, dts, n, equil, rung, scale, chk["flag"],
+                 chk["plain_flag"], chk["prologue_rel_err"],
+                 chk["prologue_equal_to_plain"], chk["descale_rel_err"],
+                 chk["descale_equal_to_plain"], chk["prologue_bwd_rel_err"],
+                 "-" if not equil else "%.3e" % chk["descale_bwd_rel_err"],
+                 tol, same), flush=True)
+        require(same, "K3 %s %s relaunch is not bit-identical" % (what, dts))
+        require(chk["flag"] == chk["plain_flag"] == 0,
+                "K3 %s %s: the ladder landed on a failed factor" % (what,
+                                                                   dts))
+        for key in ("prologue_rel_err", "descale_rel_err",
+                    "prologue_bwd_rel_err", "descale_bwd_rel_err"):
+            require(chk[key] is None or chk[key] <= tol, "K3 %s %s %s: %s "
+                    "above %g" % (what, kind, dts, key, tol))
+        if paths is None:
+            return
+        e = A.element_size()
+        tri = n * (n + 1) // 2
+        site = {"site": "%s %s, n=%d" % (what, kind, n)}
+        src = "runlmc_tpu_torch/hopper/csrc/chol_jitter.cu"
+        record("chol_prologue", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:91", (M, sd), (Mp, sd_p), tol,
+               lambda: chol_jitter.chol_prologue(A, scale, equil),
+               lambda: chol_jitter.chol_prologue_plain(
+                   A, scale, equil, chol_jitter.chol_scale_plain(A, equil)),
+               e * (2 * n * n + 3 * n), 3.0 * n * n, path=paths[0],
+               plain_reps=reps, extra=site)
+        info0 = info.clone()
+        record("chol_descale", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:123", O, Op, tol,
+               lambda: chol_jitter.chol_descale(L, info0, s),
+               lambda: chol_jitter.chol_descale_plain(L, info, sp),
+               e * (tri + n * n + n) + 4, 2.0 * tri, path=paths[0],
+               plain_reps=reps, extra=site)
+        record("chol_descale_bwd", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:123", bwd_d, bwd_dp, tol,
+               lambda: chol_jitter.chol_descale_bwd(L, s, Ob),
+               lambda: chol_jitter.chol_descale_bwd_plain(L, s, Ob),
+               e * (tri + 2 * n * n + 2 * n), 3.0 * tri + n * n,
+               path=paths[1], plain_reps=reps, extra=site)
+        record("chol_prologue_bwd", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:91", Ab, Ab_p, tol,
+               lambda: chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, scale,
+                                                     equil),
+               lambda: chol_jitter.chol_prologue_bwd_plain(
+                   A, sd, Mb, sb, scale, equil),
+               e * (3 * n * n + 3 * n), 7.0 * n * n, path=paths[1],
+               plain_reps=reps, extra=site)
+
+    k3_memory = {}
+
+    def k3_peak(what, A, scales, equil):
+        """The device memory one chol_jittered call holds beyond what
+        was allocated before it, in (n, n) matrices of A's dtype: the
+        prologue's M, cholesky_ex's factor and the de-scaled copy, plus
+        cuSOLVER's workspace."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ladder_log(wbm) as lad, torch.no_grad():
+            L_ = wbm.chol_jittered(A, scales=scales, equilibrate=equil)
+        torch.cuda.synchronize()
+        mats = ((torch.cuda.max_memory_allocated() - base)
+                / (A.numel() * A.element_size()))
+        k3_memory[what] = {"matrices": mats, "rung": lad[0]["rung"],
+                           "equilibrate": equil}
+        print("K3 %s: one chol_jittered call (rung %d, equilibrate %s) "
+              "peaks at %.4f (n, n) matrices beyond its input"
+              % (what, lad[0]["rung"], equil, mats), flush=True)
+        del L_
+        require(mats <= 3.1, "chol_jittered holds more than the "
+                "prologue's, cholesky_ex's and the epilogue's matrices")
+
+    for what, mdl, dtype, build_fn, paths, reps in (
+            ("fx2007", model, torch.float32, model._woodbury32,
+             ("train", "train"), 20),
+            ("fx2007", model, torch.float64, model._woodbury,
+             ("train (model precision)", "train (model precision)"), 20),
+            ("weather twin", wm, torch.float32, wm._woodbury32,
+             ("train (stochastic, fft)", OFF_PATH), 3),
+            ("synth", sm, torch.float32, sm._woodbury32, ("synth", "synth"),
+             10),
+            ("synth", sm, torch.float64, sm._woodbury, ("synth", "synth"),
+             10)):
+        mdl._cache.pop("woodbury32", None)
+        mdl._cache.pop("woodbury", None)
+        sites = k3_sites(build_fn)
+        mdl._cache.pop("woodbury32", None)
+        mdl._cache.pop("woodbury", None)
+        require([k for k, *_ in sites] == ["K_UU", "C"] and all(
+            A.dtype == dtype for _, A, _, _ in sites),
+            "the %s %s factorization is not one K_UU and one C" % (what,
+                                                                   dtype))
+        for kind, A, scales, equil in sites:
+            k3_check(what, kind, A, scales, equil,
+                     paths if kind == "C" else None, reps)
+            if what != "weather twin":
+                k3_check(what, kind, A, scales, not equil)
+            else:
+                k3_peak("%s %s %s" % (what, kind, dtype), A, scales, equil)
+        del sites
+    # the flag on an indefinite input: a graded D A D (n=1024) whose
+    # lowest eigenvalue is -5e-5 fails the first rung of the K_UU ladder;
+    # the first attempt's flag must be set and the ladder land where the
+    # CPU's does, each attempt but the last read once
+    rng_i = np.random.RandomState(SEED + 3)
+    U_i, _ = np.linalg.qr(rng_i.standard_normal((1024, 1024)))
+    d_i = np.exp(rng_i.uniform(-1, 1, 1024))
+    A_ind = d_i[:, None] * ((U_i * np.concatenate(
+        [[-5e-5], np.linspace(1.0, 2.0, 1023)])) @ U_i.T) * d_i[None, :]
+    k3_flag = {}
+    for dtype in (torch.float32, torch.float64):
+        for equil in (True, False):
+            At = torch.as_tensor(A_ind, dtype=dtype)
+            M1 = chol_jitter.chol_prologue(At.to(dev), 1e-6, equil)[0]
+            first = int(chol_jitter.chol_descale(
+                *torch.linalg.cholesky_ex(M1), None)[1])
+            lands = {}
+            for where in ("card", "cpu"):
+                with ladder_log(wbm) as lad:
+                    wbm.chol_jittered(At.to(dev if where == "card"
+                                            else "cpu"), equilibrate=equil)
+                lands[where] = (lad[0]["rung"], lad[0]["reads"])
+            key = "%s equilibrate=%s" % (str(dtype).replace("torch.", ""),
+                                         equil)
+            k3_flag[key] = {"first_flag": first, "card": lands["card"],
+                            "cpu": lands["cpu"]}
+            print("K3 flag on an indefinite matrix (n=1024, %s): first "
+                  "attempt's flag %d; (rung, host reads) card %s, CPU %s"
+                  % (key, first, lands["card"], lands["cpu"]), flush=True)
+            require(first != 0 and lands["card"] == lands["cpu"]
+                    and lands["card"][0] > 0, "K3's flag or ladder on an "
+                    "indefinite matrix (%s)" % key)
+    del A_ind, U_i
+
     # K9 at K4's shapes: the W applies of the weather step (16 columns:
     # y and 15 probes, float32 inner cycles and the float64 operator),
     # of the fx2007 predict preconditioner (151 columns) and of synth
@@ -2054,6 +2343,11 @@ def main():
     print("training step elementwise layer by source (per step):",
           flush=True)
     print_layers(chunk_sources)
+    with ladder_log(wbm) as lad:
+        tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW))
+    train_ladder = ladder_summary(lad, tm.chunk_len)
+    print("training step jittered Cholesky (K3): %s" % json.dumps(
+        train_ladder), flush=True)
     # least times of the library-routed layers per call, from this cell's
     # shapes (one group, float32): K2 the capacitance assembly, K3 the
     # two Cholesky factorizations (K_UU and C), K4 one W or W^T apply of
@@ -2405,6 +2699,11 @@ def main():
     print("stochastic step elementwise layer by source (per step):",
           flush=True)
     print_layers(wchunk_sources)
+    with ladder_log(wbm) as lad:
+        wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED)
+    stoch_ladder = ladder_summary(lad, wm.chunk_len)
+    print("stochastic step jittered Cholesky (K3): %s" % json.dumps(
+        stoch_ladder), flush=True)
     # the same training (same start, same probe stream) with the float32
     # preconditioner's C by the dense cuBLAS products instead of K2: the
     # PCG iterations follow C's rounding. The wall per step is the host's
@@ -2803,36 +3102,63 @@ def main():
     # residual breaches the threshold (optimize escalates at the end of
     # that chunk); then the float32 factorization residual of both at the
     # parameters K2's run reached at its first breaching step
+    # (with K2: where each float32 factorization of a chunk lands on its
+    # jitter ladder, K_UU and C apart, beside the chunk's worst residual)
     def f32_until_breach(max_chunks=5):
         sm.exact_precision = "f32"
         sz = np.zeros_like(s_init)
-        st_, errs, xs_ = (s_init, sz, sz, sz), [], []
+        st_, errs, xs_, rungs = (s_init, sz, sz, sz), [], [], []
         for _ in range(max_chunks):
-            out = sm._chunk(*st_, T.AdaDelta())
+            with ladder_log(wbm) as lad:
+                out = sm._chunk(*st_, T.AdaDelta())
             errs.extend(float(e) for e in out[6])
             xs_.extend(out[0])
+            rungs.append({"worst_residual": float(max(out[6])),
+                          **ladder_summary(lad, len(out[6]))})
             if max(out[6]) > EXACT_RESIDUAL_THRESHOLD:
                 break
             st_ = tuple(o[-1] for o in out[:4])
         first = next((i for i, e in enumerate(errs)
                       if e > EXACT_RESIDUAL_THRESHOLD), None)
-        return errs, first, xs_
+        return errs, first, xs_, rungs
 
     def f32_residual(x):
         return sm._probe_residual(unravel_params(torch.as_tensor(
             x, dtype=sm.dtype, device=dev), sm.params), sm._equilibrate)
 
     sab = {}
-    errs_k2, first_k2, xs_k2 = f32_until_breach()
+    errs_k2, first_k2, xs_k2, rungs_k2 = f32_until_breach()
     with library_capacitance(wbm):
-        errs_lib, first_lib, _ = f32_until_breach()
+        errs_lib, first_lib, _, _ = f32_until_breach()
     x_at = xs_k2[len(xs_k2) - 1 if first_k2 is None else first_k2]
     sab["k2"] = {"residuals": errs_k2, "first_breach_step": first_k2,
-                 "residual_at_k2_breach": f32_residual(x_at)}
+                 "residual_at_k2_breach": f32_residual(x_at),
+                 "chunk_ladders": rungs_k2}
+    for i, r in enumerate(rungs_k2):
+        print("synth float32 chunk %d: worst factorization residual %.4g; "
+              "K3 rungs landed (scale: count) %s" % (
+                  i, r["worst_residual"], json.dumps(r["landed"])),
+              flush=True)
     with library_capacitance(wbm):
         sab["library"] = {"residuals": errs_lib,
                           "first_breach_step": first_lib,
                           "residual_at_k2_breach": f32_residual(x_at)}
+    # is the ladder the cause? the float32 factorization residual at the
+    # parameters of K2's first breach with C factored at each scale of its
+    # ladder in turn (the reference's ladder takes the first that factors)
+    real_bdw = lk.build_device_woodbury
+    sab["k2"]["residual_at_k2_breach_by_c_scale"] = {}
+    for c in (0.0, 1e-6, 1e-3, 1e-1):
+        lk.build_device_woodbury = (
+            lambda *a, c=c, **kw: real_bdw(*a, **{**kw, "c_jitter": (c,)}))
+        try:
+            sab["k2"]["residual_at_k2_breach_by_c_scale"][str(c)] = \
+                f32_residual(x_at)
+        finally:
+            lk.build_device_woodbury = real_bdw
+    print("synth float32 residual at K2's first breach with C factored at "
+          "each scale of its ladder: %s" % json.dumps(
+              sab["k2"]["residual_at_k2_breach_by_c_scale"]), flush=True)
     for what, ab in sab.items():
         print("synth float32 training, C by %-7s: factorization residual "
               "per step %s; first step above %g: %s; float32 residual at "
@@ -2878,10 +3204,26 @@ def main():
     sg_cpu = rc._exact_grad(torch.as_tensor(rx0))[0]
     sgrad_err32 = rel(sg_card.numpy(), sg_cpu.numpy())
     sopt = T.AdaDelta()
-    s32_err = rel(rg._chunk(rx0, rz, rz, rz, sopt,
-                            n_steps=CPU_CHUNK_STEPS)[0][-1],
-                  rc._chunk(rx0, rz, rz, rz, sopt,
-                            n_steps=CPU_CHUNK_STEPS)[0][-1])
+    rladder = {}
+    for where, mdl in (("card", rg), ("cpu", rc)):
+        with ladder_log(wbm) as lad:
+            rladder[where] = mdl._chunk(rx0, rz, rz, rz, sopt,
+                                        n_steps=CPU_CHUNK_STEPS)
+        rladder[where + " rungs"] = [(e["kind"], e["rung"]) for e in lad]
+        rladder[where + " landed"] = ladder_summary(lad, CPU_CHUNK_STEPS)[
+            "landed"]
+    s32_err = rel(rladder["card"][0][-1], rladder["cpu"][0][-1])
+    print("reduced synth copy, float32 chunk: K3 rungs landed on the card "
+          "%s, on the CPU %s; worst residual card %.4g, CPU %.4g"
+          % (json.dumps(rladder["card landed"]),
+             json.dumps(rladder["cpu landed"]),
+             max(rladder["card"][6]), max(rladder["cpu"][6])), flush=True)
+    require(rladder["card rungs"] == rladder["cpu rungs"],
+            "the reduced synth copy's factorizations land on other rungs "
+            "of their ladders on the card than on the CPU")
+    sab["reduced_copy_ladder"] = {k: rladder[k] for k in (
+        "card landed", "cpu landed")}
+    del rladder
     rg.exact_precision = rc.exact_precision = "model"
     s64_err = rel(rg._chunk(rx0, rz, rz, rz, sopt,
                             n_steps=CPU_CHUNK_STEPS)[0][-1],
@@ -3206,7 +3548,10 @@ def main():
         "train_elementwise_sources": chunk_sources,
         "stochastic_split": wchunk_split,
         "stochastic_elementwise_sources": wchunk_sources, "loo_zsq": loo,
-        "k1_checks": k1_checks, "checkpoint": ckpt_res,
+        "k1_checks": k1_checks, "k3_checks": k3_checks,
+        "k3_flag_indefinite": k3_flag, "k3_memory": k3_memory,
+        "train_ladder": train_ladder,
+        "stochastic_ladder": stoch_ladder, "checkpoint": ckpt_res,
         "phase_s": phase_s,
     }
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -17,7 +17,9 @@ The capacitance C is K2, the hand kernel of ``hopper/capacitance.py``
 K9's gather or scatter through the group's interpolant
 (``hopper/interp.py``, differentiable); the products with F stay
 ``torch.matmul`` and the factorizations ``torch.linalg.cholesky_ex``
-(cuBLAS / cuSOLVER on the card), as the JAX package leaves them to XLA;
+(cuBLAS / cuSOLVER on the card), as the JAX package leaves them to XLA,
+with K3's equilibrate, jitter and de-scale around each
+(``hopper/chol_jitter.py``, with their backward);
 the triangular solves with C's factor are K5 (``hopper/trsm.py``:
 ``cho_solve`` with its own backward, ``trsm_lower``). Everything here is
 differentiable by torch autograd, which the exact training objective
@@ -31,6 +33,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from runlmc_tpu_torch.hopper.capacitance import capacitance_matrix
+from runlmc_tpu_torch.hopper.chol_jitter import (
+    CholDescale,
+    CholPrologue,
+    chol_descale,
+)
 from runlmc_tpu_torch.hopper.trsm import cho_solve, trsm_lower
 from runlmc_tpu_torch.lmc.grid import gram_nest
 from runlmc_tpu_torch.ops.solvers import batched_cg
@@ -50,36 +57,49 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
     the unit diagonal. Otherwise the jitter is relative to
     |mean(diag(A))|. ``None`` means ``EQUILIBRATE_DEFAULT``.
 
-    Scale selection: the first scale whose factorization succeeds —
-    ``cholesky_ex`` reports ``info == 0`` and the factor is finite — and
-    otherwise the last scale. (The JAX package keeps the first scale
-    whose factor is finite; XLA's Cholesky returns NaNs where LAPACK and
-    cuSOLVER report ``info > 0``.) Reading ``info`` costs one host sync
-    per tried scale.
+    Each attempt is K3 around cuSOLVER (``hopper/chol_jitter.py``): the
+    prologue (equilibrate and jitter; the scale S or the mean is computed
+    on the first attempt and kept), ``torch.linalg.cholesky_ex``, and the
+    epilogue (de-scale, and one device flag: ``info == 0`` and every
+    entry of the factor finite). Scale selection: the first scale whose
+    flag is set, and otherwise the last scale. (The JAX package keeps the
+    first scale whose factor is finite; XLA's Cholesky returns NaNs where
+    LAPACK and cuSOLVER report ``info > 0``.) Reading the flag costs one
+    host read per attempt but the last (:func:`_accepted`).
 
     Differentiable: the returned factor is the one Cholesky at the
     chosen scale; failed attempts are dropped, so none of them sends a
     cotangent (the JAX package's rule, woodbury.py:78-87). The scale
-    ``s`` and the jitter's reference ``d`` stay in the graph, as there."""
+    ``s`` and the jitter's reference ``d`` stay in the graph, as there:
+    the backward of the prologue and the epilogue are K3's own kernels,
+    the Cholesky's torch's."""
     if equilibrate is None:
         equilibrate = EQUILIBRATE_DEFAULT
-    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    if equilibrate:
-        d0 = torch.diagonal(A)
-        s = torch.rsqrt(torch.clamp(torch.abs(d0), min=1e-30))
-        A = A * s[:, None] * s[None, :]
-        d = torch.ones((), dtype=A.dtype, device=A.device)
-    else:
-        s = None
-        d = torch.abs(torch.mean(torch.diagonal(A)))
+    A = A.contiguous()
+    kept = {}
     for i, scale in enumerate(scales):
-        L, info = torch.linalg.cholesky_ex(A + (scale * d) * eye)
         last = i == len(scales) - 1
-        if last or (int(info) == 0 and bool(torch.isfinite(L).all())):
+        if equilibrate:
+            M, s = CholPrologue.apply(A, scale, True, kept)
+            L, info = torch.linalg.cholesky_ex(M)
+            L, flag = CholDescale.apply(L, s, info)
+        else:
+            M = CholPrologue.apply(A, scale, False, kept)
+            L, info = torch.linalg.cholesky_ex(M)
+            if last:
+                break
+            flag = chol_descale(L, info, None)[1]
+        if last or _accepted(flag):
             break
-    if equilibrate:
-        L = L / s[:, None]
+        # free the failed attempt's (Dm, Dm) buffers before the next one
+        del M, L, info, flag
     return L
+
+
+def _accepted(flag):
+    """The one host read of an attempt: its epilogue's flag is 0 when
+    the factorization succeeded."""
+    return int(flag) == 0
 
 
 class DeviceWoodbury(NamedTuple):

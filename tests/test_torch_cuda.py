@@ -14,6 +14,7 @@ from runlmc_tpu_torch import hopper
 from runlmc_tpu_torch.hopper import (
     capacitance,
     cg,
+    chol_jitter,
     cross,
     fourier,
     interp,
@@ -22,6 +23,7 @@ from runlmc_tpu_torch.hopper import (
     minres,
     trsm,
 )
+from runlmc_tpu_torch.lmc import woodbury as wbm
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
 
@@ -637,3 +639,93 @@ def test_interp_apply_autograd(dev, dtype):
         out = Wd.rmatvec(Wd.matvec(v) ** 2)
         grads.append(torch.autograd.grad(out.sum(), v)[0].cpu())
     _close(grads[0], grads[1], dtype)
+
+
+def _k3_matrix(n, dtype, dev, eig0=0.5, seed=11):
+    """Graded D A D with A's lowest eigenvalue ``eig0``, the rest in
+    [1, 2]."""
+    rng = np.random.RandomState(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    eig = np.concatenate([[eig0], np.linspace(1.0, 2.0, n - 1)])
+    d = np.exp(rng.uniform(-1, 1, n))
+    return torch.as_tensor(d[:, None] * ((U * eig) @ U.T) * d[None, :],
+                           dtype=dtype).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("equilibrate", [True, False])
+@pytest.mark.parametrize("n", [45, 300])
+def test_chol_jitter_kernels(dev, dtype, equilibrate, n):
+    """K3a, K3b and their backward against their plain versions on a
+    non-symmetric A and cotangents in both storage orders; one launch
+    counted per call; relaunches bit-identical."""
+    A = _k3_matrix(n, dtype, dev)
+    A[3, 7] += 0.01
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = dict(chol_jitter.chol_prologue.launches)
+    M, s, sd = chol_jitter.chol_prologue(A, 1e-3, equilibrate)
+    before[sfx] += 1
+    assert chol_jitter.chol_prologue.launches == before
+    sd_p = chol_jitter.chol_scale_plain(A, equilibrate)
+    Mp, sp = chol_jitter.chol_prologue_plain(A, 1e-3, equilibrate, sd_p)
+    _close(sd, sd_p, dtype)
+    _close(M, Mp, dtype)
+    assert M.mT.is_contiguous()
+    assert torch.equal(M, chol_jitter.chol_prologue(A, 1e-3, equilibrate,
+                                                    sd)[0])
+    L, info = torch.linalg.cholesky_ex(M)
+    O, flag = chol_jitter.chol_descale(L, info.clone(), s)
+    Op, flag_p = chol_jitter.chol_descale_plain(L, info, sp)
+    _close(O, Op, dtype)
+    assert int(flag) == int(flag_p) == 0
+    g = torch.Generator().manual_seed(n)
+    for col in (False, True):
+        Ob = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+        Mb = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+        if col:
+            Ob, Mb = Ob.mT.contiguous().mT, Mb.mT.contiguous().mT
+        sb = None
+        if equilibrate:
+            got = chol_jitter.chol_descale_bwd(L, s, Ob)
+            want = chol_jitter.chol_descale_bwd_plain(L, s, Ob)
+            for a, b in zip(got, want):
+                _close(a, b, dtype)
+            assert all(torch.equal(a, b) for a, b in zip(
+                got, chol_jitter.chol_descale_bwd(L, s, Ob)))
+            sb = got[1]
+        Ab = chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, 1e-3, equilibrate)
+        _close(Ab, chol_jitter.chol_prologue_bwd_plain(
+            A, sd, Mb, sb, 1e-3, equilibrate), dtype)
+        assert torch.equal(Ab, chol_jitter.chol_prologue_bwd(
+            A, sd, Mb, sb, 1e-3, equilibrate))
+
+
+@pytest.mark.parametrize("equilibrate", [True, False])
+def test_chol_jittered_flag_on_an_indefinite_matrix(dev, equilibrate,
+                                                    monkeypatch):
+    """The first rung's flag is set on an indefinite matrix, and the
+    ladder lands on the same rung as on the CPU with one host read per
+    attempt; the factor and its float64 gradient equal the CPU's."""
+    A = _k3_matrix(60, torch.float64, dev, eig0=-5e-5)
+    M, _, _ = chol_jitter.chol_prologue(A, 1e-6, equilibrate)
+    L, info = torch.linalg.cholesky_ex(M)
+    assert int(chol_jitter.chol_descale(L, info, None)[1]) != 0
+    w = torch.randn(60, 60, dtype=torch.float64)
+    out = {}
+    real = wbm._accepted
+    for where in ("cpu", "cuda"):
+        seen = []
+        monkeypatch.setattr(wbm, "_accepted",
+                            lambda f: seen.append(real(f)) or seen[-1])
+        X = A.to(where).requires_grad_(True)
+        F = wbm.chol_jittered(X, equilibrate=equilibrate)
+        (gX,) = torch.autograd.grad(torch.sum(torch.tril(w.to(where)) * F),
+                                    X)
+        out[where] = (seen, F.detach().cpu(), gX.cpu())
+    assert out["cuda"][0] == out["cpu"][0] == [False, True]
+    # cuSOLVER against LAPACK at a condition of about 4e4 (times the
+    # grading): the factor to about eps cond, the gradient (two more
+    # solves with it) to about eps cond^2
+    for (a, b), tol in zip(zip(out["cuda"][1:], out["cpu"][1:]),
+                           (1e-8, 1e-5)):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
