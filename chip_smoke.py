@@ -62,7 +62,15 @@ Phases:
    (float32, float64) shapes, both equilibration modes, the forward bit
    for bit against its plain version, every relaunch bit-identical, and
    its flag on an indefinite matrix (the ladder landing where the CPU's
-   does);
+   does); K3's VJP (``hopper/chol_vjp.py``: Phi(L^T L-bar) symmetrized,
+   and the final symmetrization) on the factor where each C's ladder
+   lands at the fx2007 (float32), synth (float32, float64) and
+   weather-twin (float32, on no path) shapes, in both storage orders and
+   bit-identical across relaunches, its two solves timed on cuBLAS (the
+   port's) and on K5, and the whole VJP against torch's Cholesky
+   backward (the library yardstick); K8 on the weather fft group's first
+   rows (Q=6, m=2504 embedded in 8192, float64 and float32) and its
+   float64 backward;
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -126,7 +134,11 @@ Phases:
    ``hopper.SLQ_PATH`` launched), ``log_likelihood(exact=True)`` and
    ``exact_log_likelihood_and_grad()`` (K7 and its backward at
    n=15768; counters reset and read around it), with wall and device
-   time;
+   time; the oracle's closed-form gradient (``likelihood.ExactMLL``)
+   against the autograd route it replaced (:func:`exact_mll_autograd`)
+   within ``ORACLE_GRAD_RTOL``, both timed by layer with their peak
+   memory, and the rank-1 term in K7's backward loads against
+   ``torch.addr`` before it;
 11. the certified solve's plain float64 MINRES rung on its own (16
    right-hand sides): ``hopper.MINRES_PATH`` must have launched; then
    one rung-1 rescue step (plain MINRES in ``_chunk``) must be finite;
@@ -142,7 +154,9 @@ Phases:
    beside those of a CPU-only witness), and the card's own estimate within
    ``SLQ_ORACLE_RTOL`` of the dense log-det; the float32 report path
    (``hopper.F32_REPORT_PATH``: a float32 copy's SLQ log-det and a
-   float32 ``ExactLMC``'s exact gradient);
+   float32 ``ExactLMC``'s exact gradient, its closed form within
+   ``ORACLE_F32_FACTOR`` times the autograd route's error from the
+   float64 gradient);
 15. synth at full width (bench.py:114-130 on the synthetic twin
    ``datasets.synth_synthetic``: D=5, P=2, n=47,480, m=[25, 25] ->
    Dm=4205, exact objective, tolerance 1e-3): counters reset,
@@ -191,7 +205,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM figures (NVIDIA data sheet): HBM rate and the peak
 # rates outside the tensor cores; a float64 matrix product (K2, its
-# backward, K5's solves) may run on the tensor cores (DMMA) at 67 TFLOP/s,
+# backward, K5's solves, K3's VJP) may run on the tensor cores (DMMA) at
+# 67 TFLOP/s,
 # while float32 products keep 67 (TF32 stays off)
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -270,6 +285,28 @@ SYNTH_SMALL_M = [8, 8]
 # the backward sums Dm products of a seeded cotangent of both signs:
 # 1e-4; float64 1e-12 both
 K2_TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
+# K3's VJP against its plain version, relative to the largest magnitude:
+# the triangular product sums up to n products in another order than
+# cuBLAS (1e-13 in float64, 1e-5 in float32), and the symmetrization is
+# one addition per entry. The whole VJP against torch's Cholesky
+# backward: in float64 the same formula rounded apart in the product and
+# the symmetrization, then amplified by the solves with the factor
+# (VJP_F64_TOL); in float32 both are held against the float64 VJP of the
+# same factor, the hand one within VJP_F32_FACTOR times torch's own
+# error (the card read 1.00-1.09 times at fx2007, synth and the weather
+# twin's C: the factor's own rounding dominates both)
+VJP_TOL = {"float32": 1e-5, "float64": 1e-13}
+VJP_F64_TOL = 1e-8
+VJP_F32_FACTOR = 1.25
+# the exact oracle's closed-form gradient against the autograd route it
+# replaces (torch's Cholesky backward), float64 at n=15768, relative;
+# in float32 (phase 13b, fx2007's ExactLMC) both against the float64
+# closed form, the closed form within ORACLE_F32_FACTOR times the
+# autograd route's error (the same float32 K enters both, and its
+# rounding times K's condition dominates: 0.70-1.25 times on the CPU at
+# a condition of 1e5, tests/test_torch_chol_vjp.py)
+ORACLE_GRAD_RTOL = 1e-8
+ORACLE_F32_FACTOR = 1.5
 # operations of one k(r) on the grid (K8, inside K1): a square or a sine
 # and an exponential, about 20 floating-point operations
 K8_OPS = 20.0
@@ -333,11 +370,16 @@ def _self_device_us(evt):
 
 # torch.profiler ranges of a split profile, around the Woodbury solve
 # with C (K5's call site), the jittered Cholesky (K3's), the capacitance
-# matrix (K2's) and the W applies (K4's, through K9)
+# matrix (K2's), the W applies (K4's, through K9), the products with the
+# factors F (DeviceWoodbury._vt / _v, cuBLAS GEMMs) and, in the backward,
+# the Cholesky VJP (chol_vjp.cholesky_backward: its two kernels and the
+# two triangular solves between them)
 RANGES = ("range: DeviceWoodbury._cho_solve_C",
           "range: woodbury.chol_jittered",
           "range: woodbury.capacitance_matrix",
-          "range: Interp.matvec / rmatvec")
+          "range: Interp.matvec / rmatvec",
+          "range: DeviceWoodbury._vt / _v",
+          "range: chol_vjp.cholesky_backward (backward)")
 
 
 def device_profile(fn, reps=1, ranges=False):
@@ -345,20 +387,26 @@ def device_profile(fn, reps=1, ranges=False):
     per call) of ``fn`` under torch.profiler, counting device-side
     events only; device ms is None when the profiler records none. With
     ``ranges``, ``DeviceWoodbury._cho_solve_C``,
-    ``woodbury.chol_jittered``, ``woodbury.capacitance_matrix`` and the
-    interpolant's ``matvec`` / ``rmatvec`` run inside ``record_function``
-    ranges (``RANGES``; the forward only: a backward's kernels fall
-    outside them), and a fourth item gives the device ms per call of the
-    kernels launched inside each range, by layer."""
+    ``woodbury.chol_jittered``, ``woodbury.capacitance_matrix``, the
+    interpolant's ``matvec`` / ``rmatvec``, ``DeviceWoodbury._vt`` /
+    ``_v`` and ``chol_vjp.cholesky_backward`` run inside
+    ``record_function`` ranges (``RANGES``; the forward ones see only
+    their forward kernels: a backward's kernels fall outside them, but
+    the Cholesky VJP's range is the backward call itself), and a fourth
+    item gives the device ms per call of the kernels launched inside each
+    range, by layer."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from runlmc_tpu_torch.hopper import chol_vjp as cv
     from runlmc_tpu_torch.lmc import woodbury as wbm
     from runlmc_tpu_torch.ops.interpolation import Interp
 
     saved = (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered,
-             wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec)
+             wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec,
+             wbm.DeviceWoodbury._vt, wbm.DeviceWoodbury._v,
+             cv.cholesky_backward)
 
     def ranged(name, f):
         def inner(*args, **kwargs):
@@ -368,7 +416,9 @@ def device_profile(fn, reps=1, ranges=False):
 
     def restore():
         (wbm.DeviceWoodbury._cho_solve_C, wbm.chol_jittered,
-         wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec) = saved
+         wbm.capacitance_matrix, Interp.matvec, Interp.rmatvec,
+         wbm.DeviceWoodbury._vt, wbm.DeviceWoodbury._v,
+         cv.cholesky_backward) = saved
 
     if ranges:
         wbm.DeviceWoodbury._cho_solve_C = ranged(RANGES[0], saved[0])
@@ -376,6 +426,9 @@ def device_profile(fn, reps=1, ranges=False):
         wbm.capacitance_matrix = ranged(RANGES[2], saved[2])
         Interp.matvec = ranged(RANGES[3], saved[3])
         Interp.rmatvec = ranged(RANGES[3], saved[4])
+        wbm.DeviceWoodbury._vt = ranged(RANGES[4], saved[5])
+        wbm.DeviceWoodbury._v = ranged(RANGES[4], saved[6])
+        cv.cholesky_backward = ranged(RANGES[5], saved[7])
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -416,13 +469,13 @@ def device_profile(fn, reps=1, ranges=False):
 
 
 # device kernels by the layer of the kernel table they belong to; the
-# library-routed part of K3 (the factorization and its VJP) is told apart
-# by its cuBLAS and cuSOLVER kernel names, the hand part around it by
-# its own. Every triangular solve of the port is the hand K5; the
-# cuBLAS trsm kernels left are K3's: torch's Cholesky backward (autograd
-# of cholesky_ex) solves with the factor through them. K2 and K4 are hand
-# kernels: the GEMMs left are the products with the factors F
-# (woodbury.py's _vt/_v), the Cholesky VJP's and cuSOLVER's own.
+# library-routed part of K3 (the factorization) is told apart by its
+# cuSOLVER kernel names, the hand part around it by its own. Every
+# triangular solve of the port is the hand K5 but the Cholesky VJP's two,
+# which run on cuBLAS's trsm (hopper/chol_vjp.py SOLVES; the oracle's
+# potri runs some of cuBLAS's too). K2 and K4 are hand kernels: the GEMMs
+# left are the products with the factors F (woodbury.py's _vt/_v),
+# cuBLAS's trsm's and cuSOLVER's own updates.
 LAYERS = (
     ("K2 backward (hand, capacitance.cu)",
      lambda k: "cap_bwd_kernel" in k or "eps_reduce_kernel" in k),
@@ -435,6 +488,8 @@ LAYERS = (
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
     ("K10", lambda k: "fourier_fwd_kernel" in k),
     ("K12", lambda k: k == "minres_kernel"),
+    ("K8 fft first rows (hand, kern_rows_fft.cu)",
+     lambda k: "::rows_fft_kernel<" in k or "::rows_fft_bwd_kernel<" in k),
     ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
     ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k
      or "kuu_table_bwd_kernel" in k),
@@ -450,10 +505,14 @@ LAYERS = (
     ("K3 equilibrate, jitter, de-scale (hand, chol_jitter.cu)",
      lambda k: any(p in k for p in ("k3_scale_kernel<", "k3_prologue_kernel<",
                                     "k3_descale_kernel<"))),
-    ("K3's trsm (cuBLAS, Cholesky VJP)",
+    ("K3 VJP (hand, chol_vjp.cu)",
+     lambda k: "::tri_kernel<" in k or "::sym_kernel<" in k),
+    ("trsm (cuBLAS: the Cholesky VJP's solves)",
      lambda k: "trsm" in k or "trsv" in k),
     ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
                                                    "syrk"))),
+    ("potri (cuSOLVER: the exact oracle's K^-1)",
+     lambda k: any(p in k for p in ("potri", "trtri", "lauum"))),
     ("GEMM and GEMV (F products, Cholesky VJP)",
      lambda k: "gemm" in k or "gemv" in k),
 )
@@ -479,8 +538,7 @@ SOURCES = (
     ("wbm", "chol_jittered", "jittered Cholesky (torch ops)"),
     ("spec", "coreg_mats", "B_q = A_q^T A_q + diag(kappa_q)"),
     ("spec", "noise", "noise transform"),
-    ("spec", "table_rows", "kernel-table rows (K1's input)"),
-    ("spec", "eval_kernels_stacked", "k(r) on the grid by torch ops (K8)"),
+    ("spec", "table_rows", "kernel-table rows (K1's and K8's input)"),
 )
 
 
@@ -831,6 +889,35 @@ def ladder_summary(log, steps):
                        for k, v in rungs.items()}}
 
 
+def vjp_solves_k5(L, S):
+    """The Cholesky VJP's two solves X = L^-T S L^-1 (S symmetric) on K5,
+    the yardstick of the port's cuBLAS route (chol_vjp.solves): rows of
+    S L^-1, then rows of (S L^-1)^T L^-1, one transposed copy between."""
+    from runlmc_tpu_torch.hopper.trsm import trsm_lower
+
+    W = trsm_lower(L, S, trans=True)
+    return trsm_lower(L, W.mT.contiguous(), trans=True)
+
+
+def exact_mll_autograd(spec, raw_params, X, oidx, y):
+    """The exact MLL as the port computed it before its closed-form
+    gradient (likelihood.ExactMLL): autograd through torch's Cholesky
+    backward (cuBLAS GEMM and trsm) and K7's backward. Kept here only as
+    the yardstick the closed form is held against and timed beside."""
+    import math
+
+    import torch
+
+    from runlmc_tpu_torch.hopper.trsm import cho_solve
+    from runlmc_tpu_torch.lmc import likelihood as lk
+
+    L = lk._chol_or_nan(lk.exact_dense_K(spec, raw_params, X, oidx))
+    alpha = cho_solve(L, y[None])[0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return -0.5 * (torch.dot(y, alpha) + logdet
+                   + y.shape[0] * math.log(2 * math.pi))
+
+
 def synth_spec(T, D):
     """The synth configuration's kernel (bench.py:114-130): SLFM rank 2
     plus an RBF per output."""
@@ -864,8 +951,10 @@ def main():
         capacitance as cap,
         cg,
         chol_jitter,
+        chol_vjp as cv,
         cross,
         interp,
+        kern_rows_fft as k8f,
         kuu,
         lanczos,
         trsm,
@@ -1256,6 +1345,73 @@ def main():
            nbytes(Gc, vf, got), 8.0 * nrhs * Dw * Dw * Fw,
            library_fn=library_bwd)
     del vf, Gc, got, want, Gp, vp
+
+    # K8 on the fft group's first rows at the weather shape (Q=6 kernels,
+    # m=2504 grid points embedded in 8192): the float64 operator's and
+    # the float32 inner twin's embedding (each stochastic step builds
+    # both) and the float64 backward (the surrogate's gradient) on a
+    # seeded cotangent, against their plain versions (k(r) by torch ops,
+    # the flips and concats; autograd through them), each relaunched
+    # bit-identical. No PyTorch call evaluates a kernel table into a
+    # circulant embedding: no library column.
+    wgd = wm.grid_data[0]
+    wkidx, wsizes = wgd.plan.kidxs, wgd.plan.sizes
+    k8_checks = []
+    for dtype, dists_ in ((torch.float64, wgd.dists),
+                          (torch.float32, wm.inner_data32[0].dists)):
+        kinds_, prm_ = wm.spec.table_rows(cast_params(wm.params, dtype),
+                                          wkidx)
+        prm_ = prm_.detach()
+        E_ = k8f.kern_rows_fft(kinds_, prm_, dists_, wsizes)
+        Ep = k8f.kern_rows_fft_plain(kinds_, prm_, dists_, wsizes)
+        same = torch.equal(E_, k8f.kern_rows_fft(kinds_, prm_, dists_,
+                                                 wsizes))
+        tol = 1e-12 if dtype == torch.float64 else 1e-6
+        Q_, m_ = len(kinds_), dists_.numel()
+        esz = E_.element_size()
+        chk = {"dtype": str(dtype).replace("torch.", ""), "Q": Q_, "m": m_,
+               "shape": list(E_.shape), "rel_err": errors(E_, Ep)[1],
+               "bit_identical": bool(same)}
+        require(same, "kern_rows_fft relaunch is not bit-identical")
+        record("kern_rows_fft", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/kern_rows_fft.cu",
+               "runlmc_tpu/lmc/grid.py:535", E_, Ep, tol,
+               lambda k=kinds_, p_=prm_, d_=dists_:
+               k8f.kern_rows_fft(k, p_, d_, wsizes),
+               lambda k=kinds_, p_=prm_, d_=dists_:
+               k8f.kern_rows_fft_plain(k, p_, d_, wsizes),
+               esz * (E_.numel() + m_ + 3 * Q_), K8_OPS * Q_ * m_,
+               path="train (stochastic, fft)",
+               extra={"site": "weather fft group, Q=%d, m=%d" % (Q_, m_)})
+        if dtype == torch.float64:
+            gk = torch.Generator(device=dev).manual_seed(SEED + 8)
+            Gk = torch.randn(E_.shape, generator=gk, dtype=dtype,
+                             device=dev)
+            got = k8f.kern_rows_fft_bwd(kinds_, prm_, dists_, wsizes, Gk)
+            want = k8f.kern_rows_fft_bwd_plain(kinds_, prm_, dists_, wsizes,
+                                               Gk)
+            same_b = torch.equal(got, k8f.kern_rows_fft_bwd(
+                kinds_, prm_, dists_, wsizes, Gk))
+            chk["bwd_rel_err"] = errors(got, want)[1]
+            chk["bwd_bit_identical"] = bool(same_b)
+            require(same_b, "kern_rows_fft_bwd relaunch is not "
+                    "bit-identical")
+            images = 2 ** len(wsizes)
+            record("kern_rows_fft_bwd", dtype, "cuda",
+                   "runlmc_tpu_torch/hopper/csrc/kern_rows_fft.cu",
+                   "runlmc_tpu/lmc/grid.py:535", got, want, tol,
+                   lambda: k8f.kern_rows_fft_bwd(kinds_, prm_, dists_,
+                                                 wsizes, Gk),
+                   lambda: k8f.kern_rows_fft_bwd_plain(kinds_, prm_, dists_,
+                                                       wsizes, Gk),
+                   esz * (Gk.numel() + m_ + 6 * Q_),
+                   (images + K8_OPS + 6.0) * Q_ * m_,
+                   path="train (stochastic, fft)",
+                   extra={"site": "weather fft group, Q=%d, m=%d"
+                          % (Q_, m_)})
+            del Gk, got, want
+        k8_checks.append(chk)
+        del E_, Ep
 
     # K12: one MINRES iteration's update of a (16, n) float64 state, as
     # on the plain-MINRES rung of the weather model's certified solve
@@ -1979,6 +2135,130 @@ def main():
                e * (3 * n * n + 3 * n), 7.0 * n * n, path=paths[1],
                plain_reps=reps, extra=site)
 
+    # K3's VJP (the Cholesky factorization's backward) at the same sites:
+    # the factor each ladder lands on (column-major, as cuSOLVER leaves
+    # it) and a seeded row-major L-bar. The kernel (Phi(L^T L-bar),
+    # symmetrized) against its plain version (torch ops), in both
+    # storage orders of L and L-bar, bit-identical across relaunches and
+    # storage orders; the final symmetrization against its plain version;
+    # the two solves between them timed on cuBLAS (chol_vjp.solves, the
+    # port's) and on K5 (vjp_solves_k5); the whole VJP against torch's own
+    # Cholesky backward (autograd of torch.linalg.cholesky, timed as the
+    # library call: the backward alone, on a graph built once).
+    vjp_checks = []
+
+    def vjp_check(what, kind, A, scales, equil, path, reps):
+        dtype = A.dtype
+        dts = str(dtype).replace("torch.", "")
+        sd = None
+        for scale in scales:  # the rung the ladder lands on
+            M, s_, sd = chol_jitter.chol_prologue(A, scale, equil, sd)
+            L, info = torch.linalg.cholesky_ex(M)
+            if int(chol_jitter.chol_descale(L, info.clone(), None)[1]) == 0:
+                break
+        n = L.shape[0]
+        gk = torch.Generator(device=dev).manual_seed(SEED + 7 * n)
+        Lb = torch.randn(n, n, generator=gk, dtype=dtype, device=dev)
+        S = cv.chol_vjp(L, Lb)
+        Sp = cv.chol_vjp_plain(L, Lb)
+        same = all(torch.equal(S, cv.chol_vjp(a, b)) for a in
+                   (L, k5_other_storage(L)) for b in
+                   (Lb, k5_other_storage(Lb)))
+        routes = {"k5": vjp_solves_k5, "cublas": cv.solves}
+        X = {r: f(L, S) for r, f in routes.items()}
+        route_err = errors(X["k5"], X["cublas"])[1]
+        Xs = cv.chol_vjp_sym(X["cublas"].clone())
+        Xs_p = cv.chol_vjp_sym_plain(X["cublas"])
+        sym_same = (torch.equal(Xs, Xs.mT) and torch.equal(
+            Xs, cv.chol_vjp_sym(X["cublas"].clone())))
+        # the whole VJP against torch's Cholesky backward on the same
+        # matrix (torch.linalg.cholesky refactors M: the same factor)
+        a = M.detach().clone().requires_grad_(True)
+        Lt = torch.linalg.cholesky(a)
+        require(torch.equal(Lt, L), "torch.linalg.cholesky and cholesky_ex "
+                "factor apart at %s" % what)
+
+        def torch_bwd(Lt=Lt, a=a, Lb=Lb):
+            return torch.autograd.grad(Lt, a, Lb, retain_graph=True)[0]
+
+        whole = cv.cholesky_backward(L, Lb)
+        ref = torch_bwd()
+        ref = 0.5 * (ref + ref.mT)
+        # float32: both against the float64 VJP of the same factor
+        if dtype == torch.float32:
+            a64 = M.detach().double().requires_grad_(True)
+            ref64 = torch.autograd.grad(torch.linalg.cholesky(a64), a64,
+                                        Lb.double())[0]
+            ref64 = 0.5 * (ref64 + ref64.mT)
+            whole_err = errors(whole, ref64)[1]
+            torch_err = errors(ref, ref64)[1]
+            ok_whole = whole_err <= VJP_F32_FACTOR * torch_err
+            del a64, ref64
+        else:
+            whole_err = errors(whole, ref)[1]
+            torch_err = None
+            ok_whole = whole_err <= VJP_F64_TOL
+        solve_ms = {r: cuda_time(lambda f=f: f(L, S), reps=reps, warm=1)
+                    for r, f in routes.items()}
+        solve_dev = {r: device_profile(lambda f=f: f(L, S), reps=3)[0]
+                     for r, f in routes.items()}
+        whole_ms = cuda_time(lambda: cv.cholesky_backward(L, Lb), reps=reps,
+                             warm=1)
+        whole_dev = device_profile(lambda: cv.cholesky_backward(L, Lb),
+                                   reps=3)[0]
+        torch_dev = device_profile(torch_bwd, reps=3)[0]
+        chk = {"site": what, "factor": kind, "dtype": dts, "n": n,
+               "rel_err": errors(S, Sp)[1], "bit_identical": bool(same),
+               "sym_rel_err": errors(Xs, Xs_p)[1],
+               "sym_exact_and_identical": bool(sym_same),
+               "solve_routes_rel_err": route_err,
+               "solves_ms": solve_ms, "solves_device_ms": solve_dev,
+               "whole_ms": whole_ms, "whole_device_ms": whole_dev,
+               "torch_backward_device_ms": torch_dev,
+               "whole_vs_reference_rel_err": whole_err,
+               "torch_vs_reference_rel_err": torch_err}
+        vjp_checks.append(chk)
+        tol = VJP_TOL[dts]
+        print("K3 VJP %s %s %s (n=%d): kernel rel err %.3e (tol %.0e), "
+              "relaunch and storage orders bit-identical %s; sym rel err "
+              "%.3e, exact and bit-identical %s; solves K5 %.4f ms (device "
+              "%s), cuBLAS %.4f ms (device %s), routes differ by %.3e; whole "
+              "VJP %.4f ms (device %s) against torch's backward device %s: "
+              "rel err %.3e%s"
+              % (what, kind, dts, n, chk["rel_err"], tol, same,
+                 chk["sym_rel_err"], sym_same, solve_ms["k5"],
+                 _ms(solve_dev["k5"]), solve_ms["cublas"],
+                 _ms(solve_dev["cublas"]), route_err, whole_ms,
+                 _ms(whole_dev), _ms(torch_dev), whole_err,
+                 "" if torch_err is None else
+                 " from the float64 VJP (torch's float32: %.3e)" % torch_err),
+              flush=True)
+        require(same and sym_same, "K3 VJP %s %s: a relaunch or a storage "
+                "order is not bit-identical, or the result not symmetric"
+                % (what, dts))
+        require(chk["rel_err"] <= tol and chk["sym_rel_err"] <= tol,
+                "K3 VJP %s %s disagrees with its plain version" % (what,
+                                                                  dts))
+        require(ok_whole, "K3 VJP %s %s: the whole VJP disagrees with "
+                "torch's Cholesky backward" % (what, dts))
+        e = A.element_size()
+        site = {"site": "%s %s, n=%d" % (what, kind, n)}
+        src = "runlmc_tpu_torch/hopper/csrc/chol_vjp.cu"
+        record("chol_vjp", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:121", S, Sp, tol,
+               lambda: cv.chol_vjp(L, Lb), lambda: cv.chol_vjp_plain(L, Lb),
+               3 * n * n * e, n ** 3 / 3.0, library_fn=torch_bwd, path=path,
+               product=True, plain_reps=reps,
+               extra=dict(site, whole_vjp_ms=whole_ms,
+                                           whole_vjp_device_ms=whole_dev,
+                                           solves_ms=solve_ms))
+        Xc = X["cublas"]
+        record("chol_vjp_sym", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:121", Xs, Xs_p, tol,
+               lambda: cv.chol_vjp_sym(Xc), lambda: cv.chol_vjp_sym_plain(Xc),
+               2 * n * n * e, 2.0 * n * n, path=path, plain_reps=reps,
+               extra=site)
+
     k3_memory = {}
 
     def k3_peak(what, A, scales, equil):
@@ -2026,6 +2306,8 @@ def main():
         for kind, A, scales, equil in sites:
             k3_check(what, kind, A, scales, equil,
                      paths if kind == "C" else None, reps)
+            if kind == "C" and (what, dtype) != ("fx2007", torch.float64):
+                vjp_check(what, kind, A, scales, equil, paths[1], reps)
             if what != "weather twin":
                 k3_check(what, kind, A, scales, not equil)
             else:
@@ -2832,6 +3114,91 @@ def main():
           flush=True)
     print_layers(wexact_layers)
     wm.param_array = wx_tr  # drop the (n, n) factors
+
+    # the oracle's gradient in closed form (likelihood.ExactMLL: potri,
+    # then K7's backward with the rank-1 term in its loads) against the
+    # autograd route it replaces (exact_mll_autograd: torch's Cholesky
+    # backward), at the trained parameters, n=15768, float64: value,
+    # gradient, wall, device time by layer and peak memory of each
+    def oracle_grad(fn):
+        x_ = torch.as_tensor(wm.param_array, dtype=wm.dtype,
+                             device=dev).requires_grad_(True)
+        with torch.enable_grad():
+            v_ = fn(wm.spec, unravel_params(x_, wm.params), wm.X, wm.oidx,
+                    wm.y)
+            (g_,) = torch.autograd.grad(v_, x_)
+        return float(v_.detach()), g_.cpu().numpy()
+
+    oracle = {}
+    for what, fn in (("closed_form", lk.exact_mll),
+                     ("autograd_route", exact_mll_autograd)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        v_, g_ = oracle_grad(fn)
+        torch.cuda.synchronize()
+        o_wall = time.time() - t0
+        o_peak = torch.cuda.max_memory_allocated() / 1e9
+        o_dev, o_rows, _ = device_profile(lambda fn=fn: oracle_grad(fn))
+        oracle[what] = {"value": v_, "grad": g_, "wall_s": o_wall,
+                        "device_ms": o_dev, "peak_gb": o_peak,
+                        "layers": by_layer(o_rows)}
+    oracle_err = {
+        "value": abs(oracle["closed_form"]["value"]
+                     - oracle["autograd_route"]["value"])
+        / abs(oracle["autograd_route"]["value"]),
+        "grad": rel(oracle["closed_form"]["grad"],
+                    oracle["autograd_route"]["grad"])}
+    for what in oracle:
+        print("oracle gradient (n=%d) by the %s: %.3f s wall, device %s, "
+              "peak %.2f GB; device time by layer:"
+              % (wn, what.replace("_", " "), oracle[what]["wall_s"],
+                 _ms(oracle[what]["device_ms"]), oracle[what]["peak_gb"]),
+              flush=True)
+        print_layers(oracle[what]["layers"])
+        oracle[what].pop("grad")
+    print("oracle closed form against the autograd route: value rel err "
+          "%.3e, gradient rel err %.3e (tol %g)"
+          % (oracle_err["value"], oracle_err["grad"], ORACLE_GRAD_RTOL),
+          flush=True)
+    require(oracle_err["grad"] <= ORACLE_GRAD_RTOL
+            and oracle_err["value"] <= ORACLE_GRAD_RTOL,
+            "the oracle's closed-form gradient disagrees with the autograd "
+            "route")
+    # where the rank-1 term is formed: in K7's backward loads (the port's)
+    # or by one elementwise pass, torch.addr, before it
+    with torch.no_grad():
+        kin = (wm.X, wm.oidx, wm.X, wm.oidx, wm.spec.coreg_mats(wm.params)) \
+            + wm.spec.kernel_table(wm.params)
+        Lo = lk._chol_or_nan(lk.exact_dense_K(wm.spec, wm.params, wm.X,
+                                              wm.oidx))
+        ao = trsm.cho_solve(Lo, wm.y[None])[0]
+        Kinv = torch.cholesky_inverse(Lo)
+        fused = cross.cross_kernel_bwd(*kin, Kinv, alpha=ao)
+        apart = cross.cross_kernel_bwd(*kin, torch.addr(Kinv, ao, ao,
+                                                        alpha=-1.0))
+        rank1_err = errors(fused, apart)[1]
+        rank1 = {
+            "rel_err": rank1_err,
+            "potri_ms": cuda_time(lambda: torch.cholesky_inverse(Lo), reps=3,
+                                  warm=1),
+            "fused_ms": cuda_time(lambda: cross.cross_kernel_bwd(
+                *kin, Kinv, alpha=ao), reps=3, warm=1),
+            "addr_then_k7_ms": cuda_time(lambda: cross.cross_kernel_bwd(
+                *kin, torch.addr(Kinv, ao, ao, alpha=-1.0)), reps=3, warm=1),
+            "addr_ms": cuda_time(lambda: torch.addr(Kinv, ao, ao,
+                                                    alpha=-1.0), reps=3,
+                                 warm=1)}
+        del Lo, ao, Kinv, fused, apart, kin
+    print("oracle rank-1 term: in K7's backward loads %.3f ms, by torch.addr "
+          "then K7's backward %.3f ms (addr alone %.3f ms); potri %.3f ms; "
+          "results rel err %.3e (tol 1e-12)"
+          % (rank1["fused_ms"], rank1["addr_then_k7_ms"], rank1["addr_ms"],
+             rank1["potri_ms"], rank1_err), flush=True)
+    require(rank1_err <= 1e-12, "the rank-1 term in K7's loads disagrees "
+            "with the explicit cotangent")
+    oracle["rank1"] = rank1
+    oracle["rel_err"] = oracle_err
     phase_done("10b weather reporting")
 
     # ----------------------------------------------------------- phase 11
@@ -3026,7 +3393,43 @@ def main():
                 "kernel %s never launched on the float32 report path" % name)
     require(np.isfinite(slq32) and np.isfinite(el32_ll)
             and np.all(np.isfinite(el32_g)), "non-finite float32 reports")
-    del s32, el32
+    # the float32 ExactLMC's closed-form gradient (ExactMLL: an explicit
+    # float32 K^-1) and the autograd route's (torch's Cholesky backward),
+    # both from the same float32 K, against the float64 closed form at
+    # the same parameters
+    el64 = T.ExactLMC(xss, yss, functional_kernel=spec, seed=SEED,
+                      dtype=torch.float64, device=dev)
+    el64.param_array = el32.param_array
+
+    def el_grad(m, fn):
+        x_ = torch.as_tensor(m.param_array, dtype=m.dtype,
+                             device=dev).requires_grad_(True)
+        with torch.enable_grad():
+            (g_,) = torch.autograd.grad(
+                fn(m.spec, unravel_params(x_, m.params), m._X, m._oidx,
+                   m.y), x_)
+        return g_.double().cpu().numpy()
+
+    g64 = el_grad(el64, lk.exact_mll)
+    f32_oracle = {"closed_form_rel_err": rel(el_grad(el32, lk.exact_mll),
+                                             g64),
+                  "autograd_route_rel_err": rel(
+                      el_grad(el32, exact_mll_autograd), g64),
+                  # _value_and_grad reports the negative MLL's gradient
+                  "reported_rel_err": rel(-el32_g, g64)}
+    print("float32 ExactLMC gradient (n=%d) against the float64 closed "
+          "form: closed form rel err %.3e (as reported: %.3e), autograd "
+          "route %.3e (tol: %g times the autograd route's)"
+          % (len(el32.y), f32_oracle["closed_form_rel_err"],
+             f32_oracle["reported_rel_err"],
+             f32_oracle["autograd_route_rel_err"], ORACLE_F32_FACTOR),
+          flush=True)
+    require(max(f32_oracle["closed_form_rel_err"],
+                f32_oracle["reported_rel_err"]) <= ORACLE_F32_FACTOR
+            * f32_oracle["autograd_route_rel_err"],
+            "the float32 closed-form oracle gradient is less accurate than "
+            "the autograd route's")
+    del s32, el32, el64
     phase_done("13b SLQ and float32 reports")
 
     # ----------------------------------------------------------- phase 15
@@ -3513,6 +3916,7 @@ def main():
                           "smse_synthetic": el_smse,
                           "launches": el_launches},
             "float32_launches": f32_launches,
+            "float32_exact_lmc_grad": f32_oracle,
         },
         "k5_checks": k5_checks, "k5_grad_rel_err": k5_grad_err,
         "k2_checks": k2_checks,
@@ -3549,6 +3953,8 @@ def main():
         "stochastic_split": wchunk_split,
         "stochastic_elementwise_sources": wchunk_sources, "loo_zsq": loo,
         "k1_checks": k1_checks, "k3_checks": k3_checks,
+        "vjp_checks": vjp_checks, "k8_fft_checks": k8_checks,
+        "oracle": oracle,
         "k3_flag_indefinite": k3_flag, "k3_memory": k3_memory,
         "train_ladder": train_ladder,
         "stochastic_ladder": stoch_ladder, "checkpoint": ckpt_res,

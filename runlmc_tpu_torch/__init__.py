@@ -16,6 +16,7 @@ Importing the package turns TF32 off for float32 matmuls and
 convolutions (see :mod:`runlmc_tpu_torch.config`).
 """
 
+from runlmc_tpu_torch import config
 from runlmc_tpu_torch.config import disable_tf32
 
 disable_tf32()
@@ -44,6 +45,7 @@ from runlmc_tpu_torch.priors import (  # noqa: E402
 )
 
 __all__ = [
+    "config",
     "RBF",
     "Matern32",
     "StdPeriodic",

@@ -20,6 +20,21 @@ cuBLAS matmuls and cuDNN; the package calls it when imported.
 import torch
 
 DEFAULT_DTYPE = torch.float64
+# Machine epsilon used by numerical heuristics (parity:
+# runlmc_tpu/config.py:22-24).
+EPS = 1e-10
+
+
+def default_dtype():
+    """The model's float dtype: float64, native on the H100 (the JAX
+    package's ``default_dtype`` under ``jax_enable_x64``)."""
+    return DEFAULT_DTYPE
+
+
+def default_int_dtype():
+    """The integer dtype paired with :func:`default_dtype` (parity:
+    runlmc_tpu/config.py:18-19 under ``jax_enable_x64``)."""
+    return torch.int64
 
 
 def disable_tf32():

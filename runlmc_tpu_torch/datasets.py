@@ -1,17 +1,137 @@
 """In-repo synthetic problems shaped like the JAX package's benchmarks,
-and the synth benchmark's file loader.
+the benchmarks' file loaders and the toy problem.
 
 The real fx2007, weather and synth files are read from a data directory
 outside the repository (runlmc_tpu/datasets.py), so the port's
 end-to-end checks use :func:`fx2007_synthetic`, :func:`weather_synthetic`
 and :func:`synth_synthetic`: the same layouts, made from a seed with
 numpy. Their quality numbers are no bar for the real data's.
-:func:`synth` reads the real synth files where they are present.
+:func:`fx2007`, :func:`weather` and :func:`synth` read the real files
+where they are present (``datadir`` or the ``RUNLMC_DATA`` environment
+variable), with numpy's and the standard library's readers in place of
+pandas, which the machine with the card lacks; :func:`toy_sinusoid`
+reads no file.
 """
 
+import csv
 import os
 
 import numpy as np
+
+# the cells that pandas' read_csv reads as missing by default
+_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None",
+       "n/a", "nan", "null"}
+
+
+# The data directory when neither ``datadir`` nor ``RUNLMC_DATA`` names
+# one: none, since the reference's data files are not in the repository
+# (the JAX package's default names a checkout outside it).
+DEFAULT_DATA_DIR = None
+
+
+def _data_dir(datadir, what):
+    datadir = datadir or os.environ.get("RUNLMC_DATA", DEFAULT_DATA_DIR)
+    if not datadir:
+        raise ValueError("%s: pass datadir or set RUNLMC_DATA to the "
+                         "reference's data directory" % what)
+    return datadir
+
+
+def _cell(v):
+    v = v.strip()
+    return np.nan if v in _NA else float(v)
+
+
+def fx2007(datadir=None):
+    """Foreign-exchange 2007 benchmark (parity: runlmc_tpu/datasets.py:
+    18-58): D=13 currency outputs over the 2007 trading days of
+    ``<datadir>/fx/{2007-2009,2010-2013,2014-2017}.csv`` (the second
+    column the date, YYYY/MM/DD; ``Wdy`` and ``Jul.Day`` dropped; each
+    currency named by its first three letters), the model's target
+    1 / (currency per USD), missing days dropped, CAD/JPY/AUD with
+    held-out 50-day windows. Returns (xss, yss, test_xss, test_yss,
+    test_cols, cols)."""
+    datadir = _data_dir(datadir, "fx2007")
+    header, dates, rows = None, [], []
+    for f in ["2007-2009.csv", "2010-2013.csv", "2014-2017.csv"]:
+        with open(os.path.join(datadir, "fx", f), newline="") as fh:
+            reader = csv.reader(fh)
+            head = next(reader)
+            if header is None:
+                header = head
+            elif head != header:
+                raise ValueError("fx2007: %s has other columns" % f)
+            for r in reader:
+                if r:
+                    dates.append(r[1])
+                    rows.append(r)
+    keep_cols = [i for i, c in enumerate(header)
+                 if i != 1 and c not in ("Wdy", "Jul.Day")]
+    cols = [header[i][:3] for i in keep_cols]
+    sel_rows = [k for k, d in enumerate(dates)
+                if "2007/01/01" <= d <= "2008/01/01"]
+    values = np.array([[_cell(rows[k][i]) for i in keep_cols]
+                       for k in sel_rows]).reshape(len(sel_rows), len(cols))
+    holdout = {"CAD": slice(49, 99), "JPY": slice(99, 149),
+               "AUD": slice(149, 199)}
+    all_ixs = np.arange(len(sel_rows))
+    xss, yss, test_xss, test_yss = [], [], [], []
+    for j, col in enumerate(cols):
+        hold = holdout.get(col, slice(0, 0))
+        keep = ~np.isnan(values[:, j])
+        keep[hold] = False
+        sel = np.flatnonzero(keep)
+        xss.append(all_ixs[sel].astype(float))
+        yss.append(np.reciprocal(values[sel, j]))
+        test_xss.append(all_ixs[hold].astype(float))
+        test_yss.append(np.reciprocal(values[hold, j]))
+    return xss, yss, test_xss, test_yss, ["CAD", "JPY", "AUD"], cols
+
+
+def weather(datadir=None):
+    """Weather-sensor benchmark (parity: runlmc_tpu/datasets.py:61-92):
+    the air temperature (4th column, -1 meaning missing) of four sensors
+    from ``<datadir>/weather/<s>y.csv`` against the times of
+    ``<s>x.csv``, row by row where both exist, missing readings dropped,
+    with held-out windows for 'cam' and 'chi'. Returns (xss, yss,
+    test_xss, test_yss, sensors)."""
+    datadir = _data_dir(datadir, "weather")
+    sensors = ["bra", "cam", "chi", "sot"]
+    holdout = [None, (10.2, 10.8), (13.5, 14.2), None]
+    xss, yss, test_xss, test_yss = [], [], [], []
+    for sensor, hold in zip(sensors, holdout):
+        base = os.path.join(datadir, "weather", sensor)
+        with open(base + "y.csv", newline="") as fh:
+            atmp = np.array([_cell(r[3]) for r in csv.reader(fh) if r])
+        with open(base + "x.csv", newline="") as fh:
+            time = np.array([_cell(r[0]) for r in csv.reader(fh) if r])
+        atmp[atmp == -1] = np.nan
+        rows = np.flatnonzero(~np.isnan(atmp[:len(time)]))
+        t, a = time[rows], atmp[rows]
+        if hold is None:
+            test_xss.append(np.array([]))
+            test_yss.append(np.array([]))
+            xss.append(t)
+            yss.append(a)
+        else:
+            sel = (t >= hold[0]) & (t <= hold[1])
+            test_xss.append(t[sel])
+            test_yss.append(a[sel])
+            xss.append(t[~sel])
+            yss.append(a[~sel])
+    return xss, yss, test_xss, test_yss, sensors
+
+
+def toy_sinusoid(n=1500, seed=0):
+    """2-output sin/-sin toy (parity: runlmc_tpu/datasets.py:111-119)."""
+    rng = np.random.default_rng(seed)
+    xss = [rng.uniform(-10, 10, size=n) for _ in range(2)]
+    yss = [
+        np.sin(xss[0]) + rng.standard_normal(n) * 1e-2,
+        -np.sin(xss[1]) + rng.standard_normal(n) * 1e-2,
+    ]
+    return xss, yss
 
 FX2007_DAYS = 251
 FX2007_OUTPUTS = 13
@@ -129,10 +249,7 @@ def synth(datadir=None):
     the ``RUNLMC_DATA`` environment variable); the last output's
     upper-right quadrant is held out. Returns (xss, yss, test_xss,
     test_yss)."""
-    datadir = datadir or os.environ.get("RUNLMC_DATA")
-    if not datadir:
-        raise ValueError("synth: pass datadir or set RUNLMC_DATA to the "
-                         "directory that holds synth/xss.npy")
+    datadir = _data_dir(datadir, "synth")
     xss = list(np.load(os.path.join(datadir, "synth", "xss.npy")))
     yss = list(np.load(os.path.join(datadir, "synth", "yss.npy")))
     return _synth_split(xss, yss)

@@ -25,11 +25,20 @@ PyTorch version beside it.
       K3b chol_jitter.chol_descale (de-scale, the attempt's flag)
       their backward  chol_jitter.chol_prologue_bwd / chol_descale_bwd
                                   CUDA  csrc/chol_jitter.cu
+      the factorization's VJP  chol_vjp.chol_vjp (Phi(L^T L-bar),
+      symmetrized) and chol_vjp.chol_vjp_sym, around two triangular
+      solves (chol_vjp.cholesky_backward, autograd chol_vjp.CholeskyEx)
+                                  CUDA  csrc/chol_vjp.cu
+  K8 (fft)  kern_rows_fft.kern_rows_fft / kern_rows_fft_bwd (k(r) on
+      an fft group's first rows, circulantly embedded for cuFFT)
+                                  CUDA  csrc/kern_rows_fft.cu
 """
 
 from runlmc_tpu_torch.hopper import build
 from runlmc_tpu_torch.hopper import capacitance as _k2
 from runlmc_tpu_torch.hopper import chol_jitter as _k3
+from runlmc_tpu_torch.hopper import chol_vjp as _k3v
+from runlmc_tpu_torch.hopper import kern_rows_fft as _k8
 from runlmc_tpu_torch.hopper.cg import cg_update_p, cg_update_xr
 from runlmc_tpu_torch.hopper.cross import cross_kernel, cross_kernel_bwd
 from runlmc_tpu_torch.hopper.fourier import (
@@ -48,6 +57,8 @@ WRAPPERS = (
     minres_update, cross_kernel_bwd, lanczos_step, trsm_lower,
     _k2.capacitance, _k2.capacitance_bwd, _k3.chol_prologue,
     _k3.chol_descale, _k3.chol_prologue_bwd, _k3.chol_descale_bwd,
+    _k3v.chol_vjp, _k3v.chol_vjp_sym, _k8.kern_rows_fft,
+    _k8.kern_rows_fft_bwd,
 )
 
 # K3's forward and backward launches at one dtype: the forward wherever
@@ -55,7 +66,8 @@ WRAPPERS = (
 # differentiated (exact-objective training)
 _K3 = {sfx: ("chol_prologue/" + sfx, "chol_descale/" + sfx)
        for sfx in ("f32", "f64")}
-_K3_BWD = {sfx: ("chol_prologue_bwd/" + sfx, "chol_descale_bwd/" + sfx)
+_K3_BWD = {sfx: ("chol_prologue_bwd/" + sfx, "chol_descale_bwd/" + sfx,
+                 "chol_vjp/" + sfx, "chol_vjp_sym/" + sfx)
            for sfx in ("f32", "f64")}
 
 
@@ -78,8 +90,8 @@ ESCALATION_PATH = ("cg_update_xr/f64", "cg_update_p/f64", "trsm_lower/f64")
 # The launches of an exact-objective training step with its float32
 # factorization (exact_precision='f32'): K_UU forward and backward, the
 # capacitance matrix and its backward, the jittered Cholesky
-# factorizations and their backward, the W applies (each direction is
-# the other's backward), the Woodbury solve with C and its backward.
+# factorizations and their backward (K3's and the factorization's own
+# VJP), the W applies (each direction is the other's backward), the Woodbury solve with C and its backward.
 TRAIN_PATH = ("kuu_dense/f32", "kuu_dense_bwd/f32", "capacitance/f32",
               "capacitance_bwd/f32", "interp_gather/f32",
               "interp_scatter/f32", "trsm_lower/f32") + _K3["f32"] \
@@ -93,20 +105,24 @@ MODEL_PRECISION_PATH = ("kuu_dense/f64", "kuu_dense_bwd/f64",
 # One stochastic-objective training step of a model with an fft group:
 # the Fourier contraction of the float64 operator (outer residuals and
 # the surrogate) and of the float32 inner CG cycles, its float64
-# backward (the surrogate's gradient), the W applies of both operators,
+# backward (the surrogate's gradient), the first rows' k(r) of both
+# operators' symbols and its float64 backward, the W applies of both
+# operators,
 # K_UU, the capacitance matrix and the jittered Cholesky factorizations
 # of the float32 dense preconditioner twin (not differentiated), its
 # triangular solves and the float32 CG passes.
 STOCHASTIC_PATH = (
     "fourier_contract/f64", "fourier_contract/f32",
-    "fourier_contract_bwd/f64", "interp_gather/f64", "interp_scatter/f64",
+    "fourier_contract_bwd/f64", "kern_rows_fft/f64", "kern_rows_fft/f32",
+    "kern_rows_fft_bwd/f64", "interp_gather/f64", "interp_scatter/f64",
     "interp_gather/f32", "interp_scatter/f32", "kuu_dense/f32",
     "capacitance/f32", "cg_update_xr/f32", "cg_update_p/f32",
     "trsm_lower/f32",
 ) + _K3["f32"]
 # An 'on-the-fly' predict of a model with an fft group.
 FFT_PREDICT_PATH = (
-    "fourier_contract/f64", "fourier_contract/f32", "cross_kernel/f64",
+    "fourier_contract/f64", "fourier_contract/f32", "kern_rows_fft/f64",
+    "kern_rows_fft/f32", "cross_kernel/f64",
     "interp_gather/f64", "interp_scatter/f64", "interp_gather/f32",
     "interp_scatter/f32", "capacitance/f32", "cg_update_xr/f32",
     "cg_update_p/f32", "trsm_lower/f32",
@@ -136,8 +152,8 @@ SYNTH_PATH = TRAIN_PATH + MODEL_PRECISION_PATH
 # (``log_likelihood(exact=True)``, the 'exact' prediction mode) builds
 # K (n, n) through K7 and solves with its Cholesky factor through K5;
 # its gradient (``exact_log_likelihood_and_grad``, every step of
-# ``metrics=True`` training, ``ExactLMC``) runs K7's backward and K5
-# again for the solve's backward.
+# ``metrics=True`` training, ``ExactLMC``) is the closed form: K^-1 by
+# cuSOLVER's potri, then K7's backward.
 REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64", "trsm_lower/f64")
 # ``metrics=True`` training of an exact-objective model with its float32
 # factorization: the training step's K_UU forward and backward and, once
@@ -145,9 +161,10 @@ REPORT_PATH = ("cross_kernel/f64", "cross_kernel_bwd/f64", "trsm_lower/f64")
 METRICS_PATH = TRAIN_PATH + REPORT_PATH
 # The SLQ log-determinant of a model with an fft group
 # (``log_likelihood(exact=False)``, ``ski_log_det``): the Lanczos steps
-# and the float64 operator's Fourier contraction and W applies.
-SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64", "interp_gather/f64",
-            "interp_scatter/f64")
+# and the float64 operator's symbol (its first rows' k(r)), Fourier
+# contraction and W applies.
+SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64", "kern_rows_fft/f64",
+            "interp_gather/f64", "interp_scatter/f64")
 # The same reports of float32 models: an fft model's SLQ log-det and
 # ExactLMC's exact gradient.
 F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32",

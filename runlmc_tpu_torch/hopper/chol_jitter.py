@@ -1,8 +1,8 @@
 """K3: the jittered Cholesky's equilibrate, jitter and de-scale, with
 their backward: the hand part of runlmc_tpu/lmc/woodbury.py:60-124
 (``chol_jittered``). The factorization between them stays cuSOLVER's
-(``torch.linalg.cholesky_ex``) and its VJP torch's, as the JAX package
-leaves both to XLA.
+(``torch.linalg.cholesky_ex``), as the JAX package leaves it to XLA; its
+VJP is the hand kernel of ``hopper/chol_vjp.py``.
 
     chol_prologue(A, scale, equilibrate, sd)  -> (M, s, sd)     K3a
     chol_descale(L, info, s)                  -> (O, flag)      K3b

@@ -105,9 +105,13 @@ cross_kernel.launches = build.counter()
 _MAX_Q = 8
 
 
-def cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G):
+def cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G,
+                           alpha=None):
     """Plain version of the backward: torch autograd through
-    :func:`cross_kernel_plain`; returns ``(d B, d prm)``."""
+    :func:`cross_kernel_plain` (with ``alpha``, of the cotangent
+    G - alpha alpha^T); returns ``(d B, d prm)``."""
+    if alpha is not None:
+        G = G - torch.outer(alpha, alpha)
     with torch.enable_grad():
         b = B.detach().requires_grad_(True)
         p = prm.detach().requires_grad_(True)
@@ -115,12 +119,15 @@ def cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G):
         return torch.autograd.grad(K, (b, p), G)
 
 
-def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G):
+def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G, alpha=None):
     """``(d B (Q, D, D), d prm (Q, 3))`` from the cotangent ``G``
     (na, nb) of :func:`cross_kernel`'s output; the CUDA kernel computes
-    the per-row partial tables for CUDA tensors."""
+    the per-row partial tables for CUDA tensors. With ``alpha`` (na,)
+    (and na = nb) the cotangent is G - alpha alpha^T, formed in the
+    kernel's loads."""
     if build.use_plain("cross_kernel_bwd", G):
-        return cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G)
+        return cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G,
+                                      alpha)
     na, P = xa.shape
     nb = xb.shape[0]
     Q, D = B.shape[0], B.shape[1]
@@ -132,13 +139,19 @@ def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G):
         raise ValueError("cross_kernel_bwd: at most 31 input dims")
     if not (G.dtype == xa.dtype == xb.dtype == B.dtype == prm.dtype):
         raise ValueError("cross_kernel_bwd: mixed float dtypes")
+    if alpha is not None and (na != nb or alpha.shape != (na,)
+                              or alpha.dtype != G.dtype):
+        raise ValueError("cross_kernel_bwd: alpha must be (na,) = (nb,) of "
+                         "G's dtype")
     if not (oa.dtype == ob.dtype == kinds.dtype == masks.dtype
             == torch.int32):
         raise ValueError("cross_kernel_bwd: index tensors must be int32")
     G, xa, oa, xb, ob, B, kinds, masks, prm = (
         t.contiguous() for t in (G, xa, oa, xb, ob, B, kinds, masks, prm))
+    if alpha is not None:
+        alpha = alpha.contiguous()
     build.require_cuda("cross_kernel_bwd", G, xa, oa, xb, ob, B, kinds,
-                       masks, prm)
+                       masks, prm, *([] if alpha is None else [alpha]))
     # the columns in a stable order by output, and each output's segment
     perm = torch.argsort(ob, stable=True).to(torch.int32)
     seg = torch.zeros(D + 1, dtype=torch.int32, device=G.device)
@@ -147,14 +160,16 @@ def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G):
     sfx = build.suffix("cross_kernel_bwd", G.dtype)
     fn = build.function(
         "cross_kernel_bwd", "cross_kernel_bwd_" + sfx,
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     if na and Q:
         for q0 in range(0, Q, _MAX_Q):
             build.check(fn(
                 build.ptr(G), build.ptr(xa), build.ptr(xb), build.ptr(perm),
                 build.ptr(seg), build.ptr(kinds), build.ptr(masks),
-                build.ptr(prm), build.ptr(part), na, nb, P, Q, D, q0,
+                build.ptr(prm),
+                ctypes.c_void_p(None if alpha is None else alpha.data_ptr()),
+                build.ptr(part), na, nb, P, Q, D, q0,
                 min(_MAX_Q, Q - q0), build.stream_ptr(),
             ), "cross_kernel_bwd")
             cross_kernel_bwd.launches[sfx] += 1

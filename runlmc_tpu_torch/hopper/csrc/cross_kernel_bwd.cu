@@ -9,7 +9,11 @@
 //   part[a, e, q, 1] = sum_{b: ob[b] = e} G[a,b] dk~_q/dgamma
 //   part[a, e, q, 2] = sum_{b: ob[b] = e} G[a,b] dk~_q/dperiod
 //
-// (k~ the unscaled kernel). The wrapper (hopper/cross.py) sums the rows
+// (k~ the unscaled kernel). With a vector alpha (na = nb) the kernel reads
+// G[a,b] - alpha_a alpha_b in place of G[a,b]: the exact oracle's
+// gradient hands it K^-1 and alpha = K^-1 y (lmc/likelihood.py
+// ExactMLL), so the rank-1 term of 1/2 (K^-1 - alpha alpha^T) is formed
+// in the loads and never stored. The wrapper (hopper/cross.py) sums the rows
 // of each output d = oa[a] by a one-hot product into S0, S1, S2
 // (Q, D, D) and finishes with dB_q = scale_q S0_q, dscale_q = <B_q, S0_q>,
 // dgamma_q = scale_q <B_q, S1_q>, dperiod_q = scale_q <B_q, S2_q>.
@@ -48,8 +52,8 @@ __global__ void cross_kernel_bwd_kernel(
     const T* __restrict__ xb, const int* __restrict__ perm,
     const int* __restrict__ seg, const int* __restrict__ kinds,
     const int* __restrict__ masks, const T* __restrict__ prm,
-    T* __restrict__ part, int na, int nb, int P, int Q, int D, int q0,
-    int nq) {
+    const T* __restrict__ alpha, T* __restrict__ part, int na, int nb,
+    int P, int Q, int D, int q0, int nq) {
     const int lane = threadIdx.x & 31;
     const int64_t warp =
         (int64_t)blockIdx.x * kWarps + (int64_t)(threadIdx.x >> 5);
@@ -58,12 +62,14 @@ __global__ void cross_kernel_bwd_kernel(
     const int e = (int)(warp - a * D);
     const T* g_row = G + a * nb;
     const T* x_row = xa + a * P;
+    const T alpha_a = alpha != nullptr ? alpha[a] : T(0);
     T acc[3 * kMaxQ];
 #pragma unroll
     for (int t = 0; t < 3 * kMaxQ; ++t) acc[t] = T(0);
     for (int jj = seg[e] + lane; jj < seg[e + 1]; jj += 32) {
         const int b = perm[jj];
-        const T g = g_row[b];
+        const T g = alpha != nullptr ? g_row[b] - alpha_a * alpha[b]
+                                     : g_row[b];
         const T* x_col = xb + (int64_t)b * P;
 #pragma unroll
         for (int qq = 0; qq < kMaxQ; ++qq) {
@@ -114,16 +120,16 @@ __global__ void cross_kernel_bwd_kernel(
 template <typename T>
 int launch(const T* G, const T* xa, const T* xb, const int* perm,
            const int* seg, const int* kinds, const int* masks, const T* prm,
-           T* part, int na, int nb, int P, int Q, int D, int q0, int nq,
-           void* stream) {
+           const T* alpha, T* part, int na, int nb, int P, int Q, int D,
+           int q0, int nq, void* stream) {
     if (nq < 1 || nq > kMaxQ) return (int)cudaErrorInvalidValue;
     const int64_t warps = (int64_t)na * D;
     const int64_t blocks = (warps + kWarps - 1) / kWarps;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
     cross_kernel_bwd_kernel<T>
         <<<(unsigned)blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
-            G, xa, xb, perm, seg, kinds, masks, prm, part, na, nb, P, Q, D,
-            q0, nq);
+            G, xa, xb, perm, seg, kinds, masks, prm, alpha, part, na, nb, P,
+            Q, D, q0, nq);
     return (int)cudaGetLastError();
 }
 
@@ -133,20 +139,20 @@ extern "C" int cross_kernel_bwd_f32(const float* G, const float* xa,
                                     const float* xb, const int* perm,
                                     const int* seg, const int* kinds,
                                     const int* masks, const float* prm,
-                                    float* part, int na, int nb, int P,
-                                    int Q, int D, int q0, int nq,
-                                    void* stream) {
-    return launch<float>(G, xa, xb, perm, seg, kinds, masks, prm, part, na,
-                         nb, P, Q, D, q0, nq, stream);
+                                    const float* alpha, float* part, int na,
+                                    int nb, int P, int Q, int D, int q0,
+                                    int nq, void* stream) {
+    return launch<float>(G, xa, xb, perm, seg, kinds, masks, prm, alpha,
+                         part, na, nb, P, Q, D, q0, nq, stream);
 }
 
 extern "C" int cross_kernel_bwd_f64(const double* G, const double* xa,
                                     const double* xb, const int* perm,
                                     const int* seg, const int* kinds,
                                     const int* masks, const double* prm,
-                                    double* part, int na, int nb, int P,
-                                    int Q, int D, int q0, int nq,
-                                    void* stream) {
-    return launch<double>(G, xa, xb, perm, seg, kinds, masks, prm, part, na,
-                          nb, P, Q, D, q0, nq, stream);
+                                    const double* alpha, double* part, int na,
+                                    int nb, int P, int Q, int D, int q0,
+                                    int nq, void* stream) {
+    return launch<double>(G, xa, xb, perm, seg, kinds, masks, prm, alpha,
+                          part, na, nb, P, Q, D, q0, nq, stream);
 }

@@ -53,8 +53,8 @@ def eval_kind(kind, r, gamma, period):
 def eval_table(kinds, prm, dists):
     """scale_q k~_q(dists), stacked (Q, ...), from the table rows
     ``kinds`` (ints) and ``prm`` (Q, 3): the port's one torch k(r),
-    behind :meth:`StationaryKernel.from_dist`, the fft groups' first rows
-    and the plain versions of the K_UU and cross-kernel kernels."""
+    behind :meth:`StationaryKernel.from_dist` and the plain versions of
+    the K_UU, cross-kernel and fft first-row kernels."""
     return torch.stack([
         prm[i, 2] * eval_kind(kind, dists, prm[i, 0], prm[i, 1])
         for i, kind in enumerate(kinds)

@@ -1,0 +1,3 @@
+from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
+
+__all__ = ["LMCKernelSpec"]

@@ -37,6 +37,7 @@ import torch
 
 from runlmc_tpu_torch.hopper.capacitance import tile_plan
 from runlmc_tpu_torch.hopper.fourier import contract
+from runlmc_tpu_torch.hopper.kern_rows_fft import KernRowsFFT
 from runlmc_tpu_torch.hopper.kuu import KUUDense
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.ops import bttb
@@ -115,6 +116,17 @@ class GridData:
     # the Woodbury set's cross grams with each later group b: one
     # (Gram G_ab, Gram G_ba) pair per b
     cross: Any = ()
+
+    @property
+    def idx_map(self):
+        """The dense mode's (m, m) BTTB index map (parity: grid.py:178),
+        host int32; K1 works its offsets out itself and reads none."""
+        if self.plan.mode != "dense":
+            return None
+        return bttb.bttb_index_map(self.plan.sizes).astype(np.int32)
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
     def to(self, dtype, device, memo=None):
         """Placed copy at ``dtype`` on ``device``, without the host-side
@@ -361,15 +373,27 @@ class GroupState:
     That_rep: Any = None
     diag_That: Any = None
 
+    @property
+    def D(self):
+        """Outputs of the group (parity: grid.py:356-357)."""
+        return self.interp.ncols // int(np.prod(self.sizes))
+
+    def fourier_shape(self):
+        """Shape of the rfftn of one embedded grid vector (parity:
+        grid.py:359-361)."""
+        return bttb.fourier_shape(self.sizes)
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
     def grid_matvec(self, u):
         """K_UU u for this group: u (..., D*m) -> (..., D*m)."""
         if self.mode == "dense":
             return u @ self.KUU_dense.T
         sizes = self.sizes
-        m = int(np.prod(sizes))
-        d = self.interp.ncols // m
+        m, d = int(np.prod(sizes)), self.D
         batch = u.shape[:-1]
-        fsh = bttb.fourier_shape(sizes)
+        fsh = self.fourier_shape()
         F = int(np.prod(fsh))
         vhat = bttb.operand_fft(u.reshape(batch + (d, m)), sizes)
         vf = vhat.reshape(-1, d, F)
@@ -395,9 +419,10 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     kernel K1, which evaluates k(r) on the grid itself from the group's
     rows of the kernel table (gradients reach the table and ``B`` through
     K1's backward, the raw parameters through the table's transforms);
-    fft mode evaluates k(r) on the first rows with torch ops and
-    precomputes the Fourier symbol of its representation (K11), which
-    kernel K10 and its backward contract."""
+    fft mode writes k(r) on the first rows, circulantly embedded, through
+    kernel K8 (``hopper/kern_rows_fft.py``, with its backward to the same
+    table rows) and precomputes the Fourier symbol of its representation
+    (K11), which kernel K10 and its backward contract."""
     plan = gd.plan
     kidxs = plan.kidxs
     base = dict(interp=gd.interp, sizes=plan.sizes, rep=plan.rep,
@@ -408,8 +433,9 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
         return GroupState(
             KUU_dense=KUUDense.apply(kinds, prm, gd.dists, B, plan.sizes),
             **base)
-    tops = spec.eval_kernels_stacked(raw_params, gd.dists, kidxs)
-    that = bttb.bttb_fft(tops, plan.sizes).reshape(len(kidxs), -1)
+    kinds, prm = spec.table_rows(raw_params, kidxs)
+    ext = KernRowsFFT.apply(kinds, prm, gd.dists, plan.sizes)
+    that = bttb.extension_fft(ext, len(plan.sizes)).reshape(len(kidxs), -1)
     if plan.rep == "sum":
         return GroupState(B=spec.coreg_mats(raw_params, kidxs), That=that,
                           **base)
@@ -428,7 +454,7 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
         # accumulate with atomics, in another order on every run
         That_rep = torch.stack([that[i] for i in reps])
     else:
-        A = torch.zeros((spec.D, 1), dtype=tops.dtype, device=tops.device)
+        A = torch.zeros((spec.D, 1), dtype=prm.dtype, device=prm.device)
         That_rep = torch.zeros((1, that.shape[1]), dtype=that.dtype,
                                device=that.device)
     kappa = torch.stack([spec.coreg_diag(raw_params, q) for q in kidxs])
@@ -445,6 +471,15 @@ class KSKI:
 
     groups: Tuple[GroupState, ...]
     noise_n: Any  # (n,) per-data-point noise
+
+    @property
+    def shape(self):
+        """(n, n) (parity: grid.py:614-616)."""
+        n = self.noise_n.shape[0]
+        return (n, n)
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
     def matvec(self, x):
         out = self.noise_n * x

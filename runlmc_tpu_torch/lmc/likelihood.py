@@ -5,8 +5,8 @@
 - the dense cross-covariance K[a, b], through kernel K7 and its backward
   (runlmc_tpu_torch/hopper/cross.py ``CrossKernel``), and the exact dense
   path on it: ``exact_dense_K``, ``exact_mll`` (the oracle likelihood,
-  differentiable by autograd through cuSOLVER's Cholesky and K7's
-  backward) and ``exact_chol``;
+  differentiable through its closed-form gradient, :class:`ExactMLL`:
+  cuSOLVER's ``potri`` and K7's backward) and ``exact_chol``;
 - the prior term of every objective (``log_prior_term``);
 - the exact SKI marginal log-likelihood through the Woodbury
   factorization, differentiable by torch autograd (the exact training
@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from runlmc_tpu_torch.hopper import cross as k7
 from runlmc_tpu_torch.hopper.cross import CrossKernel
 from runlmc_tpu_torch.hopper.trsm import cho_solve
 from runlmc_tpu_torch.lmc.grid import build_kski
@@ -96,16 +97,64 @@ def exact_chol(spec: LMCKernelSpec, raw_params, X, oidx):
     return _chol_or_nan(exact_dense_K(spec, raw_params, X, oidx))
 
 
+class ExactMLL(torch.autograd.Function):
+    """The exact MLL from the kernel's parameters, with its gradient in
+    closed form: for K = K7(B, prm) + diag(noise[oidx]) and
+    alpha = K^-1 y,
+
+        d MLL / d K = 1/2 (alpha alpha^T - K^-1),
+
+    K^-1 from one ``torch.cholesky_inverse`` of the factor (cuSOLVER's
+    ``potri`` on the card, a library call by design like ``potrf``) and
+    handed to K7's backward, which forms the rank-1 term in its loads;
+    the noise takes the cotangent's diagonal, summed per output. This
+    replaces XLA's autodiff of likelihood.py:107-119 through the
+    Cholesky (its VJP: a GEMM and two n-column triangular solves, about
+    3 n^3 operations against potri's 2/3 n^3 multiply-adds). A failed
+    factorization gives NaN, and so does every gradient, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, B, prm, noise, X, oidx, kinds, masks, y):
+        K = k7.cross_kernel(X, oidx, X, oidx, B, kinds, masks, prm)
+        K.diagonal().add_(noise[oidx.long()])
+        L = _chol_or_nan(K)
+        del K
+        alpha = cho_solve(L, y[None])[0]
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+        n = y.shape[0]
+        ctx.save_for_backward(L, alpha, X, oidx, B, kinds, masks, prm)
+        ctx.n_out = noise.shape[0]
+        return -0.5 * (torch.dot(y, alpha) + logdet
+                       + n * math.log(2 * math.pi))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        L, alpha, X, oidx, B, kinds, masks, prm = ctx.saved_tensors
+        Kinv = torch.cholesky_inverse(L)
+        c = -0.5 * g
+        dB = dprm = dnoise = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dB, dprm = k7.cross_kernel_bwd(X, oidx, X, oidx, B, kinds, masks,
+                                           prm, Kinv, alpha=alpha)
+            dB, dprm = c * dB, c * dprm
+        if ctx.needs_input_grad[2]:
+            # each output's diagonal entries summed by a one-hot product
+            # (a fixed order; an index scatter-add would use atomics)
+            onehot = torch.nn.functional.one_hot(
+                oidx.long(), ctx.n_out).to(Kinv.dtype)
+            dnoise = c * ((torch.diagonal(Kinv) - alpha * alpha) @ onehot)
+        return dB, dprm, dnoise, None, None, None, None, None
+
+
 def exact_mll(spec: LMCKernelSpec, raw_params, X, oidx, y):
     """The exact marginal log-likelihood
     -1/2 (y^T K^-1 y + log det K + n log 2 pi) of the dense kernel
-    (parity: likelihood.py:107-119). Differentiable: autograd runs
-    through the Cholesky factorization and K7's backward."""
-    L = _chol_or_nan(exact_dense_K(spec, raw_params, X, oidx))
-    alpha = cho_solve(L, y[None])[0]
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
-    n = y.shape[0]
-    return -0.5 * (torch.dot(y, alpha) + logdet + n * math.log(2 * math.pi))
+    (parity: likelihood.py:107-119). Differentiable in the parameters
+    through :class:`ExactMLL`'s closed-form gradient."""
+    kinds, masks, prm = spec.kernel_table(raw_params)
+    return ExactMLL.apply(spec.coreg_mats(raw_params), prm,
+                          spec.noise(raw_params), X, oidx, kinds, masks, y)
 
 
 def exact_value_and_grad(spec, like, x_flat, X, oidx, y, prior_specs=()):

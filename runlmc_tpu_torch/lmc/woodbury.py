@@ -19,7 +19,8 @@ K9's gather or scatter through the group's interpolant
 ``torch.matmul`` and the factorizations ``torch.linalg.cholesky_ex``
 (cuBLAS / cuSOLVER on the card), as the JAX package leaves them to XLA,
 with K3's equilibrate, jitter and de-scale around each
-(``hopper/chol_jitter.py``, with their backward);
+(``hopper/chol_jitter.py``, with their backward) and the factorization's
+own backward a hand kernel too (``hopper/chol_vjp.py``);
 the triangular solves with C's factor are K5 (``hopper/trsm.py``:
 ``cho_solve`` with its own backward, ``trsm_lower``). Everything here is
 differentiable by torch autograd, which the exact training objective
@@ -38,6 +39,7 @@ from runlmc_tpu_torch.hopper.chol_jitter import (
     CholPrologue,
     chol_descale,
 )
+from runlmc_tpu_torch.hopper.chol_vjp import cholesky_ex
 from runlmc_tpu_torch.hopper.trsm import cho_solve, trsm_lower
 from runlmc_tpu_torch.lmc.grid import gram_nest
 from runlmc_tpu_torch.ops.solvers import batched_cg
@@ -59,7 +61,8 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
 
     Each attempt is K3 around cuSOLVER (``hopper/chol_jitter.py``): the
     prologue (equilibrate and jitter; the scale S or the mean is computed
-    on the first attempt and kept), ``torch.linalg.cholesky_ex``, and the
+    on the first attempt and kept), ``torch.linalg.cholesky_ex`` (through
+    ``hopper.chol_vjp.cholesky_ex``, whose backward is the hand VJP), and the
     epilogue (de-scale, and one device flag: ``info == 0`` and every
     entry of the factor finite). Scale selection: the first scale whose
     flag is set, and otherwise the last scale. (The JAX package keeps the
@@ -71,8 +74,8 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
     chosen scale; failed attempts are dropped, so none of them sends a
     cotangent (the JAX package's rule, woodbury.py:78-87). The scale
     ``s`` and the jitter's reference ``d`` stay in the graph, as there:
-    the backward of the prologue and the epilogue are K3's own kernels,
-    the Cholesky's torch's."""
+    the backward of the prologue, the factorization and the epilogue are
+    all hand kernels (K3's and ``hopper/chol_vjp.py``'s)."""
     if equilibrate is None:
         equilibrate = EQUILIBRATE_DEFAULT
     A = A.contiguous()
@@ -81,11 +84,11 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
         last = i == len(scales) - 1
         if equilibrate:
             M, s = CholPrologue.apply(A, scale, True, kept)
-            L, info = torch.linalg.cholesky_ex(M)
+            L, info = cholesky_ex(M)
             L, flag = CholDescale.apply(L, s, info)
         else:
             M = CholPrologue.apply(A, scale, False, kept)
-            L, info = torch.linalg.cholesky_ex(M)
+            L, info = cholesky_ex(M)
             if last:
                 break
             flag = chol_descale(L, info, None)[1]

@@ -10,10 +10,11 @@ mode embeds it into a P-dimensional circulant of per-axis size
 ``bttb_fft`` (kernel K11 of the kernel table) is a flip and concat of
 the (Q, m) first rows and one ``torch.fft.rfftn``; the operand goes
 through ``operand_fft``/``operand_ifft``, a zero-padded rfftn and the
-cropped irfftn (cuFFT on the card). K11 has no hand kernel: the flips
-and concats are a few microseconds of copies once per parameter
-setting, and the transforms are cuFFT's. Everything here is
-differentiable by torch autograd down to ``top``.
+cropped irfftn (cuFFT on the card). The model's fft groups write the
+embedding with k(r) itself in one hand kernel (K8,
+``hopper/kern_rows_fft.py``) and take its ``extension_fft``; the
+transforms stay cuFFT's. Everything here is differentiable by torch
+autograd down to ``top``.
 """
 
 import numpy as np
@@ -59,13 +60,17 @@ def cyclic_extend(top, sizes):
     return x
 
 
+def extension_fft(ext, ndim):
+    """rfftn over the last ``ndim`` axes of a circulant embedding
+    (:func:`cyclic_extend`'s output): the Fourier symbol."""
+    return torch.fft.rfftn(ext, dim=tuple(range(ext.ndim - ndim, ext.ndim)))
+
+
 def bttb_fft(top, sizes):
     """rfftn of the circulant embedding of (batched) ``top``: the
     operator's Fourier symbol, (..., *fourier_shape)."""
     sizes = tuple(int(s) for s in sizes)
-    ext = cyclic_extend(top, sizes)
-    dims = tuple(range(ext.ndim - len(sizes), ext.ndim))
-    return torch.fft.rfftn(ext, dim=dims)
+    return extension_fft(cyclic_extend(top, sizes), len(sizes))
 
 
 def operand_fft(v, sizes):

@@ -153,6 +153,17 @@ class Interp(LinearOperator):
                       ncols=self.ncols, t_ptr=_i(self.t_ptr),
                       t_rows=_i(self.t_rows), t_weights=_f(self.t_weights))
 
+    def replace_weights_dtype(self, dtype):
+        """The same interpolant with its weights (both layouts) cast to
+        ``dtype`` (parity: interpolation.py:246-247)."""
+        def _f(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(dtype)
+            return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+        return self.replace(weights=_f(self.weights),
+                            t_weights=_f(self.t_weights))
+
     def _args(self):
         return (self.indices, self.weights, self.t_ptr, self.t_rows,
                 self.t_weights)

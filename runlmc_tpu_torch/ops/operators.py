@@ -51,6 +51,11 @@ class LinearOperator:
         """Adapt a closure into an operator."""
         return _Wrapped(fn=mvm, opshape=tuple(shape))
 
+    def replace(self, **changes):
+        """A copy with the named fields changed (the operators are
+        frozen dataclasses; the JAX package's pytrees' ``replace``)."""
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class _Wrapped(LinearOperator):

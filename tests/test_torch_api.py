@@ -100,3 +100,140 @@ def test_warm_rescue_key_is_the_run_seed(key, seed):
 def test_warm_rescue_rejects_other_keys():
     with pytest.raises(ValueError, match="uint32"):
         tllgp._run_seed_of(np.zeros(3, dtype=np.uint32))
+
+
+# ---- every public name of the JAX package, module by module
+
+# Names of the JAX package the port leaves out on purpose, each with its
+# reason: the TPU workarounds (ROADMAP "Not to port") and the multi-GPU
+# names still queued (ROADMAP queue 1, multi-GPU).
+_TILED = "the 'tiled' grid mode, a TPU workaround (no f64 FFT there)"
+_MESH = "sharding over a device mesh: multi-GPU, still queued"
+_WBLOCKS = ("dense W blocks, the TPU's MXU route of the W applies; every "
+            "W apply of the port is kernel K9")
+EXEMPT = {
+    "runlmc_tpu.parallel": _MESH,
+    "runlmc_tpu.parallel.launcher": _MESH,
+    "runlmc_tpu.parallel.mesh": _MESH,
+    "runlmc_tpu.lmc.likelihood.sharded_solve": _MESH,
+    "runlmc_tpu.lmc.grid.GridPlan.grid_shard": _MESH,
+    "runlmc_tpu.lmc.grid.GroupState.grid_shard": _MESH,
+    "runlmc_tpu.lmc.grid.GroupState.grid_tops": _TILED,
+    "runlmc_tpu.ops.bttb.bttb_tiled_kuu_matvec": _TILED,
+    "runlmc_tpu.ops.bttb.jax_slice": _TILED + " (its slicing helper)",
+    "runlmc_tpu.lmc.grid.GroupState.W_blocks": _WBLOCKS,
+    "runlmc_tpu.lmc.woodbury.DeviceWoodbury.W_blocks": _WBLOCKS,
+    "runlmc_tpu.models.interpolated_llgp.InterpolatedLLGP.SOLVE_SLICE":
+        "the watchdog-bounded solve rounds, a TPU workaround",
+}
+
+
+def _jax_public_names():
+    """{module: [public names]} of the JAX package: ``__all__`` where a
+    module has one, else the functions, classes and top-level constants
+    it defines; the public attributes and fields of its classes as
+    ``Class.name``."""
+    import ast
+    import dataclasses
+    import importlib
+    import pkgutil
+
+    out = {}
+    for info in pkgutil.walk_packages(R.__path__, "runlmc_tpu."):
+        mod = importlib.import_module(info.name)
+        if hasattr(mod, "__all__"):
+            names = list(mod.__all__)
+        else:
+            tree = ast.parse(inspect.getsource(mod))
+            names = []
+            for node in tree.body:
+                if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                    names.append(node.name)
+                elif isinstance(node, ast.Assign):
+                    names += [t.id for t in node.targets
+                              if isinstance(t, ast.Name)]
+            names = [n for n in names if not n.startswith("_")]
+        members = []
+        for n in names:
+            obj = getattr(mod, n, None)
+            if inspect.isclass(obj) and obj.__module__ == info.name:
+                attrs = [k for k in vars(obj) if not k.startswith("_")]
+                if dataclasses.is_dataclass(obj):
+                    attrs += [f.name for f in dataclasses.fields(obj)]
+                members += ["%s.%s" % (n, a) for a in sorted(set(attrs))]
+        out[info.name] = sorted(set(names)) + members
+    return out
+
+
+def _has(mod, dotted):
+    import dataclasses
+
+    obj = mod
+    parts = dotted.split(".")
+    for i, p in enumerate(parts):
+        if hasattr(obj, p):
+            obj = getattr(obj, p)
+        elif (i == len(parts) - 1 and dataclasses.is_dataclass(obj)
+              and p in {f.name for f in dataclasses.fields(obj)}):
+            return True
+        else:
+            return False
+    return True
+
+
+def test_every_public_name_of_the_jax_package_is_ported():
+    import importlib
+
+    missing = []
+    for name, publics in _jax_public_names().items():
+        if name in EXEMPT:
+            continue
+        tmod = importlib.import_module(
+            name.replace("runlmc_tpu", "runlmc_tpu_torch", 1))
+        missing += ["%s.%s" % (name, p) for p in publics
+                    if "%s.%s" % (name, p) not in EXEMPT
+                    and not _has(tmod, p)]
+    assert missing == []
+
+
+def test_config_names_in_torch_dtypes():
+    import torch
+
+    assert T.config in [getattr(T, n) for n in T.__all__]
+    assert T.config.default_dtype() is torch.float64
+    assert T.config.default_int_dtype() is torch.int64
+    assert T.config.EPS == R.config.EPS
+
+
+def test_group_state_and_kski_shapes_match_jax():
+    """GroupState.D, GroupState.fourier_shape() and KSKI.shape of an fft
+    model and a dense one, against the JAX package's."""
+    import torch
+
+    from runlmc_tpu.lmc import grid as jgrid
+    from runlmc_tpu_torch.lmc import grid as tgrid
+    from runlmc_tpu_torch.utils.carry import from_reference_params
+
+    rng = np.random.RandomState(0)
+    Xs = [rng.uniform(0, 1, (n, 1)) for n in (21, 17, 12)]
+    for mode in ("fft", "dense"):
+        sj = R.LMCKernelSpec.create(D=3, lmc_kernels=[R.RBF()],
+                                    lmc_ranks=[1]).with_input_dim(1)
+        st = T.LMCKernelSpec.create(D=3, lmc_kernels=[T.RBF()],
+                                    lmc_ranks=[1]).with_input_dim(1)
+        raw = sj.init_raw_params()
+        gj, _ = jgrid.make_grids(sj, Xs, m=[9], mode=mode)
+        gt, _ = tgrid.make_grids(st, Xs, m=[9], mode=mode)
+        lens = [len(X) for X in Xs]
+        Kj = jgrid.build_kski(sj, jax.tree.map(jax.numpy.asarray, raw), gj,
+                              lens)
+        Kt = tgrid.build_kski(st, from_reference_params(raw, torch.float64,
+                                                        "cpu"),
+                              tuple(g.to(torch.float64, "cpu") for g in gt),
+                              lens)
+        assert Kt.shape == Kj.shape == (50, 50)
+        for a, b in zip(Kt.groups, Kj.groups):
+            assert a.D == b.D == 3
+            assert a.fourier_shape() == b.fourier_shape()
+        if mode == "dense":
+            np.testing.assert_array_equal(gt[0].idx_map, gj[0].idx_map)

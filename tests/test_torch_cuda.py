@@ -15,14 +15,17 @@ from runlmc_tpu_torch.hopper import (
     capacitance,
     cg,
     chol_jitter,
+    chol_vjp,
     cross,
     fourier,
     interp,
+    kern_rows_fft,
     kuu,
     lanczos,
     minres,
     trsm,
 )
+from runlmc_tpu_torch.lmc import likelihood as lk
 from runlmc_tpu_torch.lmc import woodbury as wbm
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
@@ -729,3 +732,161 @@ def test_chol_jittered_flag_on_an_indefinite_matrix(dev, equilibrate,
     for (a, b), tol in zip(zip(out["cuda"][1:], out["cpu"][1:]),
                            (1e-8, 1e-5)):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _other_storage(X):
+    return X.mT.contiguous().mT if X.is_contiguous() else X.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 45, 130, 300])
+def test_chol_vjp_kernels(dev, dtype, n):
+    """The Cholesky VJP's two kernels against their plain versions, L and
+    L-bar in every pair of storage orders; one launch counted per call;
+    relaunches bit-identical; the whole backward exactly symmetric and
+    equal to torch's Cholesky backward, symmetrized."""
+    A = _k3_matrix(n, torch.float64, dev)
+    Lc = torch.linalg.cholesky_ex(A)[0].to(dtype)  # column-major
+    g = torch.Generator().manual_seed(n)
+    Lb = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    want = chol_vjp.chol_vjp_plain(Lc, Lb)
+    for L in (Lc, _other_storage(Lc)):
+        for G in (Lb, _other_storage(Lb)):
+            before = chol_vjp.chol_vjp.launches[sfx]
+            S = chol_vjp.chol_vjp(L, G)
+            assert chol_vjp.chol_vjp.launches[sfx] == before + 1
+            _close(S, want, dtype)
+            assert torch.equal(S, chol_vjp.chol_vjp(L, G))
+            assert torch.equal(S, S.mT)
+    X = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+    want = chol_vjp.chol_vjp_sym_plain(X)
+    got = chol_vjp.chol_vjp_sym(X.clone())
+    assert torch.equal(got, got.mT)
+    _close(got, want, dtype)
+    # a column-major X (cuBLAS's solves leave one) gives the same bits
+    assert torch.equal(chol_vjp.chol_vjp_sym(_other_storage(X)), got)
+    # the whole VJP against torch's, in float64 on the same factor (the
+    # float32 one's product refactored in float64)
+    L64 = Lc.double()
+    Lb64 = Lb.double()
+    a = (L64 @ L64.mT).requires_grad_(True)
+    (ref,) = torch.autograd.grad(torch.linalg.cholesky(a), a, Lb64)
+    ref = 0.5 * (ref + ref.mT)
+    got = chol_vjp.cholesky_backward(L64, Lb64)
+    assert torch.equal(got, got.mT) and got.is_contiguous()
+    assert float((got - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+
+
+def test_chol_vjp_raises_on_what_it_cannot_take(dev):
+    """No fallback: a CUDA tensor the kernels do not take raises."""
+    L = torch.eye(8, device=dev)
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp(L, L.double())
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp(L.half(), L.half())
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp(L[:, :4], L[:, :4])
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp_sym(L[:4, :4].half())
+
+
+def test_cholesky_ex_counts_on_the_training_path(dev):
+    """chol_jittered's gradient on the card launches the VJP's kernels
+    once per factorization and equals the CPU's."""
+    A = _k3_matrix(60, torch.float64, dev)
+    w = torch.randn(60, 60, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3))
+    out = {}
+    for where in ("cpu", "cuda"):
+        hopper.reset_launches()
+        X = A.to(where).requires_grad_(True)
+        F = wbm.chol_jittered(X)
+        (gX,) = torch.autograd.grad(torch.sum(torch.tril(w.to(where)) * F),
+                                    X)
+        out[where] = (gX.cpu(), hopper.launch_counts())
+    assert out["cuda"][1]["chol_vjp/f64"] == 1
+    assert out["cuda"][1]["chol_vjp_sym/f64"] == 1
+    assert out["cpu"][1]["chol_vjp/f64"] == 0
+    a, b = out["cuda"][0], out["cpu"][0]
+    assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes", [(37,), (9, 7), (2, 3, 5)])
+def test_kern_rows_fft(dev, dtype, sizes):
+    """K8 on the first rows: the embedding and the table's cotangent
+    against their plain versions (every kind); one launch each;
+    relaunches bit-identical."""
+    m = int(np.prod(sizes))
+    kinds, prm, dists = _kuu_table(5, m, dtype, dev, seed=m)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = dict(kern_rows_fft.kern_rows_fft.launches)
+    E = kern_rows_fft.kern_rows_fft(kinds, prm, dists, sizes)
+    before[sfx] += 1
+    assert kern_rows_fft.kern_rows_fft.launches == before
+    _close(E, kern_rows_fft.kern_rows_fft_plain(kinds, prm, dists, sizes),
+           dtype)
+    assert torch.equal(E, kern_rows_fft.kern_rows_fft(kinds, prm, dists,
+                                                      sizes))
+    G = torch.randn(E.shape, generator=torch.Generator().manual_seed(1),
+                    dtype=dtype).to(dev)
+    got = kern_rows_fft.kern_rows_fft_bwd(kinds, prm, dists, sizes, G)
+    _close(got, kern_rows_fft.kern_rows_fft_bwd_plain(kinds, prm, dists,
+                                                      sizes, G), dtype)
+    assert torch.equal(got, kern_rows_fft.kern_rows_fft_bwd(
+        kinds, prm, dists, sizes, G))
+
+
+def test_kern_rows_fft_raises_on_what_it_cannot_take(dev):
+    kinds, prm, dists = _kuu_table(3, 12, torch.float64, dev, seed=0)
+    with pytest.raises(ValueError):
+        kern_rows_fft.kern_rows_fft(kinds, prm, dists.float(), (12,))
+    with pytest.raises(ValueError):
+        kern_rows_fft.kern_rows_fft(kinds, prm, dists, (5,))
+    with pytest.raises(ValueError):
+        kern_rows_fft.kern_rows_fft((0,) * 65, torch.ones(65, 3, device=dev,
+                                                          dtype=prm.dtype),
+                                    dists, (12,))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_kernel_bwd_rank_one(dev, dtype):
+    """K7's backward with the rank-1 term formed in its loads against the
+    plain version on G - alpha alpha^T."""
+    args = _mixed_table(dtype, dev, na=80, nb=80)
+    args = args[:2] + args[:2] + args[4:]
+    alpha = torch.randn(80, generator=torch.Generator().manual_seed(2),
+                        dtype=dtype).to(dev)
+    got = cross.cross_kernel_bwd(*args, alpha=alpha)
+    want = cross.cross_kernel_bwd_plain(*args, alpha=alpha)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+def test_exact_mll_closed_form_matches_autograd(dev):
+    """The oracle's closed-form gradient on the card against autograd
+    through torch's Cholesky backward (the route it replaces)."""
+    rng = np.random.RandomState(5)
+    Xs = [np.sort(rng.uniform(0, 4, 40)) for _ in range(3)]
+    Ys = [np.sin(X + d) + 0.1 * rng.randn(40) for d, X in enumerate(Xs)]
+    spec = T.LMCKernelSpec.create(D=3, lmc_kernels=[T.RBF()],
+                                  lmc_ranks=[2])
+    mg = T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[16],
+                            device=dev)
+    grads = []
+    for closed in (True, False):
+        x = torch.as_tensor(mg.param_array, device=dev).requires_grad_(True)
+        from runlmc_tpu_torch.utils.carry import unravel_params
+        p = unravel_params(x, mg.params)
+        if closed:
+            v = lk.exact_mll(mg.spec, p, mg.X, mg.oidx, mg.y)
+        else:
+            L = torch.linalg.cholesky(lk.exact_dense_K(mg.spec, p, mg.X,
+                                                       mg.oidx))
+            alpha = torch.cholesky_solve(mg.y[:, None], L)[:, 0]
+            v = -0.5 * (torch.dot(mg.y, alpha) + 2 * torch.sum(torch.log(
+                torch.diagonal(L))) + len(mg.y) * np.log(2 * np.pi))
+        grads.append(torch.autograd.grad(v, x)[0].cpu())
+    a, b = grads
+    assert float((a - b).abs().max()) <= 1e-8 * float(b.abs().max())
