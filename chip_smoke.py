@@ -36,9 +36,16 @@ Phases:
    transposed variant and
    ``cho_solve``) at the shapes of its call sites (the weather model's
    own float32 capacitance factor, seeded well-conditioned factors for
-   the rest) in both storage orders, by agreement and by normwise
-   backward error, plus a NaN factor and ``ChoSolve``'s backward against
-   autograd through ``torch.cholesky_solve``; then build the synth model
+   the rest) in both storage orders, by agreement with its plain version
+   and with ``trsm_lower_schedule`` (the kernel's block order in plain
+   PyTorch) and by normwise backward error, bit-identical to the
+   per-block kernel (the chains' yardstick), plus a stress phase (k in
+   ``K5_STRESS_KS``, every c from 1 to 17, both storage orders and
+   directions, NaN factors), its float32 ``cho_solve`` error from the
+   float64 solve of the same factor within ``K5_F32_FACTOR`` times
+   ``cholesky_solve``'s at fx2007's and the weather twin's C, and
+   ``ChoSolve``'s backward against autograd through
+   ``torch.cholesky_solve``; then build the synth model
    of phase 15 and hold K1 with K8 fused in (k(r) on the grid from the
    kernel table) and its backward (the table's cotangent and d B, on
    seeded asymmetric cotangents), float32 and float64, at the fx2007
@@ -54,7 +61,10 @@ Phases:
    products), K2 on a seeded two-group model (cross blocks), and K9 at
    K4's shapes (the W applies of the weather step, the fx2007 predict
    preconditioner, kinv_diag's V = W F and the synth step) against
-   their plain versions, with the dense products (``torch.bmm`` +
+   their plain versions (the scatter's variant, a thread or a warp per
+   column, printed; relaunches bit-identical; and a skewed CSR with an
+   empty column and one of 50,000 entries in both variants), with the
+   dense products (``torch.bmm`` +
    ``matmul``), ``index_add_`` and ``embedding_bag`` as library
    yardsticks; K3 (the jittered Cholesky's prologue, epilogue and their
    backward, around cuSOLVER's Cholesky) on each model's own K_UU and C
@@ -124,8 +134,9 @@ Phases:
 9. stochastic training of the weather model: counters reset,
    ``optimize(AdaDelta())`` to its stopping rule, counters read: every
    kernel of ``hopper.STOCHASTIC_PATH`` must have launched, gradients
-   and parameters finite, the objective still stochastic and the worst
-   solve residual within ``_gradient_adopt_bound``; chunks profiled and
+   and parameters finite, the objective still stochastic, the worst
+   solve residual within ``_gradient_adopt_bound`` and PCG iterations per
+   solve at most ``WEATHER_PCG_MAX``; chunks profiled and
    K3's attempts and host reads counted, as in phase 7;
 10. ``predict`` the two held-out windows: every certified residual
    within the model tolerance and ``hopper.FFT_PREDICT_PATH`` launched
@@ -313,6 +324,15 @@ K8_OPS = 20.0
 # the ``path`` of a kernel row checked and timed at a shape that no path
 # of the port launches (its ``launches`` are 0)
 OFF_PATH = "not on a path at this shape"
+# K5's float32 solve held against the float64 solve of the same float32
+# factor: its error within this many times cholesky_solve's; and PCG
+# iterations per weather solve at most this (7.0312 before the chain, +2%;
+# K5 sums in the same order as before, so the count should not move)
+K5_F32_FACTOR = 1.25
+WEATHER_PCG_MAX = 7.17
+# K5's stress shapes: around one block, and a ragged multi-block factor
+K5_STRESS_KS = (1, 63, 64, 65, 1037)
+K5_STRESS_CS = tuple(range(1, 18))
 # rows per slab of the plain K7 and K7 backward at the weather shape,
 # and their timed calls (the plain backward takes about half a second)
 WSLAB = 1024
@@ -482,7 +502,7 @@ LAYERS = (
     ("K2 capacitance (hand, capacitance.cu)",
      lambda k: "gram_apply_kernel" in k or "::cap_kernel<" in k),
     ("K5 triangular solves (hand, trsm.cu)",
-     lambda k: "k5_trsm_lower<" in k),
+     lambda k: "k5_trsm_" in k),
     ("K7 backward", lambda k: "cross_kernel_bwd_kernel" in k),
     ("K13", lambda k: k.startswith("lanczos_")),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
@@ -716,6 +736,22 @@ def k5_apply(trsm, op, L, B, plain=False):
     if op == "cho_solve":
         return solve(L, solve(L, B), trans=True)
     return solve(L, B, trans=(op == "trsm_lower_t"))
+
+
+def k5_schedule(trsm, op, L, B):
+    """One K5 op in the kernel's block order (``trsm_lower_schedule``)."""
+    solve = trsm.trsm_lower_schedule
+    if op == "cho_solve":
+        return solve(L, solve(L, B), trans=True)
+    return solve(L, B, trans=(op == "trsm_lower_t"))
+
+
+def k5_per_block(trsm, op, L, B):
+    """One K5 op through the per-block kernel at any c (route 1): the
+    chain sums in its order, so the two agree to the bit."""
+    if op == "cho_solve":
+        return trsm._launch(L, trsm._launch(L, B, False, 1), True, 1)
+    return trsm._launch(L, B, op == "trsm_lower_t", 1)
 
 
 def k5_backward_error(L, B, X, op):
@@ -1600,16 +1636,26 @@ def main():
                 berr = k5_backward_error(Ls, Bk, got, kop)
                 worst["agree"] = max(worst["agree"], agree)
                 worst["backward"] = max(worst["backward"], berr)
+                require(torch.equal(got, k5_per_block(trsm, kop, Ls, Bk)),
+                        "%s at %s differs from the per-block kernel"
+                        % (kop, what))
                 del got, again
+        # the kernel's block order in plain PyTorch, on the timed op
+        worst["schedule"] = errors(k5_apply(trsm, op, Lf, Bk),
+                                   k5_schedule(trsm, op, Lf, Bk))[1]
         atol_, btol_ = ((1e-12, 1e-13) if dtype == torch.float64
                         else (1e-4, 1e-5))
         print("kernel trsm_lower %s (%s, k=%d, c=%d, both storages, three "
-              "ops): agreement %.3e (tol %.0e), backward error %.3e (tol "
-              "%.0e)" % (what, str(dtype).replace("torch.", ""), kk, cc,
-                         worst["agree"], atol_, worst["backward"], btol_),
-              flush=True)
+              "ops, bit-identical to the per-block kernel): agreement %.3e "
+              "(tol %.0e), with trsm_lower_schedule %.3e, backward error "
+              "%.3e (tol %.0e)" % (what, str(dtype).replace("torch.", ""),
+                                   kk, cc, worst["agree"], atol_,
+                                   worst["schedule"], worst["backward"],
+                                   btol_), flush=True)
         require(worst["agree"] <= atol_, "trsm_lower disagrees with its "
                 "plain version at %s" % what)
+        require(worst["schedule"] <= atol_, "trsm_lower disagrees with "
+                "trsm_lower_schedule at %s" % what)
         require(worst["backward"] <= btol_, "trsm_lower's backward error "
                 "at %s" % what)
         k5_checks.append(dict(what=what, dtype=str(dtype), k=kk, c=cc,
@@ -1634,7 +1680,8 @@ def main():
                                                     plain=True),
                tri + 2 * nbytes(Bk), flops, library_fn=library, path=path,
                product=True, extra={"op": op, "site": what, "k": kk, "c": cc,
-                      "backward_error": worst["backward"]})
+                      "backward_error": worst["backward"],
+                      "schedule_rel_err": worst["schedule"]})
         del Lf, Bk, Ls, library
     del wL32, k5_shapes
     # a NaN-masked factor (a failed exact Cholesky, likelihood._chol_or_nan)
@@ -1648,6 +1695,73 @@ def main():
             require(bool(torch.isnan(out).all()), "a NaN factor gave a "
                     "non-NaN solve")
         del Lnan
+    # K5 stress: k around one block and a ragged multi-block factor,
+    # every c through the chain's widths and one past them, both storage
+    # orders, both directions: agreement with the plain version, a
+    # relaunch and the per-block kernel bit-identical; a NaN factor at
+    # each k and c gives NaN
+    k5_stress = {"cases": 0, "worst": {}}
+    for dtype in (torch.float64, torch.float32):
+        tol_ = 1e-12 if dtype == torch.float64 else 1e-4
+        worst_ = 0.0
+        for kk in K5_STRESS_KS:
+            Ls_ = k5_seeded_factor(kk, dtype, dev)
+            Lnan = torch.full((kk, kk), float("nan"), dtype=dtype,
+                              device=dev)
+            for cc in K5_STRESS_CS:
+                Bs_ = randn(cc, kk, dtype=dtype)
+                for Lq in (Ls_, k5_other_storage(Ls_)):
+                    for kop in ("trsm_lower", "trsm_lower_t"):
+                        got = k5_apply(trsm, kop, Lq, Bs_)
+                        require(torch.equal(got, k5_apply(trsm, kop, Lq,
+                                                          Bs_))
+                                and torch.equal(got, k5_per_block(
+                                    trsm, kop, Lq, Bs_)),
+                                "%s is not bit-identical (k=%d, c=%d)"
+                                % (kop, kk, cc))
+                        err_ = errors(got, k5_apply(trsm, kop, Lq, Bs_,
+                                                    plain=True))[1]
+                        require(err_ <= tol_, "%s disagrees with its plain "
+                                "version (k=%d, c=%d, %s)" % (kop, kk, cc,
+                                                              dtype))
+                        worst_ = max(worst_, err_)
+                        k5_stress["cases"] += 1
+                out = trsm.cho_solve(Lnan, Bs_)
+                torch.cuda.synchronize()
+                require(bool(torch.isnan(out).all()), "a NaN factor gave a "
+                        "non-NaN solve (k=%d, c=%d)" % (kk, cc))
+            del Ls_, Lnan
+        k5_stress["worst"][str(dtype)] = worst_
+    print("kernel trsm_lower stress (k %s, c 1..17, both storages and "
+          "directions, %d cases): worst agreement %s, bit-identical across "
+          "relaunches and with the per-block kernel, NaN factors give NaN"
+          % (K5_STRESS_KS, k5_stress["cases"], k5_stress["worst"]),
+          flush=True)
+
+    # K5's float32 error: the float32 cho_solve against the float64 solve
+    # of the same float32 factor, beside cholesky_solve's, on fx2007's and
+    # the weather twin's own float32 capacitance factors
+    k5_f32 = {}
+    for what, Lq, cc in (("fx2007", model._woodbury32().L_C, 1),
+                         ("weather twin", wm._woodbury32().L_C, nrhs)):
+        Bq = randn(cc, Lq.shape[0], dtype=torch.float32)
+        want = torch.cholesky_solve(Bq.double().mT, Lq.double()).mT
+        e_k5 = errors(trsm.cho_solve(Lq, Bq), want)[1]
+        e_lib = errors(torch.cholesky_solve(Bq.mT, Lq).mT, want)[1]
+        k5_f32[what] = {"k": Lq.shape[0], "c": cc, "k5": e_k5,
+                        "cholesky_solve": e_lib, "ratio": e_k5 / e_lib}
+        print("kernel trsm_lower float32 cho_solve at %s's C (k=%d, c=%d): "
+              "error from the float64 solve %.3e, cholesky_solve's %.3e "
+              "(ratio %.3f, at most %.2f)" % (what, Lq.shape[0], cc, e_k5,
+                                             e_lib, e_k5 / e_lib,
+                                             K5_F32_FACTOR), flush=True)
+        require(e_k5 <= K5_F32_FACTOR * e_lib, "K5's float32 error at %s's "
+                "C exceeds %.2f times cholesky_solve's" % (what,
+                                                          K5_F32_FACTOR))
+        del Lq, Bq, want
+    for mdl in (model, wm):
+        mdl._cache.pop("woodbury32")
+
     # ChoSolve's backward against autograd through torch.cholesky_solve
     # at the fx2007 float64 shape
     Lg = k5_seeded_factor(dm_fx, torch.float64, dev).contiguous()
@@ -2365,6 +2479,11 @@ def main():
             rowsx = torch.arange(n_, device=dev).repeat_interleave(taps)
             xT = x.T.contiguous()
             acc = torch.zeros(W.ncols, nb, dtype=dtype, device=dev)
+            again = interp.interp_scatter(*csr, x)
+            torch.cuda.synchronize()
+            require(torch.equal(out, again), "interp_scatter is not "
+                    "deterministic at %s" % site)
+            variant = interp.scatter_variant(W.ncols, W.t_rows.shape[0], nb)
             record("interp_scatter", dtype, "cuda",
                    "runlmc_tpu_torch/hopper/csrc/interp.cu",
                    "runlmc_tpu/lmc/woodbury.py:141", out,
@@ -2375,7 +2494,10 @@ def main():
                    library_fn=lambda acc=acc, flat=flat, xT=xT, rowsx=rowsx,
                    wcol=wcol: acc.zero_().index_add_(0, flat,
                                                      xT[rowsx] * wcol),
-                   path=path, extra={"site": site, "columns": nb})
+                   path=path, extra={"site": site, "columns": nb,
+                                     "variant": ("warp" if variant ==
+                                                 interp.SCATTER_WARP
+                                                 else "thread")})
         if "gather" in which:
             v = randn(nb, W.ncols, dtype=dtype)
             out = interp.interp_gather(W.indices, W.weights, v)
@@ -2407,6 +2529,53 @@ def main():
             which=("gather",))
     k9_rows(sm.grid_data32[0].interp, 1, torch.float32, "synth",
             "synth exact step")
+
+    # K9's scatter on a skewed CSR: an empty column, one column of 50,000
+    # entries and 198 of 100, over 50,000 rows, in both variants (1 and
+    # 16 batch rows take the warp variant, 1400 the thread variant):
+    # agreement with the plain version and with the warp variant's order
+    # in plain PyTorch (both pad every column to the longest, so on at
+    # most 16 batch rows), and bit-identical relaunches
+    k9_skew = {}
+    sk_gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    sk_deg = torch.full((200,), 100, dtype=torch.int64)
+    sk_deg[0], sk_deg[1] = 0, 50000
+    sk_ptr = torch.zeros(201, dtype=torch.int64)
+    sk_ptr[1:] = torch.cumsum(sk_deg, 0)
+    sk_nnz = int(sk_ptr[-1])
+    sk_rows = torch.randint(0, 50000, (sk_nnz,), generator=sk_gen,
+                            dtype=torch.int32).to(dev)
+    sk_csr = (sk_ptr.to(torch.int32).to(dev), sk_rows)
+    for dtype in (torch.float32, torch.float64):
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        sk_wt = randn(sk_nnz, dtype=dtype)
+        for nb in (1, 16, 1400):
+            x = randn(nb, 50000, dtype=dtype)
+            out = interp.interp_scatter(*sk_csr, sk_wt, x)
+            again = interp.interp_scatter(*sk_csr, sk_wt, x)
+            torch.cuda.synchronize()
+            variant = interp.scatter_variant(200, sk_nnz, nb)
+            e_plain = errors(out[:16], interp.interp_scatter_plain(
+                *sk_csr, sk_wt, x[:16]))[1]
+            e_lanes = errors(out[:16], interp.interp_scatter_lanes(
+                *sk_csr, sk_wt, x[:16]))[1]
+            require(torch.equal(out, again), "interp_scatter is not "
+                    "deterministic on the skewed CSR")
+            require(e_plain <= tol and e_lanes <= tol, "interp_scatter "
+                    "disagrees on the skewed CSR (%s, %d batch rows)"
+                    % (dtype, nb))
+            require(bool((out[:, 0] == 0).all()), "the empty column is "
+                    "not zero")
+            k9_skew["%s/%d" % (str(dtype).replace("torch.", ""), nb)] = {
+                "variant": "warp" if variant == interp.SCATTER_WARP
+                else "thread", "plain": e_plain, "lanes": e_lanes}
+        del sk_wt, x, out, again
+    require({v["variant"] for v in k9_skew.values()} == {"warp", "thread"},
+            "the skewed CSR did not run both scatter variants")
+    print("kernel interp_scatter on a skewed CSR (200 columns: one empty, "
+          "one of 50000 entries): %s, relaunches bit-identical"
+          % json.dumps(k9_skew), flush=True)
+    del sk_csr, sk_rows
     phase_done("3 models and kernels")
 
     # ------------------------------------------------------------ phase 4
@@ -3011,6 +3180,9 @@ def main():
               "step" % (what, wab[what]["n_iter"],
                         wab[what]["mean_solve_iters"],
                         wab[what]["chunk_wall_ms_per_step"]), flush=True)
+    require(wab["k2"]["mean_solve_iters"] <= WEATHER_PCG_MAX,
+            "PCG iterations per weather solve %.4f above %.2f"
+            % (wab["k2"]["mean_solve_iters"], WEATHER_PCG_MAX))
     require(np.all(np.isfinite(linfo["grad_norms"])),
             "non-finite gradients with the library capacitance")
 
@@ -3919,6 +4091,8 @@ def main():
             "float32_exact_lmc_grad": f32_oracle,
         },
         "k5_checks": k5_checks, "k5_grad_rel_err": k5_grad_err,
+        "k5_stress": k5_stress, "k5_f32_error": k5_f32,
+        "k9_skewed": k9_skew,
         "k2_checks": k2_checks,
         "synth": {
             "n": sum(len(y) for y in sys_),

@@ -6,10 +6,16 @@
 Replaces runlmc_tpu/ops/interpolation.py:219-240 (``Interp.matvec``, a
 take + einsum, and ``Interp.rmatvec``, a scatter-add). The scatter reads
 a transposed CSR of W built once on the host (``ptr``, ``rows``,
-``wt``), so each output column is one thread's private sum: no atomics,
-the same result on every run. Both CUDA kernels (``csrc/interp.cu``)
-are bound by bytes. The plain versions below are what the wrappers run
-for CPU tensors.
+``wt``), so each output column is a private sum: no atomics, the same
+result on every run. It has two variants, chosen by
+:func:`scatter_variant` from (ncols, nnz, nbatch) alone: a thread per
+column for short columns over many batch rows, a warp per column (lanes
+on strided entries, then a fixed shuffle tree) for long columns that
+would leave the card idle (synth's one-column apply).
+Both CUDA kernels (``csrc/interp.cu``) are bound by bytes. The plain
+versions below are what the wrappers run for CPU tensors;
+:func:`interp_scatter_lanes` sums in the warp variant's order, for the
+tests.
 
 They are also K4, the per-output W-block applies of the Woodbury
 factorization and of the dense SKI matvec (runlmc_tpu/lmc/woodbury.py:
@@ -43,6 +49,49 @@ def interp_scatter_plain(ptr, rows, wt, x):
     w_e = torch.where(valid, wt[pos], torch.zeros((), dtype=wt.dtype,
                                                    device=wt.device))
     return torch.sum(x[..., rows[pos].long()] * w_e, dim=-1)
+
+
+# scatter variants (csrc/interp.cu kScatterThread, kScatterWarp)
+SCATTER_THREAD = 0
+SCATTER_WARP = 1
+# a warp per column once the columns average this many entries and the
+# thread variant's ncols * nbatch threads fall short of the card's
+# resident threads (132 SMs x 2048)
+WARP_MIN_MEAN = 16
+CARD_THREADS = 132 * 2048
+WARP = 32
+
+
+def scatter_variant(ncols, nnz, nbatch):
+    """The scatter kernel's variant for a CSR of ``ncols`` columns and
+    ``nnz`` entries applied to ``nbatch`` batch rows: a pure function of
+    the three."""
+    if nnz >= WARP_MIN_MEAN * ncols and ncols * nbatch < CARD_THREADS:
+        return SCATTER_WARP
+    return SCATTER_THREAD
+
+
+def interp_scatter_lanes(ptr, rows, wt, x):
+    """W^T x in the warp variant's order: lane l of a column's warp sums
+    its entries l, l + 32, ... in turn, then the xor tree (offsets 16,
+    8, 4, 2, 1) adds the lane sums; lane 0's total is the column's."""
+    deg = ptr[1:] - ptr[:-1]
+    width = -(-int(deg.max()) // WARP) * WARP if deg.numel() else 0
+    k = torch.arange(width, device=ptr.device)
+    pos = ptr[:-1, None].long() + k[None, :]
+    valid = k[None, :] < deg[:, None]
+    pos = torch.where(valid, pos, torch.zeros_like(pos))
+    w_e = torch.where(valid, wt[pos], torch.zeros((), dtype=wt.dtype,
+                                                   device=wt.device))
+    terms = (x[..., rows[pos].long()] * w_e).unflatten(-1, (-1, WARP))
+    acc = torch.zeros(terms.shape[:-2] + (WARP,), dtype=x.dtype,
+                      device=x.device)
+    for i in range(terms.shape[-2]):
+        acc = acc + terms[..., i, :]
+    lane = torch.arange(WARP, device=ptr.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    return acc[..., 0]
 
 
 def _flat_batch(t):
@@ -96,12 +145,13 @@ def interp_scatter(ptr, rows, wt, x):
     sfx = build.suffix("interp_scatter", x.dtype)
     fn = build.function(
         "interp", "interp_scatter_" + sfx,
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     if out.numel():
+        variant = scatter_variant(ncols, rows.shape[0], x2.shape[0])
         build.check(fn(build.ptr(ptr), build.ptr(rows), build.ptr(wt),
                        build.ptr(x2), build.ptr(out), n, ncols, x2.shape[0],
-                       build.stream_ptr()), "interp_scatter")
+                       variant, build.stream_ptr()), "interp_scatter")
         interp_scatter.launches[sfx] += 1
     return out.reshape(batch + (ncols,))
 

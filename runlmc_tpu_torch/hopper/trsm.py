@@ -11,23 +11,21 @@ callers hold them. Replaces runlmc_tpu/lmc/woodbury.py:186-195
 :313-337 (``kinv_diag``, ``solve_triangular``), which XLA expands into
 blocked matmuls, and the solves of the exact oracle and the dense
 'exact' predictions. The CUDA kernel (``csrc/trsm.cu``) runs one launch
-per triangle: a CTA per (64-row block, tile of right-hand sides) that
-waits on the blocks before it through per-block flags; it takes L in
-row-major or column-major storage (cuSOLVER's Cholesky leaves the
-latter), so no caller copies a factor. :func:`trsm_lower_plain` is the
-plain PyTorch version, which the wrapper runs for CPU tensors.
-
-:class:`ChoSolve` is ``cho_solve`` as an autograd function. In column
-notation (right-hand sides as columns), for X = C^-1 S with C = L L^T
-and a cotangent G of X,
-
-    S-bar = C^-1 G                      (two more K5 launches)
-    L-bar = -(S-bar (X^T L) + X (S-bar^T L)),
-
-torch's ``cholesky_solve`` rule -(S-bar X^T + X S-bar^T) L reordered to
-cost O(k^2 c) instead of O(k^3). L-bar is the full (k, k) matrix, as
-torch returns it; a Cholesky backward reads its lower triangle. The two
-products stay ``torch.matmul``, as JAX computes them outside any kernel.
+per triangle in 64-row blocks. For c <= 16 right-hand sides (training,
+the oracle, the stochastic preconditioner) one chain CTA per right-hand
+side walks every block and keeps the solved block in shared memory,
+while helper CTAs stream L's row bands once for all of them and publish
+each block's lagged sum over the blocks solved more than
+:data:`LOOKAHEAD` steps before it; for wider c a CTA per (block, tile of
+right-hand sides) waits on the blocks before it through per-block
+flags. Both sum the same terms in the same order (each coupling tile's
+terms apart, in the order the solve produced them), so they agree to
+the bit. L is taken in row-major or column-major storage (cuSOLVER's
+Cholesky leaves the latter), so no caller copies a factor.
+:func:`trsm_lower_plain` is the plain PyTorch version, which the wrapper
+runs for CPU tensors; :func:`trsm_lower_schedule` follows the kernel's
+block order and its split between the helpers and the chain, for the
+tests.
 """
 
 import ctypes
@@ -36,10 +34,14 @@ import torch
 
 from runlmc_tpu_torch.hopper import build
 
-# rows of a block and the narrowest tile of right-hand sides of the
-# kernel (csrc/trsm.cu): the wrapper sizes the flag scratch from them
+# rows of a block, the narrowest tile of right-hand sides of the
+# per-block kernel and the widest c the chain takes (csrc/trsm.cu): the
+# wrapper sizes the flag and partial-sum scratch from them
 _NB = 64
 _CT_MIN = 16
+_NARROW = 16
+# the coupling tiles the chain takes away itself (kLookahead)
+LOOKAHEAD = 2
 
 
 def _check(L, B):
@@ -75,6 +77,81 @@ def trsm_lower_plain(L, B, trans=False):
     return torch.linalg.solve_triangular(L, B.mT, upper=False).mT
 
 
+def schedule_plan(nblocks, trans=False, lookahead=LOOKAHEAD):
+    """The kernel's order: for each step s, ``(block, helper_blocks,
+    chain_blocks)``: the row block solved at step s (descending for
+    ``trans``), the blocks whose coupling tiles a helper sums (steps
+    before s - lookahead) and those the chain takes away itself, each in
+    the order they are taken."""
+    def at(s):
+        return nblocks - 1 - s if trans else s
+
+    return [(at(s), [at(j) for j in range(max(0, s - lookahead))],
+             [at(j) for j in range(max(0, s - lookahead), s)])
+            for s in range(nblocks)]
+
+
+def trsm_lower_schedule(L, B, trans=False, lookahead=LOOKAHEAD):
+    """Plain PyTorch in the kernel's order (:func:`schedule_plan`): block
+    i's sum starts from B_i and takes away each coupling tile's 64 terms,
+    summed apart (a product here), the helpers' tiles first; the diagonal
+    block is then solved by substitution with reciprocal pivots. For the
+    tests and the card's checks; the wrapper's CPU path is
+    :func:`trsm_lower_plain`."""
+    k = L.shape[0]
+    X = torch.zeros_like(B)
+
+    def rows(b):
+        return slice(b * _NB, min(k, (b + 1) * _NB))
+
+    def coupling(bi, bj):  # maps X_bj into block bi
+        return L[rows(bj), rows(bi)].mT if trans else L[rows(bi), rows(bj)]
+
+    for bi, helper_blocks, chain_blocks in schedule_plan(
+            -(-k // _NB), trans, lookahead):
+        acc = B[:, rows(bi)].clone()
+        for bj in helper_blocks + chain_blocks:
+            acc = acc - X[:, rows(bj)] @ coupling(bi, bj).mT
+        D = L[rows(bi), rows(bi)]
+        inv = 1.0 / torch.diagonal(D)
+        nr = D.shape[0]
+        for r in (range(nr - 1, -1, -1) if trans else range(nr)):
+            x = acc[:, r] * inv[r]
+            acc[:, r] = x
+            if trans:
+                acc[:, :r] -= x[:, None] * D[r, :r][None, :]
+            else:
+                acc[:, r + 1:] -= x[:, None] * D[r + 1:, r][None, :]
+        X[:, rows(bi)] = acc
+    return X
+
+
+def _launch(L, B, trans, route):
+    """One K5 launch (route 0: the chains for c <= 16, the per-block
+    kernel past it; route 1: the per-block kernel at any c, the chains'
+    yardstick on the card)."""
+    k, c = L.shape[0], B.shape[0]
+    X = torch.empty_like(B)
+    if k == 0 or c == 0:
+        return X
+    build.require_cuda("trsm_lower", B)
+    lcol = 0 if L.is_contiguous() else 1
+    nblocks = -(-k // _NB)
+    flags = torch.empty(max(nblocks * -(-c // _CT_MIN) + 1, nblocks + c),
+                        dtype=torch.int32, device=B.device)
+    P = torch.empty(nblocks * _NB * _NARROW if c <= _NARROW else 1,
+                    dtype=B.dtype, device=B.device)
+    sfx = build.suffix("trsm_lower", B.dtype)
+    fn = build.function(
+        "trsm", "k5_trsm_" + sfx,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
+    build.check(fn(build.ptr(L), build.ptr(B), build.ptr(X), build.ptr(P),
+                   build.ptr(flags), k, c, int(bool(trans)), lcol, route,
+                   build.stream_ptr()), "trsm_lower")
+    return X
+
+
 def trsm_lower(L, B, trans=False):
     """Each row x of the result solves L x = b (L^T x = b with
     ``trans``) for the matching row b of ``B`` (c, k); ``L`` (k, k) is
@@ -83,23 +160,9 @@ def trsm_lower(L, B, trans=False):
     _check(L, B)
     if build.use_plain("trsm_lower", B):
         return trsm_lower_plain(L, B, trans)
-    k, c = L.shape[0], B.shape[0]
-    X = torch.empty_like(B)
-    if k == 0 or c == 0:
-        return X
-    build.require_cuda("trsm_lower", B)
-    lcol = 0 if L.is_contiguous() else 1
-    nflags = -(-k // _NB) * -(-c // _CT_MIN) + 1
-    flags = torch.empty(nflags, dtype=torch.int32, device=B.device)
-    sfx = build.suffix("trsm_lower", B.dtype)
-    fn = build.function(
-        "trsm", "k5_trsm_" + sfx,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    )
-    build.check(fn(build.ptr(L), build.ptr(B), build.ptr(X),
-                   build.ptr(flags), k, c, int(bool(trans)), lcol,
-                   build.stream_ptr()), "trsm_lower")
-    trsm_lower.launches[sfx] += 1
+    X = _launch(L, B, trans, 0)
+    if X.numel():
+        trsm_lower.launches[build.suffix("trsm_lower", B.dtype)] += 1
     return X
 
 

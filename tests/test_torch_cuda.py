@@ -538,6 +538,47 @@ def test_trsm_lower(dev, dtype, trans, k, c):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k, c", [(1, 1), (65, 3), (300, 1), (333, 16),
+                                  (520, 7)])
+def test_trsm_chains_match_the_per_block_kernel(dev, dtype, trans, k, c):
+    """c <= 16 runs the chains with helpers; they sum in the per-block
+    kernel's order, so the two agree to the bit, and with the plain
+    version and the kernel's block order in plain PyTorch."""
+    g = torch.Generator().manual_seed(3)
+    L = _spd_factor(k, dtype, dev)
+    B = torch.randn(c, k, generator=g, dtype=dtype).to(dev)
+    for Ls in (L, L.contiguous()):
+        got = trsm.trsm_lower(Ls, B, trans=trans)
+        assert torch.equal(got, trsm._launch(Ls, B, trans, 1))
+        _close(got, trsm.trsm_lower_plain(Ls, B, trans), dtype)
+        _close(got, trsm.trsm_lower_schedule(Ls, B, trans), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nbatch", [1, 16, 1400])
+def test_interp_scatter_variants_on_a_skewed_csr(dev, dtype, nbatch):
+    """An empty column and one far longer than the rest, in the variant
+    the shape selects (a warp per column for 1 and 16 batch rows, a
+    thread per column for 1400): relaunches are bit-identical."""
+    g = torch.Generator().manual_seed(4)
+    deg = torch.full((200,), 20, dtype=torch.int64)
+    deg[0], deg[1] = 0, 5000
+    ptr = torch.zeros(201, dtype=torch.int64)
+    ptr[1:] = torch.cumsum(deg, 0)
+    nnz = int(ptr[-1])
+    rows = torch.randint(0, 3000, (nnz,), generator=g, dtype=torch.int32)
+    wt = torch.randn(nnz, generator=g, dtype=dtype)
+    x = torch.randn(nbatch, 3000, generator=g, dtype=dtype)
+    csr = (ptr.to(torch.int32).to(dev), rows.to(dev), wt.to(dev))
+    got = interp.interp_scatter(*csr, x.to(dev))
+    assert torch.equal(got, interp.interp_scatter(*csr, x.to(dev)))
+    want = interp.interp_scatter_plain(*(t.cpu() for t in csr), x[:16])
+    _close(got[:16].cpu(), want, dtype)
+    assert bool((got[:, 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cho_solve_nan_factor(dev, dtype):
     L = torch.full((130, 130), float("nan"), dtype=dtype, device=dev)
     X = trsm.cho_solve(L, torch.ones(5, 130, dtype=dtype, device=dev))

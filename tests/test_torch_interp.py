@@ -7,9 +7,13 @@ import pytest
 import torch
 
 from runlmc_tpu.ops import interpolation as ji
+from runlmc_tpu_torch.hopper import build
+from runlmc_tpu_torch.hopper import interp as tinterp
 from runlmc_tpu_torch.hopper.interp import (
     interp_gather_plain,
+    interp_scatter_lanes,
     interp_scatter_plain,
+    scatter_variant,
 )
 from runlmc_tpu_torch.ops import interpolation as ti
 
@@ -96,3 +100,79 @@ def test_host_builders_match(dim):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(ji.cubic_kernel(np.linspace(-3, 3, 61)),
                                   ti.cubic_kernel(np.linspace(-3, 3, 61)))
+
+
+def _skewed_interpolant(rng):
+    """A 1-D interpolant whose transposed CSR has clamped-edge duplicates,
+    empty columns (no point near the grid's middle) and four columns far
+    longer than the rest (400 points at one spot)."""
+    axes = [np.linspace(0.0, 1.0, 16)]
+    pts = np.concatenate([rng.uniform(0.0, 0.3, 30), rng.uniform(0.7, 1.0, 30),
+                          [-0.2, 0.0, 1.0, 1.3], np.full(400, 0.9)])
+    return axes, [pts, rng.uniform(0.0, 0.25, 9)]
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_warp_scatter_order_matches_reference_rmatvec(batch):
+    """The warp variant's order (strided lane sums, then the xor tree)
+    against the JAX package's scatter-add, float64."""
+    rng = np.random.RandomState(7)
+    axes, Xs = _skewed_interpolant(rng)
+    with np.errstate(all="ignore"):
+        Wj = ji.multi_interpolant(Xs, axes)
+        Wt = ti.multi_interpolant(Xs, axes)
+    deg = np.diff(Wt.t_ptr)
+    assert deg.min() == 0 and deg.max() >= 10 * np.median(deg[deg > 0])
+    assert any(len(set(r)) < len(r) for r in np.asarray(Wt.indices))
+    W = Wt.to(torch.float64, "cpu")
+    x = rng.standard_normal(batch + (Wt.shape[0],))
+    got = interp_scatter_lanes(W.t_ptr, W.t_rows, W.t_weights,
+                               torch.as_tensor(x)).numpy()
+    want = np.asarray(Wj.rmatvec(jnp.asarray(x)))
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+    assert np.all(got[..., deg == 0] == 0)
+
+
+def test_scatter_variant_is_a_pure_function_of_the_shape():
+    sites = {
+        (4205, 759680, 1): tinterp.SCATTER_WARP,      # synth, one column
+        (10016, 63072, 16): tinterp.SCATTER_THREAD,   # weather, 16
+        (3094, 12452, 151): tinterp.SCATTER_THREAD,   # fx2007 predict
+        (3094, 12452, 1): tinterp.SCATTER_THREAD,     # predict's mean
+        (4205, 759680, 4096): tinterp.SCATTER_THREAD,  # columns fill the card
+        (1, 0, 1): tinterp.SCATTER_THREAD,            # empty CSR
+    }
+    for args, want in sites.items():
+        assert [scatter_variant(*args) for _ in range(3)] == [want] * 3
+        assert scatter_variant(**dict(zip(("ncols", "nnz", "nbatch"),
+                                          args))) == want
+
+
+def test_scatter_wrapper_launches_the_variant_of_its_shape(monkeypatch):
+    """The wrapper's host path (with the card's calls stubbed): it passes
+    scatter_variant(ncols, nnz, nbatch) of its operands to the kernel."""
+    rng = np.random.RandomState(8)
+    axes, Xs = _skewed_interpolant(rng)
+    W = ti.multi_interpolant(Xs, axes).to(torch.float64, "cpu")
+    seen = []
+
+    def fake_function(name, symbol, argtypes):
+        def fn(*args):
+            seen.append((symbol, args[5:9]))
+            return 0
+        return fn
+
+    monkeypatch.setattr(build, "use_plain", lambda what, t: False)
+    monkeypatch.setattr(build, "require_cuda", lambda what, *ts: None)
+    monkeypatch.setattr(build, "function", fake_function)
+    monkeypatch.setattr(build, "stream_ptr", lambda: None)
+    before = dict(tinterp.interp_scatter.launches)
+    for nb in (1, 5):
+        x = torch.as_tensor(rng.standard_normal((nb, W.shape[0])))
+        tinterp.interp_scatter(W.t_ptr, W.t_rows, W.t_weights, x)
+    nnz = W.t_rows.shape[0]
+    assert seen == [("interp_scatter_f64",
+                     (W.shape[0], W.ncols, nb,
+                      scatter_variant(W.ncols, nnz, nb))) for nb in (1, 5)]
+    assert tinterp.interp_scatter.launches["f64"] == before["f64"] + 2

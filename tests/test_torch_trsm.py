@@ -79,6 +79,42 @@ def test_cho_solve_matches_jax(k, c):
                FWD_RTOL)
 
 
+# the kernel's order on the CPU: up to LOOKAHEAD + 1 = 3 blocks (k <= 130)
+# the chain alone, 300 (5 blocks) with helpers' lagged sums; 63, 65 and
+# 130 end in a ragged block
+SCHED_KS = [1, 63, 64, 65, 130, 300]
+SCHED_RTOL = 1e-10
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("c", [1, 3, 16])
+@pytest.mark.parametrize("k", SCHED_KS)
+def test_trsm_lower_schedule_matches_jax(k, c, trans):
+    L, B = _factor(k), _rhs(c, k)
+    want = jsl.solve_triangular(jnp.asarray(L), jnp.asarray(B.T), lower=True,
+                                trans=1 if trans else 0).T
+    # the upper triangle is never read
+    Lg = L + np.triu(np.full((k, k), 7.0), 1)
+    got = trsm.trsm_lower_schedule(torch.as_tensor(Lg), torch.as_tensor(B),
+                                   trans=trans)
+    _close(got.numpy(), want, SCHED_RTOL)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("nblocks", [1, 2, 3, 4, 7])
+def test_schedule_plan_splits_by_step_and_lookahead(nblocks, trans):
+    """Each step takes every block solved before it once, in the order
+    they were solved: the helpers' blocks, then the chain's last
+    LOOKAHEAD."""
+    plan = trsm.schedule_plan(nblocks, trans)
+    order = [b for b, _, _ in plan]
+    assert order == (list(range(nblocks))[::-1] if trans
+                     else list(range(nblocks)))
+    for s, (_, helper_blocks, chain_blocks) in enumerate(plan):
+        assert helper_blocks + chain_blocks == order[:s]
+        assert len(chain_blocks) == min(s, trsm.LOOKAHEAD)
+
+
 def _grads(fn, L, S, G):
     Lt = torch.as_tensor(L).requires_grad_(True)
     St = torch.as_tensor(S).requires_grad_(True)
