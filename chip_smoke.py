@@ -57,10 +57,14 @@ Phases:
    at the fx2007, synth and weather-twin shapes on each model's own
    factors and noise, bit-identical across launches and storage orders,
    K2's backward at the fx2007 and synth shapes on a seeded asymmetric
-   cotangent (also against autograd through the dense library
-   products), K2 on a seeded two-group model (cross blocks), and K9 at
-   K4's shapes (the W applies of the weather step, the fx2007 predict
-   preconditioner, kinv_diag's V = W F and the synth step) against
+   cotangent (its library yardstick one ``torch.matmul(T_a, S[:, cols
+   of a])`` per group, and autograd through the dense library products
+   as a second figure), each K2 row with its device time split by
+   kernel (``k2_gram_apply``, ``k2_cap``; ``k2_sym``, ``k2_cap_bwd``,
+   ``k2_cap_bwd_finish``, ``k2_eps_reduce``), K2 on a seeded two-group
+   model (cross blocks), and K9 at K4's shapes (the W applies of the
+   weather step, the fx2007 predict preconditioner, kinv_diag's V = W F
+   and the synth step) against
    their plain versions (the scatter's variant, a thread or a warp per
    column, printed; relaunches bit-identical; and a skewed CSR with an
    empty column and one of 50,000 entries in both variants), with the
@@ -498,7 +502,9 @@ def device_profile(fn, reps=1, ranges=False):
 # cuBLAS's trsm's and cuSOLVER's own updates.
 LAYERS = (
     ("K2 backward (hand, capacitance.cu)",
-     lambda k: "cap_bwd_kernel" in k or "eps_reduce_kernel" in k),
+     lambda k: any(p in k for p in ("cap_bwd_kernel", "cap_sym_kernel",
+                                    "cap_bwd_finish_kernel",
+                                    "eps_reduce_kernel"))),
     ("K2 capacitance (hand, capacitance.cu)",
      lambda k: "gram_apply_kernel" in k or "::cap_kernel<" in k),
     ("K5 triangular solves (hand, trsm.cu)",
@@ -838,6 +844,57 @@ def k2_work(gds, esize):
     bwd_bytes = esize * (tri + sum(kk * k for kk in ks) + k * k + D
                          + sum(kk * kk for kk in ks) + D)
     return fwd_bytes, fwd, bwd_bytes, bwd, dense
+
+
+# K2's kernels by the name the profiler gives them: the forward's two
+# stages, then the backward's S = C-bar + C-bar^T pass, its tiles, the
+# pass that scales F-bar and sums the d(eps^-1) partials, and their
+# fixed-order reduction
+K2_KERNELS = (("k2_gram_apply", "gram_apply_kernel"),
+              ("k2_cap", "::cap_kernel<"),
+              ("k2_sym", "cap_sym_kernel"),
+              ("k2_cap_bwd", "cap_bwd_kernel"),
+              ("k2_cap_bwd_finish", "cap_bwd_finish_kernel"),
+              ("k2_eps_reduce", "eps_reduce_kernel"))
+
+
+def k2_split(fn, reps=10):
+    """{kernel: {"us_per_launch", "launches_per_call"}} of ``fn`` (K2 or
+    its backward) by kernel name, from the profiler over ``reps`` calls.
+    The time is per launch counted: the profiler can drop a launch from
+    its window (0.67-0.9 counted per call in one run), which would read
+    low as a sum per call."""
+    rows_ = device_profile(fn, reps=reps)[1]
+    out = {}
+    for key, count, ms in rows_:
+        for tag, pat in K2_KERNELS:
+            if pat in key:
+                acc = out.setdefault(tag, [0, 0.0])
+                acc[0] += count
+                acc[1] += ms
+    return {tag: {"us_per_launch": v[1] * 1e3 / v[0],
+                  "launches_per_call": v[0] / reps}
+            for tag, v in out.items()}
+
+
+def k2_split_text(split):
+    return ", ".join("%s %.1f us a launch (%g per call)"
+                     % (t, v["us_per_launch"], v["launches_per_call"])
+                     for t, v in split.items())
+
+
+def k2_matmul_yardstick(Ts, Cbar, offs, ks):
+    """The backward's library yardstick: one ``torch.matmul(T_a, S[:,
+    cols of a])`` per group, S = C-bar + C-bar^T formed outside the
+    timed call; never called by the port."""
+    import torch
+
+    S = Cbar + Cbar.T
+
+    def run():
+        return [torch.matmul(T_a, S[:, o:o + k_])
+                for T_a, o, k_ in zip(Ts, offs, ks)]
+    return run
 
 
 def k2_library(grams, inv_eps, Fs):
@@ -2008,6 +2065,11 @@ def main():
         require(errors(lib(), cap.capacitance_plain(nest, inv_e, Fs_)[0])[1]
                 <= ftol, "the dense library products disagree with K2's "
                 "plain version")
+        fwd_fn = (lambda nest=nest, inv_e=inv_e, Fs_=Fs_:
+                  cap.capacitance(nest, inv_e, Fs_))
+        split = k2_split(fwd_fn, reps=3 if weather else 10)
+        print("kernel capacitance %s %s split: %s"
+              % (what, dts, k2_split_text(split)), flush=True)
         record("capacitance", dtype, "cuda",
                "runlmc_tpu_torch/hopper/csrc/capacitance.cu",
                "runlmc_tpu/lmc/woodbury.py:260", C,
@@ -2018,7 +2080,7 @@ def main():
                cap.capacitance_plain(nest, inv_e, Fs_),
                fb, fo, library_fn=lib, path=path,
                plain_reps=5 if weather else 20, product=True,
-               extra={"site": what, "k": C.shape[0],
+               extra={"site": what, "k": C.shape[0], "split": split,
                       "structured_operations": fo,
                       "dense_operations": dense,
                       "dense_bound_ms": bound_ms(0, dense, dtype,
@@ -2063,6 +2125,22 @@ def main():
             require(check["library_bwd_rel_err"] <= btol, "autograd "
                     "through the dense library products disagrees with "
                     "K2's plain backward at %s" % what)
+            ks_ = [int(F.shape[0]) for F in Fs_]
+            offs_ = [sum(ks_[:a]) for a in range(len(ks_))]
+            lib_mm = k2_matmul_yardstick(Ts, Cbar, offs_, ks_)
+            autograd = {"library_autograd_ms": cuda_time(lib_bwd),
+                        "library_autograd_device_ms":
+                        device_profile(lib_bwd, reps=10)[0]}
+            bwd_fn = (lambda nest=nest, inv_e=inv_e, Fs_=Fs_, Ts=Ts,
+                      Cbar=Cbar: cap.capacitance_bwd(nest, inv_e, Fs_, Ts,
+                                                     Cbar))
+            bsplit = k2_split(bwd_fn)
+            print("kernel capacitance_bwd %s %s split: %s; autograd "
+                  "through the dense products %.4f ms (device %s)"
+                  % (what, dts, k2_split_text(bsplit),
+                     autograd["library_autograd_ms"],
+                     _ms(autograd["library_autograd_device_ms"])),
+                  flush=True)
             record("capacitance_bwd", dtype, "cuda",
                    "runlmc_tpu_torch/hopper/csrc/capacitance.cu",
                    "runlmc_tpu/lmc/woodbury.py:260", got, want, btol,
@@ -2072,9 +2150,9 @@ def main():
                    lambda nest=nest, inv_e=inv_e, Fs_=Fs_, Tp=Tp,
                    Cbar=Cbar: cap.capacitance_bwd_plain(nest, inv_e, Fs_,
                                                         Tp, Cbar),
-                   bb, bo, library_fn=lib_bwd, path=path, product=True,
-                   extra={"site": what, "k": k})
-            del Cbar, got, again, want, Tp
+                   bb, bo, library_fn=lib_mm, path=path, product=True,
+                   extra=dict(autograd, site=what, k=k, split=bsplit))
+            del Cbar, got, again, want, Tp, lib_mm
         k2_checks.append(check)
         del C, Ts
     del k2_sites, wtwin64

@@ -13,9 +13,10 @@ The CUDA kernels (``csrc/capacitance.cu``) skip what the dense product
 would multiply by zero: F_{g,d}'s columns past (d+1) m_g, G's zero tiles
 (the host plan :func:`tile_plan`, made once per grid) and C's upper
 triangle (mirrored). Stage 1 forms T_{ab,d} = G_{ab,d} F_{b,d}, stage 2
-one lower tile of C per CTA with its sum over d in a fixed order; no
-atomics. Their launches count once per C (``capacitance``) and once per
-backward (``capacitance_bwd``).
+C's 64 x 64 lower tiles from a host work list sorted deepest first
+(:func:`cap_work`), which persistent CTAs take in turn; each tile sums
+over d in a fixed order, no atomics. Their launches count once per C
+(``capacitance``) and once per backward (``capacitance_bwd``).
 
 The backward, with S = Cbar + Cbar^T and T_{a.,d} = [T_{ab,d}]_b,
 
@@ -23,9 +24,12 @@ The backward, with S = Cbar + Cbar^T and T_{a.,d} = [T_{ab,d}]_b,
     Fbar_{a,d}     = eps_d^-1 Y_{a,d}    (on F_a's lower triangle, 0 above)
     d(eps_d^-1)    = 1/2 sum_a <F_{a,d}, Y_{a,d}>,
 
-is a kernel of its own (a Cholesky backward reads only the lower
-triangle of its cotangent, so the upper entries are not needed). T is
-kept from the forward only when a gradient is wanted.
+is a kernel of its own on the 64 x 64 tiles of each F_{a,d} that reach
+its lower triangle, deepest first (:func:`bwd_work`), after one pass that
+forms S and before one that scales Y into Fbar and sums <F, Y> per 128 x
+128 tile (a Cholesky backward reads only the lower triangle of its
+cotangent, so the upper entries are not needed). T is kept from the
+forward only when a gradient is wanted.
 :class:`Capacitance` joins the two as one autograd function;
 :func:`capacitance_plain` and :func:`capacitance_bwd_plain` are the
 plain PyTorch versions, which the wrappers run for CPU tensors.
@@ -45,6 +49,15 @@ from runlmc_tpu_torch.hopper import build
 # kernel checks that the wrapper passes its own values
 PLAN_ROWS = 64
 PLAN_COLS = 16
+# stage 2's and the backward's tile, and the tile of the backward's
+# d(eps^-1) partial sums
+TILE = 64
+PARTIAL_TILE = 128
+# float32's stage-2 rows of F start where a 128-row tile's would, which
+# keeps C's rounding whatever the tile (the kernel's kAnchor)
+ANCHOR = 128
+# the most groups a backward takes (the kernel's Groups::kMax)
+MAX_GROUPS = 8
 
 
 def tile_plan(G):
@@ -62,6 +75,56 @@ def tile_plan(G):
     ptr = np.zeros(D * npb + 1, dtype=np.int64)
     np.cumsum(nz.sum(axis=1), out=ptr[1:])
     return ptr.astype(np.int32), np.nonzero(nz)[1].astype(np.int32)
+
+
+def cap_rows(k0, ma, D, anchor):
+    """[(d, imin)] of a stage-2 tile whose first row of C is ``k0``: the
+    d whose F_{a,d} reaches it, ascending, each from row imin of F_{a,d}
+    (rows start where the ``anchor``-row block of k0 starts)."""
+    a = k0 // anchor * anchor
+    return [(d, max(0, a - d * ma)) for d in range(a // ma, D)]
+
+
+def cap_work(ka, kb, ma, D, diag, tile, anchor):
+    """Stage 2's work list of block (a, b): (ntiles, 2) int32 rows
+    (tk, tl) of C's lower tiles (every tile when not ``diag``), deepest
+    first (sum_d (m_a - imin_d) rows), then by tk and tl."""
+    nk, nl = -(-ka // tile), -(-kb // tile)
+    depth = [sum(ma - i for _, i in cap_rows(tk * tile, ma, D, anchor))
+             for tk in range(nk)]
+    tiles = [(tk, tl) for tk in range(nk)
+             for tl in range(tk + 1 if diag else nl)]
+    tiles.sort(key=lambda t: (-depth[t[0]], t[0], t[1]))
+    return np.asarray(tiles, dtype=np.int32).reshape(-1, 2)
+
+
+def bwd_work(ks, ms, a, D):
+    """The backward's work list of group a: (ntiles, 3) int32 rows (d,
+    pb, qb) of the TILE x TILE tiles of each F_{a,d} that reach F's
+    lower triangle, deepest first (sum_g min(k_g, (d+1) m_g) rows), then
+    by d, pb, qb."""
+    ka, ma, t = ks[a], ms[a], TILE
+    rows = []
+    for d in range(D):
+        depth = sum(min(k, (d + 1) * m) for k, m in zip(ks, ms))
+        for pb in range(-(-ma // t)):
+            plast = min(pb * t + t, ma) - 1
+            for qb in range(-(-ka // t)):
+                if qb * t <= d * ma + plast:
+                    rows.append((-depth, d, pb, qb))
+    rows.sort()
+    return np.asarray([r[1:] for r in rows], dtype=np.int32).reshape(-1, 3)
+
+
+_WORK = {}
+
+
+def _device_work(key, dev, make):
+    """A work list on ``dev``, made once per key and device."""
+    key = key + (str(dev),)
+    if key not in _WORK:
+        _WORK[key] = torch.as_tensor(make(), device=dev)
+    return _WORK[key]
 
 
 def _layout(inv_eps, Fs):
@@ -152,7 +215,7 @@ def capacitance(grams, inv_eps, Fs):
     cap = build.function(
         "capacitance", "k2_cap_" + sfx,
         [p, i64, i64, i32, i32, i32, p, i64, i32, i32, p, p, i64, i32, i32,
-         p])
+         p, i32, p, p])
     Ts = [torch.empty((D, m, k), dtype=dtype, device=dev) for m in ms]
     C = torch.empty((k, k), dtype=dtype, device=dev)
     if k == 0:
@@ -172,12 +235,22 @@ def capacitance(grams, inv_eps, Fs):
                 ks[b], build.ptr(ptr), build.ptr(rblk), build.ptr(Ts[a]), k,
                 offs[b], PLAN_ROWS, PLAN_COLS, build.stream_ptr()),
                 "capacitance (gram apply)")
+    ticket = torch.empty(len(Fs) * (len(Fs) + 1) // 2, dtype=torch.int32,
+                         device=dev)
+    anchor = ANCHOR if dtype == torch.float32 else TILE
+    n = 0
     for a, (Fa, fsr, fsc) in enumerate(placed):
         for b in range(a + 1):
+            diag = a == b
+            key = ("cap", ks[a], ks[b], ms[a], D, diag, anchor)
+            work = _device_work(key, dev, lambda: cap_work(
+                ks[a], ks[b], ms[a], D, diag, TILE, anchor))
             build.check(cap(
                 build.ptr(Fa), fsr, fsc, ks[a], ms[a], D, build.ptr(Ts[a]),
                 k, offs[b], ks[b], build.ptr(inv_eps), build.ptr(C), k,
-                offs[a], int(a == b), build.stream_ptr()), "capacitance")
+                offs[a], int(diag), build.ptr(work), work.shape[0],
+                build.ptr(ticket[n:]), build.stream_ptr()), "capacitance")
+            n += 1
     capacitance.launches[sfx] += 1
     return C, Ts
 
@@ -195,30 +268,40 @@ def capacitance_bwd(grams, inv_eps, Fs, Ts, Cbar):
     Cbar, inv_eps = Cbar.contiguous(), inv_eps.contiguous()
     build.require_cuda("capacitance_bwd", Cbar, inv_eps, *Ts)
     sfx = build.suffix("capacitance_bwd", dtype)
+    if len(Fs) > MAX_GROUPS:
+        raise ValueError("capacitance_bwd: at most %d groups, got %d"
+                         % (MAX_GROUPS, len(Fs)))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    bm = build.function("capacitance", "k2_bwd_tile", [i32])(
-        int(dtype == torch.float64))
     ip = ctypes.POINTER(i32)
     bwd = build.function(
         "capacitance", "k2_cap_bwd_" + sfx,
-        [p, i64, i64, i32, i32, i32, p, i64, p, i64, i32, i32, ip, ip, ip, p,
-         p, p, i64, p])
+        [p, i64, i64, i32, i32, i32, p, i64, p, i64, i32, i32, ip, ip, ip,
+         p, p, p, i64, p, i32, p, p])
+    sym = build.function("capacitance", "k2_sym_" + sfx, [p, i32, p, p])
     red = build.function("capacitance", "k2_eps_reduce_" + sfx,
                          [p, i32, i32, i32, p, p])
-    tiles = max(-(-kk // bm) * -(-m // bm) for kk, m in zip(ks, ms))
+    S = torch.empty((k, k), dtype=dtype, device=dev)
+    build.check(sym(build.ptr(Cbar), k, build.ptr(S), build.stream_ptr()),
+                "capacitance_bwd (S)")
+    tiles = max(-(-kk // PARTIAL_TILE) * -(-m // PARTIAL_TILE)
+                for kk, m in zip(ks, ms))
     partial = torch.zeros((len(Fs), D, tiles), dtype=dtype, device=dev)
+    ticket = torch.empty(len(Fs), dtype=torch.int32, device=dev)
     ng = len(Fs)
     arr = ctypes.c_int * ng
     goff, gk, gm = arr(*offs), arr(*ks), arr(*ms)
     Fbars = []
     for a, F in enumerate(Fs):
         Fa, fsr, fsc = _strides(F)
+        work = _device_work(("bwd", tuple(ks), tuple(ms), a, D), dev,
+                            lambda: bwd_work(ks, ms, a, D))
         Fbar = torch.empty((ks[a], ks[a]), dtype=dtype, device=dev)
         build.check(bwd(
             build.ptr(Fa), fsr, fsc, ks[a], ms[a], D, build.ptr(Ts[a]), k,
-            build.ptr(Cbar), k, offs[a], ng, goff, gk, gm,
-            build.ptr(inv_eps), build.ptr(Fbar), build.ptr(partial[a]),
-            tiles, build.stream_ptr()), "capacitance_bwd")
+            build.ptr(S), k, offs[a], ng, goff, gk, gm, build.ptr(inv_eps),
+            build.ptr(Fbar), build.ptr(partial[a]), tiles, build.ptr(work),
+            work.shape[0], build.ptr(ticket[a:]), build.stream_ptr()),
+            "capacitance_bwd")
         Fbars.append(Fbar)
     d_inv = torch.empty(D, dtype=dtype, device=dev)
     build.check(red(build.ptr(partial), ng, D, tiles, build.ptr(d_inv),

@@ -210,11 +210,13 @@ def test_interp_apply_gradcheck(transpose):
                                rtol=0, atol=1e-14)
 
 
-def _emulate(nest, inv_eps, Fs, bm):
+def _emulate(nest, inv_eps, Fs, bm, anchor):
     """The CUDA kernels' loops in numpy: stage 1 over the plan's tiles
-    only, stage 2 over the lower tiles of C and, per tile, only the d and
-    rows i that reach it, and the backward over its r-ranges, on tiles
-    of ``bm``. Returns (C, Ts, d inv_eps, Fbars) for a seeded Cbar."""
+    only, stage 2 over the lower tiles of C in the work list's order
+    (``bm`` x ``bm`` tiles, rows of F from the ``anchor``-row block of
+    each tile), per tile only the d and rows i that reach it, and the
+    backward over its work list's tiles and r-ranges. Each tile is
+    visited once. Returns (C, Ts, d inv_eps, Fbars) for a seeded Cbar."""
     R_, P_ = cap.PLAN_ROWS, cap.PLAN_COLS
     inv = inv_eps.detach().numpy()
     D = len(inv)
@@ -246,44 +248,47 @@ def _emulate(nest, inv_eps, Fs, bm):
                                 G[d, rows, rs:re]
                                 @ F[b][d * mb + rs:d * mb + re, cols])
     C = np.zeros((k, k))
+    seen = set()
     for a in range(len(F)):
         for b in range(a + 1):
-            for k0 in range(0, ks[a], bm):
-                for l0 in range(0, ks[b], bm):
-                    if a == b and l0 > k0:
-                        continue
-                    acc = np.zeros((min(bm, ks[a] - k0), min(bm, ks[b] - l0)))
-                    for d in range(k0 // ms[a], D):
-                        i0 = max(0, k0 - d * ms[a])
-                        acc += inv[d] * F[a][d * ms[a] + i0:(d + 1) * ms[a],
-                                             k0:k0 + bm].T @ Ts[a][
-                            d, i0:, offs[b] + l0:offs[b] + l0 + acc.shape[1]]
-                    if a == b and k0 == l0:  # a diagonal tile: k >= l
-                        acc = np.tril(acc)
-                    C[np.ix_(offs[a] + k0 + np.arange(acc.shape[0]),
-                             offs[b] + l0 + np.arange(acc.shape[1]))] = acc
+            for tk, tl in cap.cap_work(ks[a], ks[b], ms[a], D, a == b, bm,
+                                       anchor):
+                assert (a, b, tk, tl) not in seen
+                seen.add((a, b, tk, tl))
+                k0, l0 = tk * bm, tl * bm
+                acc = np.zeros((min(bm, ks[a] - k0), min(bm, ks[b] - l0)))
+                for d, i0 in cap.cap_rows(k0, ms[a], D, anchor):
+                    acc += inv[d] * F[a][d * ms[a] + i0:(d + 1) * ms[a],
+                                         k0:k0 + bm].T @ Ts[a][
+                        d, i0:, offs[b] + l0:offs[b] + l0 + acc.shape[1]]
+                if a == b and k0 == l0:  # a diagonal tile: k >= l
+                    acc = np.tril(acc)
+                C[np.ix_(offs[a] + k0 + np.arange(acc.shape[0]),
+                         offs[b] + l0 + np.arange(acc.shape[1]))] = acc
     C = np.tril(C) + np.tril(C, -1).T + np.eye(k)
     Cbar = np.random.RandomState(9).standard_normal((k, k))
     S = Cbar + Cbar.T
     d_inv = np.zeros(D)
     Fbars = []
+    t = cap.TILE
     for a in range(len(F)):
         ma = ms[a]
-        Y = np.zeros((ks[a], ks[a]))
-        for d in range(D):
-            for p0 in range(0, ma, bm):
-                plast = min(p0 + bm, ma) - 1
-                for q0 in range(0, ks[a], bm):
-                    if q0 > d * ma + plast:
-                        continue
-                    rows = slice(d * ma + p0, d * ma + plast + 1)
-                    cols = slice(q0, min(q0 + bm, ks[a]))
-                    for g in range(len(F)):
-                        r = slice(offs[g], offs[g] + min(ks[g],
-                                                         (d + 1) * ms[g]))
-                        Y[rows, cols] += Ts[a][d, p0:plast + 1, r] @ S[
-                            r, offs[a] + cols.start:offs[a] + cols.stop]
-        Y = np.tril(Y)
+        Y = np.full((ks[a], ks[a]), np.nan)
+        for d, pb, qb in cap.bwd_work(ks, ms, a, D):
+            p0, q0 = pb * t, qb * t
+            rows = slice(d * ma + p0, d * ma + min(p0 + t, ma))
+            cols = slice(q0, min(q0 + t, ks[a]))
+            assert np.isnan(Y[rows, cols]).all()  # each tile once
+            Y[rows, cols] = 0.0
+            for g in range(len(F)):
+                r = slice(offs[g], offs[g] + min(ks[g], (d + 1) * ms[g]))
+                Y[rows, cols] += Ts[a][d, p0:p0 + t, r] @ S[
+                    r, offs[a] + cols.start:offs[a] + cols.stop]
+        # the finish pass reads Y only on F's lower triangle, which the
+        # work list covers
+        lower = np.tril(np.ones_like(Y, dtype=bool))
+        assert not np.isnan(Y[lower]).any()
+        Y = np.where(lower, Y, 0.0)
         d_inv += 0.5 * (F[a] * Y).reshape(D, ma, -1).sum(axis=(1, 2))
         Fbars.append(np.repeat(inv, ma)[:, None] * Y)
     return C, Ts, d_inv, Fbars, torch.as_tensor(Cbar)
@@ -324,14 +329,64 @@ def test_tile_plan_emulation_equals_dense(case, bm):
                       * -(-g.shape[2] // cap.PLAN_COLS)
                       for row in nest for g, _, _ in row)
     assert plan_tiles < dense_tiles  # the plan does skip tiles
-    C, Ts, d_inv, Fbars, Cbar = _emulate(nest, inv_eps, Fs, bm)
-    Cw, Tw = cap.capacitance_plain(nest, inv_eps, Fs)
-    d_w, Fbw = cap.capacitance_bwd_plain(nest, inv_eps, Fs, Tw, Cbar)
-    for got, want in [(C, Cw), (d_inv, d_w)] + list(zip(Ts, Tw)) + list(
-            zip(Fbars, Fbw)):
-        want = want.numpy()
-        np.testing.assert_allclose(got, want, rtol=0,
-                                   atol=1e-14 * np.abs(want).max())
+    # the float64 kernel's rows start at its own tile, the float32 one's
+    # at the 128-row block (cap.ANCHOR)
+    for anchor in sorted({bm, cap.ANCHOR}):
+        C, Ts, d_inv, Fbars, Cbar = _emulate(nest, inv_eps, Fs, bm, anchor)
+        Cw, Tw = cap.capacitance_plain(nest, inv_eps, Fs)
+        d_w, Fbw = cap.capacitance_bwd_plain(nest, inv_eps, Fs, Tw, Cbar)
+        for got, want in [(C, Cw), (d_inv, d_w)] + list(zip(Ts, Tw)) + list(
+                zip(Fbars, Fbw)):
+            want = want.numpy()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-14 * np.abs(want).max())
+
+
+# (D, m per group) of the work-list cases: a 1-D grid, a 2-D one (13 x
+# 14) and two groups, each past several tiles
+WORK_CASES = {"1d": (3, [150]), "2d": (2, [182]), "two_groups": (2, [90, 100])}
+
+
+@pytest.mark.parametrize("case", sorted(WORK_CASES))
+def test_work_lists_cover_each_tile_once_deepest_first(case):
+    """Stage 2's work list names every lower tile of each diagonal block
+    of C (every tile of a cross block) once, deepest first, and its rows
+    (cap_rows) cover every row of F that is nonzero in the tile; the
+    backward's names every tile of each F_{a,d} that reaches F's lower
+    triangle once, deepest first."""
+    D, ms = WORK_CASES[case]
+    ks = [D * m for m in ms]
+    for a in range(len(ms)):
+        for b in range(a + 1):
+            for tile in (cap.TILE, 2 * cap.TILE):
+                for anchor in sorted({tile, cap.ANCHOR}):
+                    work = cap.cap_work(ks[a], ks[b], ms[a], D, a == b, tile,
+                                        anchor)
+                    got = [tuple(w) for w in work.tolist()]
+                    nk, nl = -(-ks[a] // tile), -(-ks[b] // tile)
+                    want = {(tk, tl) for tk in range(nk) for tl in range(nl)
+                            if a != b or tl <= tk}
+                    assert len(got) == len(set(got)) and set(got) == want
+                    depth = []
+                    for tk, _ in got:
+                        rows = cap.cap_rows(tk * tile, ms[a], D, anchor)
+                        # every nonzero F_{a,d}[i][k] of the tile's rows k
+                        for d in range(D):
+                            need = max(0, tk * tile - d * ms[a])
+                            if need < ms[a]:
+                                assert dict(rows).get(d, ms[a]) <= need
+                        depth.append(sum(ms[a] - i for _, i in rows))
+                    assert depth == sorted(depth, reverse=True)
+        work = cap.bwd_work(ks, ms, a, D)
+        t, ma = cap.TILE, ms[a]
+        got = [tuple(w) for w in work.tolist()]
+        want = {(d, pb, qb) for d in range(D) for pb in range(-(-ma // t))
+                for qb in range(-(-ks[a] // t))
+                if qb * t <= d * ma + min(pb * t + t, ma) - 1}
+        assert len(got) == len(set(got)) and set(got) == want
+        depth = [sum(min(k, (d + 1) * m) for k, m in zip(ks, ms))
+                 for d, _, _ in got]
+        assert depth == sorted(depth, reverse=True)
 
 
 def test_exact_gradient_p2_matches_jax():

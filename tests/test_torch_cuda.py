@@ -652,6 +652,59 @@ def test_capacitance(dev, dtype, groups):
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("colmajor", [False, True])
+@pytest.mark.parametrize("D, m", [(13, 238), (2, 2560)])
+def test_capacitance_site_shapes(dev, dtype, colmajor, D, m):
+    """Seeded banded grams at fx2007's width (D=13, m=238: 49 tile rows
+    of C, 4 tile rows of each F_{a,d}, ragged at both) and a wide one
+    (D=2, m=2560: the work lists' deep tiles run past a wave), F row- or
+    column-major:
+    forward and backward against the plain versions, relaunches
+    bit-identical."""
+    g = torch.Generator().manual_seed(8)
+    i = torch.arange(m)
+    band = ((i[:, None] - i[None, :]).abs() <= 3).to(dtype)
+    G = torch.randn(D, m, m, generator=g, dtype=dtype) * band
+    G = G + G.mT
+    ptr, rblk = capacitance.tile_plan(G.numpy())
+    nest = [[(G.to(dev), torch.as_tensor(ptr, device=dev),
+              torch.as_tensor(rblk, device=dev))]]
+    inv_eps = (torch.rand(D, generator=g, dtype=dtype) + 0.5).to(dev)
+    F = torch.tril(torch.randn(D * m, D * m, generator=g, dtype=dtype))
+    F = (F.mT.contiguous().mT if colmajor else F).to(dev)
+    C, Ts = capacitance.capacitance(nest, inv_eps, [F])
+    Cp, Tp = capacitance.capacitance_plain(nest, inv_eps, [F])
+    _close(C, Cp, dtype)
+    assert torch.equal(C, capacitance.capacitance(nest, inv_eps, [F])[0])
+    Cbar = torch.randn(C.shape, generator=g, dtype=dtype).to(dev)
+    got = capacitance.capacitance_bwd(nest, inv_eps, [F], Ts, Cbar)
+    want = capacitance.capacitance_bwd_plain(nest, inv_eps, [F], Tp, Cbar)
+    again = capacitance.capacitance_bwd(nest, inv_eps, [F], Ts, Cbar)
+    tol = {torch.float32: 1e-4, torch.float64: 1e-12}[dtype]
+    for a, b, c in zip((got[0], *got[1]), (want[0], *want[1]),
+                       (again[0], *again[1])):
+        torch.cuda.synchronize()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+        assert torch.equal(a, c)
+
+
+def test_capacitance_bwd_raises_past_max_groups(dev):
+    """The backward takes at most MAX_GROUPS groups (the kernel's
+    Groups::kMax): one more raises before any launch."""
+    D, m, n = 2, 3, capacitance.MAX_GROUPS + 1
+    G = torch.eye(m, dtype=torch.float64).expand(D, m, m).contiguous()
+    ptr, rblk = capacitance.tile_plan(G.numpy())
+    entry = (G.to(dev), torch.as_tensor(ptr, device=dev),
+             torch.as_tensor(rblk, device=dev))
+    nest = [[entry] * n for _ in range(n)]
+    inv_eps = torch.ones(D, dtype=torch.float64, device=dev)
+    Fs = [torch.eye(D * m, dtype=torch.float64, device=dev)] * n
+    C, Ts = capacitance.capacitance(nest, inv_eps, Fs)
+    with pytest.raises(ValueError, match="at most 8 groups"):
+        capacitance.capacitance_bwd(nest, inv_eps, Fs, Ts, torch.ones_like(C))
+
+
 def test_capacitance_autograd_matches_cpu(dev):
     """Capacitance's backward through a Cholesky, card vs CPU, float64."""
     nest, inv_eps, Fs = _k2_problem(torch.float64, dev, 2)
