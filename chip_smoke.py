@@ -76,13 +76,16 @@ Phases:
    (float32, float64) shapes, both equilibration modes, the forward bit
    for bit against its plain version, every relaunch bit-identical, and
    its flag on an indefinite matrix (the ladder landing where the CPU's
-   does); K3's VJP (``hopper/chol_vjp.py``: Phi(L^T L-bar) symmetrized,
-   and the final symmetrization) on the factor where each C's ladder
-   lands at the fx2007 (float32), synth (float32, float64) and
-   weather-twin (float32, on no path) shapes, in both storage orders and
-   bit-identical across relaunches, its two solves timed on cuBLAS (the
-   port's) and on K5, and the whole VJP against torch's Cholesky
-   backward (the library yardstick); K8 on the weather fft group's first
+   does); K3's VJP (``hopper/chol_vjp.py``: the tri kernel, Phi(L^T
+   L-bar) symmetrized, and the solve kernel, L^-T S L^-1 exactly
+   symmetric) on the factor where each C's ladder lands at the fx2007
+   (float32), synth (float32, float64) and weather-twin (float32, on no
+   path) shapes, in both storage orders and bit-identical across
+   relaunches, the float32 tri kernel equal to the bit to its route 1
+   (the earlier kernel's sum order), the solve kernel timed beside
+   cuBLAS's two solves (its plain version and library column) and K5's,
+   and the whole VJP against torch's Cholesky backward (the library
+   yardstick); K8 on the weather fft group's first
    rows (Q=6, m=2504 embedded in 8192, float64 and float32) and its
    float64 backward;
 4. reset the launch counters, ``predict`` the 150 held-out points, read
@@ -313,6 +316,14 @@ K2_TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-12)}
 VJP_TOL = {"float32": 1e-5, "float64": 1e-13}
 VJP_F64_TOL = 1e-8
 VJP_F32_FACTOR = 1.25
+# The solve kernel (A-bar = L^-T S L^-1) against its plain version
+# (cuBLAS's two solves), relative to the largest magnitude: two float32
+# routes of the same solves differ by the factor's conditioning times
+# float32 rounding (K5's and cuBLAS's 0.8e-6 to 7.4e-6 at these sites),
+# float64 by 6e-15; in float32 the kernel's error from the float64 solve
+# of the same inputs within SOLVE_F32_FACTOR times cuBLAS's route's
+VJP_SOLVE_TOL = {"float32": 1e-4, "float64": 1e-12}
+SOLVE_F32_FACTOR = 1.25
 # the exact oracle's closed-form gradient against the autograd route it
 # replaces (torch's Cholesky backward), float64 at n=15768, relative;
 # in float32 (phase 13b, fx2007's ExactLMC) both against the float64
@@ -396,8 +407,8 @@ def _self_device_us(evt):
 # with C (K5's call site), the jittered Cholesky (K3's), the capacitance
 # matrix (K2's), the W applies (K4's, through K9), the products with the
 # factors F (DeviceWoodbury._vt / _v, cuBLAS GEMMs) and, in the backward,
-# the Cholesky VJP (chol_vjp.cholesky_backward: its two kernels and the
-# two triangular solves between them)
+# the Cholesky VJP (chol_vjp.cholesky_backward: its tri and solve
+# kernels)
 RANGES = ("range: DeviceWoodbury._cho_solve_C",
           "range: woodbury.chol_jittered",
           "range: woodbury.capacitance_matrix",
@@ -495,11 +506,11 @@ def device_profile(fn, reps=1, ranges=False):
 # device kernels by the layer of the kernel table they belong to; the
 # library-routed part of K3 (the factorization) is told apart by its
 # cuSOLVER kernel names, the hand part around it by its own. Every
-# triangular solve of the port is the hand K5 but the Cholesky VJP's two,
-# which run on cuBLAS's trsm (hopper/chol_vjp.py SOLVES; the oracle's
-# potri runs some of cuBLAS's too). K2 and K4 are hand kernels: the GEMMs
-# left are the products with the factors F (woodbury.py's _vt/_v),
-# cuBLAS's trsm's and cuSOLVER's own updates.
+# triangular solve of the port is a hand kernel: K5, or the Cholesky
+# VJP's solve kernel (cuBLAS's trsm shows only where a yardstick or the
+# oracle's potri runs it). K2 and K4 are hand kernels: the GEMMs left are
+# the products with the factors F (woodbury.py's _vt/_v) and cuSOLVER's
+# own updates.
 LAYERS = (
     ("K2 backward (hand, capacitance.cu)",
      lambda k: any(p in k for p in ("cap_bwd_kernel", "cap_sym_kernel",
@@ -532,14 +543,14 @@ LAYERS = (
      lambda k: any(p in k for p in ("k3_scale_kernel<", "k3_prologue_kernel<",
                                     "k3_descale_kernel<"))),
     ("K3 VJP (hand, chol_vjp.cu)",
-     lambda k: "::tri_kernel<" in k or "::sym_kernel<" in k),
-    ("trsm (cuBLAS: the Cholesky VJP's solves)",
+     lambda k: "::vjp_" in k),
+    ("trsm (cuBLAS)",
      lambda k: "trsm" in k or "trsv" in k),
     ("K3 Cholesky", lambda k: any(p in k for p in ("getrf", "potrf", "potf2",
                                                    "syrk"))),
     ("potri (cuSOLVER: the exact oracle's K^-1)",
      lambda k: any(p in k for p in ("potri", "trtri", "lauum"))),
-    ("GEMM and GEMV (F products, Cholesky VJP)",
+    ("GEMM and GEMV (F products)",
      lambda k: "gemm" in k or "gemv" in k),
 )
 
@@ -982,14 +993,16 @@ def ladder_summary(log, steps):
                        for k, v in rungs.items()}}
 
 
-def vjp_solves_k5(L, S):
-    """The Cholesky VJP's two solves X = L^-T S L^-1 (S symmetric) on K5,
-    the yardstick of the port's cuBLAS route (chol_vjp.solves): rows of
-    S L^-1, then rows of (S L^-1)^T L^-1, one transposed copy between."""
+def vjp_solve_k5(L, S):
+    """A-bar = L^-T S L^-1 (S symmetric) by two solves on K5 and the
+    symmetrization, a yardstick of the solve kernel (chol_vjp_solve):
+    rows of S L^-1, then rows of (S L^-1)^T L^-1, one transposed copy
+    between."""
     from runlmc_tpu_torch.hopper.trsm import trsm_lower
 
     W = trsm_lower(L, S, trans=True)
-    return trsm_lower(L, W.mT.contiguous(), trans=True)
+    X = trsm_lower(L, W.mT.contiguous(), trans=True)
+    return 0.5 * (X + X.mT)
 
 
 def exact_mll_autograd(spec, raw_params, X, oidx, y):
@@ -2329,14 +2342,20 @@ def main():
 
     # K3's VJP (the Cholesky factorization's backward) at the same sites:
     # the factor each ladder lands on (column-major, as cuSOLVER leaves
-    # it) and a seeded row-major L-bar. The kernel (Phi(L^T L-bar),
-    # symmetrized) against its plain version (torch ops), in both
-    # storage orders of L and L-bar, bit-identical across relaunches and
-    # storage orders; the final symmetrization against its plain version;
-    # the two solves between them timed on cuBLAS (chol_vjp.solves, the
-    # port's) and on K5 (vjp_solves_k5); the whole VJP against torch's own
-    # Cholesky backward (autograd of torch.linalg.cholesky, timed as the
-    # library call: the backward alone, on a graph built once).
+    # it) and a seeded row-major L-bar. The tri kernel (Phi(L^T L-bar),
+    # symmetrized) against its plain version (torch ops), in both storage
+    # orders of L and L-bar, bit-identical across relaunches and storage
+    # orders, and in float32 equal to the bit to its route 1 (a thread an
+    # entry, the sum order of the earlier kernel); the solve kernel
+    # (chol_vjp_solve: A-bar = L^-T S L^-1) against its plain version
+    # (cuBLAS's two triangular solves and the symmetrization, also its
+    # library column), bit-identical across relaunches and both storage
+    # orders of L, exactly symmetric, and in float32 no less accurate than
+    # cuBLAS's route against the float64 solve of the same inputs (within
+    # SOLVE_F32_FACTOR); the solves also timed on K5 (vjp_solve_k5); the
+    # whole VJP against torch's own Cholesky backward (autograd of
+    # torch.linalg.cholesky, timed as the library call: the backward
+    # alone, on a graph built once).
     vjp_checks = []
 
     def vjp_check(what, kind, A, scales, equil, path, reps):
@@ -2356,13 +2375,21 @@ def main():
         same = all(torch.equal(S, cv.chol_vjp(a, b)) for a in
                    (L, k5_other_storage(L)) for b in
                    (Lb, k5_other_storage(Lb)))
-        routes = {"k5": vjp_solves_k5, "cublas": cv.solves}
+        route1 = (bool(torch.equal(S, cv.chol_vjp(L, Lb, route=1)))
+                  if dtype == torch.float32 else None)
+        routes = {"kernel": cv.chol_vjp_solve,
+                  "cublas": cv.chol_vjp_solve_plain, "k5": vjp_solve_k5}
         X = {r: f(L, S) for r, f in routes.items()}
+        solve_same = (torch.equal(X["kernel"], X["kernel"].mT)
+                      and torch.equal(X["kernel"], cv.chol_vjp_solve(L, S))
+                      and torch.equal(X["kernel"], cv.chol_vjp_solve(
+                          k5_other_storage(L), S)))
         route_err = errors(X["k5"], X["cublas"])[1]
-        Xs = cv.chol_vjp_sym(X["cublas"].clone())
-        Xs_p = cv.chol_vjp_sym_plain(X["cublas"])
-        sym_same = (torch.equal(Xs, Xs.mT) and torch.equal(
-            Xs, cv.chol_vjp_sym(X["cublas"].clone())))
+        solve_acc = None
+        if dtype == torch.float32:
+            X64 = cv.chol_vjp_solve_plain(L.double(), S.double())
+            solve_acc = {r: errors(x, X64)[1] for r, x in X.items()}
+            del X64
         # the whole VJP against torch's Cholesky backward on the same
         # matrix (torch.linalg.cholesky refactors M: the same factor)
         a = M.detach().clone().requires_grad_(True)
@@ -2399,41 +2426,54 @@ def main():
         whole_dev = device_profile(lambda: cv.cholesky_backward(L, Lb),
                                    reps=3)[0]
         torch_dev = device_profile(torch_bwd, reps=3)[0]
+        e = A.element_size()
+        # the two solves' operations (2 n^3) at the rate of their products
+        solve2_bound = bound_ms(2 * n * n * e, 2.0 * n ** 3, dtype, True)[0]
         chk = {"site": what, "factor": kind, "dtype": dts, "n": n,
                "rel_err": errors(S, Sp)[1], "bit_identical": bool(same),
-               "sym_rel_err": errors(Xs, Xs_p)[1],
-               "sym_exact_and_identical": bool(sym_same),
+               "tri_equal_to_route1": route1,
+               "solve_rel_err": errors(X["kernel"], X["cublas"])[1],
+               "solve_exact_and_identical": bool(solve_same),
+               "solve_err_vs_float64": solve_acc,
                "solve_routes_rel_err": route_err,
                "solves_ms": solve_ms, "solves_device_ms": solve_dev,
+               "two_solves_bound_ms": solve2_bound,
                "whole_ms": whole_ms, "whole_device_ms": whole_dev,
                "torch_backward_device_ms": torch_dev,
                "whole_vs_reference_rel_err": whole_err,
                "torch_vs_reference_rel_err": torch_err}
         vjp_checks.append(chk)
-        tol = VJP_TOL[dts]
-        print("K3 VJP %s %s %s (n=%d): kernel rel err %.3e (tol %.0e), "
-              "relaunch and storage orders bit-identical %s; sym rel err "
-              "%.3e, exact and bit-identical %s; solves K5 %.4f ms (device "
-              "%s), cuBLAS %.4f ms (device %s), routes differ by %.3e; whole "
-              "VJP %.4f ms (device %s) against torch's backward device %s: "
-              "rel err %.3e%s"
-              % (what, kind, dts, n, chk["rel_err"], tol, same,
-                 chk["sym_rel_err"], sym_same, solve_ms["k5"],
-                 _ms(solve_dev["k5"]), solve_ms["cublas"],
-                 _ms(solve_dev["cublas"]), route_err, whole_ms,
-                 _ms(whole_dev), _ms(torch_dev), whole_err,
-                 "" if torch_err is None else
+        tol, stol = VJP_TOL[dts], VJP_SOLVE_TOL[dts]
+        print("K3 VJP %s %s %s (n=%d): tri rel err %.3e (tol %.0e), "
+              "relaunch and storage orders bit-identical %s, equal to route "
+              "1 %s; solve rel err %.3e (tol %.0e), exact and bit-identical "
+              "%s; error from the float64 solve %s; solves: kernel %.4f ms "
+              "(device %s), cuBLAS %.4f ms (device %s), K5 %.4f ms (device "
+              "%s), two solves' bound %.4f ms, K5 and cuBLAS differ by "
+              "%.3e; whole VJP %.4f ms (device %s) against torch's backward "
+              "device %s: rel err %.3e%s"
+              % (what, kind, dts, n, chk["rel_err"], tol, same, route1,
+                 chk["solve_rel_err"], stol, solve_same, solve_acc,
+                 solve_ms["kernel"], _ms(solve_dev["kernel"]),
+                 solve_ms["cublas"], _ms(solve_dev["cublas"]),
+                 solve_ms["k5"], _ms(solve_dev["k5"]), solve2_bound,
+                 route_err, whole_ms, _ms(whole_dev), _ms(torch_dev),
+                 whole_err, "" if torch_err is None else
                  " from the float64 VJP (torch's float32: %.3e)" % torch_err),
               flush=True)
-        require(same and sym_same, "K3 VJP %s %s: a relaunch or a storage "
-                "order is not bit-identical, or the result not symmetric"
-                % (what, dts))
-        require(chk["rel_err"] <= tol and chk["sym_rel_err"] <= tol,
+        require(same and solve_same and route1 is not False,
+                "K3 VJP %s %s: a relaunch or a storage order is not "
+                "bit-identical, the float32 product not route 1's, or the "
+                "result not symmetric" % (what, dts))
+        require(chk["rel_err"] <= tol and chk["solve_rel_err"] <= stol,
                 "K3 VJP %s %s disagrees with its plain version" % (what,
                                                                   dts))
+        require(solve_acc is None or solve_acc["kernel"]
+                <= SOLVE_F32_FACTOR * solve_acc["cublas"],
+                "K3 VJP %s %s: the solve kernel is less accurate than "
+                "cuBLAS's route" % (what, dts))
         require(ok_whole, "K3 VJP %s %s: the whole VJP disagrees with "
                 "torch's Cholesky backward" % (what, dts))
-        e = A.element_size()
         site = {"site": "%s %s, n=%d" % (what, kind, n)}
         src = "runlmc_tpu_torch/hopper/csrc/chol_vjp.cu"
         record("chol_vjp", dtype, "cuda", src,
@@ -2442,14 +2482,18 @@ def main():
                3 * n * n * e, n ** 3 / 3.0, library_fn=torch_bwd, path=path,
                product=True, plain_reps=reps,
                extra=dict(site, whole_vjp_ms=whole_ms,
-                                           whole_vjp_device_ms=whole_dev,
-                                           solves_ms=solve_ms))
-        Xc = X["cublas"]
-        record("chol_vjp_sym", dtype, "cuda", src,
-               "runlmc_tpu/lmc/woodbury.py:121", Xs, Xs_p, tol,
-               lambda: cv.chol_vjp_sym(Xc), lambda: cv.chol_vjp_sym_plain(Xc),
-               2 * n * n * e, 2.0 * n * n, path=path, plain_reps=reps,
-               extra=site)
+                          whole_vjp_device_ms=whole_dev,
+                          solves_ms=solve_ms))
+        plain = routes["cublas"]
+        record("chol_vjp_solve", dtype, "cuda", src,
+               "runlmc_tpu/lmc/woodbury.py:121", X["kernel"], X["cublas"],
+               stol, lambda: cv.chol_vjp_solve(L, S), lambda: plain(L, S),
+               (n * n // 2 + 2 * n * n) * e, 4.0 * n ** 3 / 3.0,
+               library_fn=lambda: plain(L, S), path=path, product=True,
+               plain_reps=reps,
+               extra=dict(site, k5_route_ms=solve_ms["k5"],
+                          two_solves_bound_ms=solve2_bound))
+        del X
 
     k3_memory = {}
 
@@ -2863,6 +2907,8 @@ def main():
     step_layers = by_layer(chunk_rows, per=tm.chunk_len)
     print("training step device time by layer (per step):", flush=True)
     print_layers(step_layers)
+    require("trsm (cuBLAS)" not in step_layers, "an fx2007 training step "
+            "ran cuBLAS's trsm: a solve left the hand kernels")
     print("training step device time inside the Woodbury solve with C and "
           "the jittered Cholesky (per step):", flush=True)
     print_split(chunk_split, per=tm.chunk_len)
@@ -3728,6 +3774,8 @@ def main():
     sstep_layers = by_layer(schunk_rows, per=sm.chunk_len)
     print("synth step device time by layer (per step):", flush=True)
     print_layers(sstep_layers)
+    require("trsm (cuBLAS)" not in sstep_layers, "a synth training step "
+            "ran cuBLAS's trsm: a solve left the hand kernels")
     print("synth step device time inside the ranges (per step; forward "
           "calls only):", flush=True)
     print_split(schunk_split, per=sm.chunk_len)

@@ -26,8 +26,9 @@ PyTorch version beside it.
       their backward  chol_jitter.chol_prologue_bwd / chol_descale_bwd
                                   CUDA  csrc/chol_jitter.cu
       the factorization's VJP  chol_vjp.chol_vjp (Phi(L^T L-bar),
-      symmetrized) and chol_vjp.chol_vjp_sym, around two triangular
-      solves (chol_vjp.cholesky_backward, autograd chol_vjp.CholeskyEx)
+      symmetrized) and chol_vjp.chol_vjp_solve (L^-T S L^-1, both
+      substitutions, exactly symmetric), joined in
+      chol_vjp.cholesky_backward (autograd chol_vjp.CholeskyEx)
                                   CUDA  csrc/chol_vjp.cu
   K8 (fft)  kern_rows_fft.kern_rows_fft / kern_rows_fft_bwd (k(r) on
       an fft group's first rows, circulantly embedded for cuFFT)
@@ -57,7 +58,7 @@ WRAPPERS = (
     minres_update, cross_kernel_bwd, lanczos_step, trsm_lower,
     _k2.capacitance, _k2.capacitance_bwd, _k3.chol_prologue,
     _k3.chol_descale, _k3.chol_prologue_bwd, _k3.chol_descale_bwd,
-    _k3v.chol_vjp, _k3v.chol_vjp_sym, _k8.kern_rows_fft,
+    _k3v.chol_vjp, _k3v.chol_vjp_solve, _k8.kern_rows_fft,
     _k8.kern_rows_fft_bwd,
 )
 
@@ -67,7 +68,7 @@ WRAPPERS = (
 _K3 = {sfx: ("chol_prologue/" + sfx, "chol_descale/" + sfx)
        for sfx in ("f32", "f64")}
 _K3_BWD = {sfx: ("chol_prologue_bwd/" + sfx, "chol_descale_bwd/" + sfx,
-                 "chol_vjp/" + sfx, "chol_vjp_sym/" + sfx)
+                 "chol_vjp/" + sfx, "chol_vjp_solve/" + sfx)
            for sfx in ("f32", "f64")}
 
 

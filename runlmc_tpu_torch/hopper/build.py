@@ -142,6 +142,18 @@ def use_plain(what, t):
     raise ValueError("%s: unsupported device %s" % (what, t.device))
 
 
+_WORK = {}
+
+
+def device_work(key, dev, make):
+    """A kernel's host-built work list (``make()``, an int32 array) on
+    ``dev``, made once per key and device."""
+    key = key + (str(dev),)
+    if key not in _WORK:
+        _WORK[key] = torch.as_tensor(make(), device=dev)
+    return _WORK[key]
+
+
 def counter():
     """A wrapper's launch counts, keyed by the dtype suffix of the
     kernel it launched."""

@@ -116,17 +116,6 @@ def bwd_work(ks, ms, a, D):
     return np.asarray([r[1:] for r in rows], dtype=np.int32).reshape(-1, 3)
 
 
-_WORK = {}
-
-
-def _device_work(key, dev, make):
-    """A work list on ``dev``, made once per key and device."""
-    key = key + (str(dev),)
-    if key not in _WORK:
-        _WORK[key] = torch.as_tensor(make(), device=dev)
-    return _WORK[key]
-
-
 def _layout(inv_eps, Fs):
     D = inv_eps.shape[0]
     ks = [int(F.shape[0]) for F in Fs]
@@ -243,7 +232,7 @@ def capacitance(grams, inv_eps, Fs):
         for b in range(a + 1):
             diag = a == b
             key = ("cap", ks[a], ks[b], ms[a], D, diag, anchor)
-            work = _device_work(key, dev, lambda: cap_work(
+            work = build.device_work(key, dev, lambda: cap_work(
                 ks[a], ks[b], ms[a], D, diag, TILE, anchor))
             build.check(cap(
                 build.ptr(Fa), fsr, fsc, ks[a], ms[a], D, build.ptr(Ts[a]),
@@ -293,8 +282,8 @@ def capacitance_bwd(grams, inv_eps, Fs, Ts, Cbar):
     Fbars = []
     for a, F in enumerate(Fs):
         Fa, fsr, fsc = _strides(F)
-        work = _device_work(("bwd", tuple(ks), tuple(ms), a, D), dev,
-                            lambda: bwd_work(ks, ms, a, D))
+        work = build.device_work(("bwd", tuple(ks), tuple(ms), a, D), dev,
+                                 lambda: bwd_work(ks, ms, a, D))
         Fbar = torch.empty((ks[a], ks[a]), dtype=dtype, device=dev)
         build.check(bwd(
             build.ptr(Fa), fsr, fsc, ks[a], ms[a], D, build.ptr(Ts[a]), k,

@@ -837,8 +837,10 @@ def _other_storage(X):
 def test_chol_vjp_kernels(dev, dtype, n):
     """The Cholesky VJP's two kernels against their plain versions, L and
     L-bar in every pair of storage orders; one launch counted per call;
-    relaunches bit-identical; the whole backward exactly symmetric and
-    equal to torch's Cholesky backward, symmetrized."""
+    relaunches bit-identical; the tri kernel's float32 sums equal to the
+    bit to route 1's (the earlier kernel's order); the whole backward
+    exactly symmetric and equal to torch's Cholesky backward,
+    symmetrized."""
     A = _k3_matrix(n, torch.float64, dev)
     Lc = torch.linalg.cholesky_ex(A)[0].to(dtype)  # column-major
     g = torch.Generator().manual_seed(n)
@@ -853,13 +855,17 @@ def test_chol_vjp_kernels(dev, dtype, n):
             _close(S, want, dtype)
             assert torch.equal(S, chol_vjp.chol_vjp(L, G))
             assert torch.equal(S, S.mT)
-    X = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
-    want = chol_vjp.chol_vjp_sym_plain(X)
-    got = chol_vjp.chol_vjp_sym(X.clone())
-    assert torch.equal(got, got.mT)
-    _close(got, want, dtype)
-    # a column-major X (cuBLAS's solves leave one) gives the same bits
-    assert torch.equal(chol_vjp.chol_vjp_sym(_other_storage(X)), got)
+            if dtype == torch.float32:
+                assert torch.equal(S, chol_vjp.chol_vjp(L, G, route=1))
+    S = chol_vjp.chol_vjp(Lc, Lb)
+    want = chol_vjp.chol_vjp_solve_plain(Lc, S)
+    for L in (Lc, _other_storage(Lc)):
+        before = chol_vjp.chol_vjp_solve.launches[sfx]
+        got = chol_vjp.chol_vjp_solve(L, S)
+        assert chol_vjp.chol_vjp_solve.launches[sfx] == before + 1
+        assert torch.equal(got, got.mT) and got.is_contiguous()
+        _close(got, want, dtype)
+        assert torch.equal(got, chol_vjp.chol_vjp_solve(L, S))
     # the whole VJP against torch's, in float64 on the same factor (the
     # float32 one's product refactored in float64)
     L64 = Lc.double()
@@ -872,6 +878,20 @@ def test_chol_vjp_kernels(dev, dtype, n):
     assert float((got - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chol_vjp_solve_nan_comes_back(dev, dtype):
+    """A NaN in L comes back as NaN in A-bar, and the launch ends."""
+    n = 200
+    L = torch.linalg.cholesky_ex(_k3_matrix(n, torch.float64, dev))[0]
+    L = L.to(dtype)
+    S = chol_vjp.chol_vjp(L, torch.tril(torch.ones_like(L)))
+    L[150, 20] = float("nan")
+    got = chol_vjp.chol_vjp_solve(L, S)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got).any())
+    assert torch.isnan(chol_vjp.chol_vjp_solve_plain(L, S)).any()
+
+
 def test_chol_vjp_raises_on_what_it_cannot_take(dev):
     """No fallback: a CUDA tensor the kernels do not take raises."""
     L = torch.eye(8, device=dev)
@@ -882,7 +902,11 @@ def test_chol_vjp_raises_on_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         chol_vjp.chol_vjp(L[:, :4], L[:, :4])
     with pytest.raises(ValueError):
-        chol_vjp.chol_vjp_sym(L[:4, :4].half())
+        chol_vjp.chol_vjp_solve(L[:4, :4].half(), L[:4, :4].half())
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp_solve(L, L.double())
+    with pytest.raises(ValueError):
+        chol_vjp.chol_vjp_solve(L, L.cpu())
 
 
 def test_cholesky_ex_counts_on_the_training_path(dev):
@@ -900,7 +924,7 @@ def test_cholesky_ex_counts_on_the_training_path(dev):
                                     X)
         out[where] = (gX.cpu(), hopper.launch_counts())
     assert out["cuda"][1]["chol_vjp/f64"] == 1
-    assert out["cuda"][1]["chol_vjp_sym/f64"] == 1
+    assert out["cuda"][1]["chol_vjp_solve/f64"] == 1
     assert out["cpu"][1]["chol_vjp/f64"] == 0
     a, b = out["cuda"][0], out["cpu"][0]
     assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
