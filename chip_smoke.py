@@ -71,13 +71,19 @@ Phases:
    dense products (``torch.bmm`` +
    ``matmul``), ``index_add_`` and ``embedding_bag`` as library
    yardsticks; K3 (the jittered Cholesky's prologue, epilogue and their
-   backward, around cuSOLVER's Cholesky) on each model's own K_UU and C
-   at the fx2007 (float32, float64), weather-twin (float32) and synth
-   (float32, float64) shapes, both equilibration modes, the forward bit
-   for bit against its plain version, every relaunch bit-identical, and
-   its flag on an indefinite matrix (the ladder landing where the CPU's
-   does); K3's VJP (``hopper/chol_vjp.py``: the tri kernel, Phi(L^T
-   L-bar) symmetrized, and the solve kernel, L^-T S L^-1 exactly
+   backward, around cuSOLVER's potrf in place on the prologue's M) on
+   each model's own K_UU and C at the fx2007 (float32, float64),
+   weather-twin (float32) and synth (float32, float64) shapes, both
+   equilibration modes, the forward bit for bit against its plain
+   version (the prologue's lower triangle, zeros above it), the
+   in-place chain's factor and de-scaled copy bit for bit torch's
+   routes' (cholesky_ex into a new factor, the earlier route, and
+   cholesky_ex in place), the factor's upper triangle 0, every relaunch
+   bit-identical, one attempt timed by route with the earlier route's
+   copy of M and torch's tril_ timed alone, one weather-twin
+   ``chol_jittered`` call's peak memory, and its flag on an indefinite
+   matrix (the ladder landing where the CPU's does); K3's VJP
+   (``hopper/chol_vjp.py``: the tri kernel, Phi(L^T L-bar) symmetrized, and the solve kernel, L^-T S L^-1 exactly
    symmetric) on the factor where each C's ladder lands at the fx2007
    (float32), synth (float32, float64) and weather-twin (float32, on no
    path) shapes, in both storage orders and bit-identical across
@@ -115,7 +121,8 @@ Phases:
    two deterministic runs are bit-identical, and the calls torch flags
    as nondeterministic printed); one chunk is profiled, by layer and
    inside ``record_function`` ranges around the Woodbury solve with C,
-   the jittered Cholesky, the capacitance matrix and the W applies,
+   the jittered Cholesky (no copy on the card may run inside it, phases
+   9 and 15 too), the capacitance matrix and the W applies,
    and one more with its elementwise layer split by source
    (:func:`elementwise_sources`), and one more with K3's factorizations,
    attempts and host reads per step (:func:`ladder_log`); then
@@ -429,7 +436,8 @@ def device_profile(fn, reps=1, ranges=False):
     their forward kernels: a backward's kernels fall outside them, but
     the Cholesky VJP's range is the backward call itself), and a fourth
     item gives the device ms per call of the kernels launched inside each
-    range, by layer."""
+    range, by layer (``range_layer_of``: copies on the card and tril_
+    apart)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -498,7 +506,7 @@ def device_profile(fn, reps=1, ranges=False):
                          and evt.cpu_parent.name == evt.name)):
             acc = split[evt.name]
             for kname, us in kernels_under(evt):
-                layer = layer_of(kname)
+                layer = range_layer_of(kname)
                 acc[layer] = acc.get(layer, 0.0) + us / 1e3 / reps
     return out + (split,)
 
@@ -556,6 +564,25 @@ LAYERS = (
 
 
 ELEMENTWISE = "elementwise, reductions, copies"
+# inside the ranges of a split profile, two kinds of kernel of the
+# elementwise layer are told apart: copies on the card (a memcpy from
+# device to device, or a copy kernel; not the host reads of a flag), and
+# torch's tril_ (cholesky_ex runs it after potrf)
+COPY_LAYER = "device copies (memcpy DtoD, copy kernels)"
+TRIL_LAYER = "tril_ (cholesky_ex, after potrf)"
+
+
+def is_device_copy(kernel):
+    low = kernel.lower()
+    return "dtod" in low or ("copy" in low and "memcpy" not in low)
+
+
+def range_layer_of(kernel):
+    if is_device_copy(kernel):
+        return COPY_LAYER
+    if "triu_tril" in kernel:
+        return TRIL_LAYER
+    return layer_of(kernel)
 
 
 def layer_of(kernel):
@@ -1063,6 +1090,7 @@ def main():
         kern_rows_fft as k8f,
         kuu,
         lanczos,
+        potrf,
         trsm,
     )
     from runlmc_tpu_torch.kernels.stationary import eval_table
@@ -2205,17 +2233,25 @@ def main():
         del C, Ts, Cp, Tp, Cbar, got, want, Fs_
 
     # K3: the jittered Cholesky's prologue (equilibrate and jitter; the
-    # first attempt, with the pre-pass that computes the kept scale),
-    # epilogue (de-scale and the attempt's flag) and their backward at the
-    # call sites of chol_jittered: each model's own K_UU and C, captured
-    # while its Woodbury factorization is built (fx2007 and synth in
-    # float32, as training factors, and float64, as at model precision;
+    # first attempt, which computes the kept scale), the factorization in
+    # place (potrf.potrf_: cuSOLVER's potrf on the prologue's column-major
+    # M), epilogue (de-scale and the attempt's flag) and their backward at
+    # the call sites of chol_jittered: each model's own K_UU and C,
+    # captured while its Woodbury factorization is built (fx2007 and synth
+    # in float32, as training factors, and float64, as at model precision;
     # the weather twin's float32 preconditioner), at the scale where the
     # ladder lands. The backward on seeded cotangents in the storage
     # orders the path gives them (O-bar row-major, M-bar column-major as
-    # torch's Cholesky VJP leaves it). Every launch is repeated and must
-    # be bit-identical; the forward must also equal its plain version bit
-    # for bit. The timed rows are C's (both sites share the shape); the
+    # the Cholesky VJP leaves it). Every launch is repeated and must be
+    # bit-identical; the prologue (the plain version's lower triangle,
+    # zeros above it) and the epilogue must equal their plain versions bit
+    # for bit; the factor's strict upper triangle must be 0; and the
+    # in-place chain's L and O must equal, bit for bit, those of the
+    # earlier route (cholesky_ex into a new factor, then its tril_) and of
+    # torch's in-place call (cholesky_ex(M, out=(M, info)): no copy, but
+    # its tril_). At the timed sites (each C; both sites share the shape)
+    # one attempt is timed by route, with the earlier route's copy of M
+    # and the tril_ that both torch routes run timed alone. The
     # unequilibrated mode (the flip rung) is held, untimed, at fx2007 and
     # synth. No PyTorch call computes any of the four functions: no
     # library column.
@@ -2239,6 +2275,22 @@ def main():
             wbm.chol_jittered = real
         return seen
 
+    def k3_attempt(A, scale, equil, sd, route):
+        """One attempt of the chain, (L, O, flag), the factor by
+        ``route``: "in place" (the port's potrf, no tril_), "torch in
+        place" (cholesky_ex(M, out=(M, info)), then its tril_) or "new
+        factor" (cholesky_ex into a new matrix, the earlier route)."""
+        M, s, _ = chol_jitter.chol_prologue(A, scale, equil, sd)
+        if route == "in place":
+            L, info = potrf.potrf_(M)
+        elif route == "new factor":
+            L, info = torch.linalg.cholesky_ex(M)
+        else:
+            info = torch.empty((), dtype=torch.int32, device=dev)
+            L, info = torch.linalg.cholesky_ex(M, out=(M, info))
+        O, flag = chol_jitter.chol_descale(L, info, s if equil else None)
+        return L, O, flag
+
     def k3_check(what, kind, A, scales, equil, paths=None, reps=20):
         dtype, n = A.dtype, A.shape[0]
         dts = str(dtype).replace("torch.", "")
@@ -2246,7 +2298,8 @@ def main():
         sd = None
         for scale in scales:  # the rung the ladder lands on
             M, s, sd = chol_jitter.chol_prologue(A, scale, equil, sd)
-            L, info = torch.linalg.cholesky_ex(M)
+            Mw = M.clone()  # what the prologue writes
+            L, info = potrf.potrf_(M)
             O, flag = chol_jitter.chol_descale(L, info.clone(),
                                                s if equil else None)
             if int(flag) == 0:
@@ -2255,7 +2308,21 @@ def main():
         sd1 = chol_jitter.chol_prologue(A, scale, equil)[2]
         sd_p = chol_jitter.chol_scale_plain(A, equil)
         Mp, sp = chol_jitter.chol_prologue_plain(A, scale, equil, sd_p)
+        Mp = torch.tril(Mp)
+        # without equilibration d is a sum, in another order than
+        # torch.mean's: M's bits are held from the plain version's d
+        Mq = (Mw if equil else chol_jitter.chol_prologue(
+            A, scale, equil, sd_p)[0])
         Op, flag_p = chol_jitter.chol_descale_plain(L, info, sp)
+        # the earlier route on the same rung
+        old_route_equal = True
+        for route in ("new factor", "torch in place"):
+            L_old, O_old, flag_old = k3_attempt(A, scale, equil, sd, route)
+            old_route_equal &= bool(torch.equal(L, L_old)
+                                    and torch.equal(O, O_old)
+                                    and int(flag_old) == int(flag))
+            del L_old, O_old
+        upper_zero = bool(torch.count_nonzero(torch.triu(L, 1)) == 0)
         gk = torch.Generator(device=dev).manual_seed(SEED + n)
         Ob = torch.randn(n, n, generator=gk, dtype=dtype, device=dev)
         Mb = torch.randn(n, n, generator=gk, dtype=dtype, device=dev).mT
@@ -2267,9 +2334,11 @@ def main():
         Ab = chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, scale, equil)
         Ab_p = chol_jitter.chol_prologue_bwd_plain(A, sd, Mb, sb, scale,
                                                    equil)
-        same = (torch.equal(M, chol_jitter.chol_prologue(A, scale, equil,
-                                                         sd)[0])
+        same = (torch.equal(Mw, chol_jitter.chol_prologue(A, scale, equil,
+                                                          sd)[0])
                 and torch.equal(sd1, sd)
+                and torch.equal(O, chol_jitter.chol_descale(
+                    L, info.clone(), s if equil else None)[0])
                 and torch.equal(Ab, chol_jitter.chol_prologue_bwd(
                     A, sd, Mb, sb, scale, equil))
                 and (not equil or all(torch.equal(a, b) for a, b in zip(
@@ -2277,10 +2346,12 @@ def main():
         chk = {"site": what, "factor": kind, "dtype": dts, "n": n,
                "equilibrate": equil, "rung": rung, "scale": scale,
                "flag": int(flag), "plain_flag": int(flag_p),
-               "prologue_equal_to_plain": bool(torch.equal(M, Mp)
-                                               and torch.equal(sd, sd_p)),
+               "prologue_equal_to_plain": bool(torch.equal(Mq, Mp)),
+               "kept_scale_equal_to_plain": bool(torch.equal(sd, sd_p)),
                "descale_equal_to_plain": bool(torch.equal(O, Op)),
-               "prologue_rel_err": errors((M, sd), (Mp, sd_p))[1],
+               "equal_to_torch_routes": old_route_equal,
+               "factor_upper_zero": upper_zero,
+               "prologue_rel_err": errors((Mw, sd), (Mp, sd_p))[1],
                "descale_rel_err": errors(O, Op)[1],
                "prologue_bwd_rel_err": errors(Ab, Ab_p)[1],
                "descale_bwd_rel_err": (errors(bwd_d, bwd_dp)[1] if equil
@@ -2288,35 +2359,78 @@ def main():
                "bit_identical": bool(same)}
         k3_checks.append(chk)
         print("K3 %s %s %s (n=%d, equilibrate %s): lands on rung %d (scale "
-              "%g), flag %d (plain %d); prologue rel err %.3e (equal %s), "
-              "descale %.3e (equal %s), backward prologue %.3e, descale %s "
-              "(tol %.0e); relaunch bit-identical %s"
+              "%g), flag %d (plain %d); prologue (lower triangle) rel err "
+              "%.3e (equal %s; kept scale equal %s), descale %.3e (equal "
+              "%s), L and O equal to torch's routes' (a new factor, in "
+              "place) %s, L's strict upper triangle 0 %s; "
+              "backward prologue %.3e, descale %s (tol %.0e); relaunch "
+              "bit-identical %s"
               % (what, kind, dts, n, equil, rung, scale, chk["flag"],
                  chk["plain_flag"], chk["prologue_rel_err"],
-                 chk["prologue_equal_to_plain"], chk["descale_rel_err"],
-                 chk["descale_equal_to_plain"], chk["prologue_bwd_rel_err"],
+                 chk["prologue_equal_to_plain"],
+                 chk["kept_scale_equal_to_plain"], chk["descale_rel_err"],
+                 chk["descale_equal_to_plain"], old_route_equal, upper_zero,
+                 chk["prologue_bwd_rel_err"],
                  "-" if not equil else "%.3e" % chk["descale_bwd_rel_err"],
                  tol, same), flush=True)
         require(same, "K3 %s %s relaunch is not bit-identical" % (what, dts))
         require(chk["flag"] == chk["plain_flag"] == 0,
                 "K3 %s %s: the ladder landed on a failed factor" % (what,
                                                                    dts))
+        require(chk["prologue_equal_to_plain"]
+                and chk["descale_equal_to_plain"]
+                and (chk["kept_scale_equal_to_plain"] or not equil),
+                "K3 %s %s %s: the forward is not its plain version's to the "
+                "bit" % (what, kind, dts))
+        require(old_route_equal and upper_zero, "K3 %s %s %s: the in-place "
+                "chain differs from the earlier route, or L's upper triangle "
+                "is not 0" % (what, kind, dts))
         for key in ("prologue_rel_err", "descale_rel_err",
                     "prologue_bwd_rel_err", "descale_bwd_rel_err"):
             require(chk[key] is None or chk[key] <= tol, "K3 %s %s %s: %s "
                     "above %g" % (what, kind, dts, key, tol))
         if paths is None:
             return
+        # one attempt by route, and the earlier route's copy and tril_
+        # alone
+        treps = max(3, reps // 4)
+        routes = {}
+        for route in ("in place", "torch in place", "new factor"):
+            fn = (lambda r=route: k3_attempt(A, scale, equil, sd, r))
+            routes[route] = {"ms": cuda_time(fn, reps=treps, warm=1),
+                             "device_ms": device_profile(fn, reps=3)[0]}
+        Lc = torch.empty_like(L)
+        copy_fn = (lambda: Lc.copy_(L))
+        tril_fn = (lambda: Lc.tril_())
+        chk["attempt_by_route"] = routes
+        chk["copy_ms"] = cuda_time(copy_fn, reps=reps)
+        chk["copy_device_ms"] = device_profile(copy_fn, reps=10)[0]
+        chk["tril_ms"] = cuda_time(tril_fn, reps=reps)
+        chk["tril_device_ms"] = device_profile(tril_fn, reps=10)[0]
+        del Lc
         e = A.element_size()
         tri = n * (n + 1) // 2
+        chk["copy_bound_ms"] = bound_ms(2 * n * n * e, 0.0, dtype)[0]
+        chk["tril_bound_ms"] = bound_ms((n * n - tri) * e, 0.0, dtype)[0]
+        print("K3 %s %s %s: one attempt (prologue, potrf, epilogue) by "
+              "route: %s; the earlier route's copy of M %.4f ms (device %s, "
+              "bound %.4f ms), tril_ %.4f ms (device %s, bound %.4f ms)"
+              % (what, kind, dts, json.dumps(routes), chk["copy_ms"],
+                 _ms(chk["copy_device_ms"]), chk["copy_bound_ms"],
+                 chk["tril_ms"], _ms(chk["tril_device_ms"]),
+                 chk["tril_bound_ms"]), flush=True)
         site = {"site": "%s %s, n=%d" % (what, kind, n)}
         src = "runlmc_tpu_torch/hopper/csrc/chol_jitter.cu"
+        # the prologue: A's lower triangle read, M written (zeros above
+        # the diagonal), s and the kept sd written, A's diagonal read
         record("chol_prologue", dtype, "cuda", src,
-               "runlmc_tpu/lmc/woodbury.py:91", (M, sd), (Mp, sd_p), tol,
+               "runlmc_tpu/lmc/woodbury.py:91",
+               chol_jitter.chol_prologue(A, scale, equil)[:3:2],
+               (Mp, sd_p), tol,
                lambda: chol_jitter.chol_prologue(A, scale, equil),
                lambda: chol_jitter.chol_prologue_plain(
                    A, scale, equil, chol_jitter.chol_scale_plain(A, equil)),
-               e * (2 * n * n + 3 * n), 3.0 * n * n, path=paths[0],
+               e * (tri + n * n + 3 * n), 3.0 * tri, path=paths[0],
                plain_reps=reps, extra=site)
         info0 = info.clone()
         record("chol_descale", dtype, "cuda", src,
@@ -2500,7 +2614,7 @@ def main():
     def k3_peak(what, A, scales, equil):
         """The device memory one chol_jittered call holds beyond what
         was allocated before it, in (n, n) matrices of A's dtype: the
-        prologue's M, cholesky_ex's factor and the de-scaled copy, plus
+        prologue's M (factored in place) and the de-scaled copy, plus
         cuSOLVER's workspace."""
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2516,8 +2630,8 @@ def main():
               "peaks at %.4f (n, n) matrices beyond its input"
               % (what, lad[0]["rung"], equil, mats), flush=True)
         del L_
-        require(mats <= 3.1, "chol_jittered holds more than the "
-                "prologue's, cholesky_ex's and the epilogue's matrices")
+        require(mats <= 2.1, "chol_jittered holds more than the "
+                "prologue's matrix (factored in place) and the epilogue's")
 
     for what, mdl, dtype, build_fn, paths, reps in (
             ("fx2007", model, torch.float32, model._woodbury32,
@@ -2563,8 +2677,8 @@ def main():
         for equil in (True, False):
             At = torch.as_tensor(A_ind, dtype=dtype)
             M1 = chol_jitter.chol_prologue(At.to(dev), 1e-6, equil)[0]
-            first = int(chol_jitter.chol_descale(
-                *torch.linalg.cholesky_ex(M1), None)[1])
+            first = int(chol_jitter.chol_descale(*potrf.potrf_(M1),
+                                                 None)[1])
             lands = {}
             for where in ("card", "cpu"):
                 with ladder_log(wbm) as lad:
@@ -2912,6 +3026,8 @@ def main():
     print("training step device time inside the Woodbury solve with C and "
           "the jittered Cholesky (per step):", flush=True)
     print_split(chunk_split, per=tm.chunk_len)
+    require(COPY_LAYER not in chunk_split[RANGES[1]], "an fx2007 training "
+            "step copied on the card inside chol_jittered")
     chunk_sources = elementwise_sources(
         lambda: tm._chunk(x_now, z0, z0, z0, T.AdaDelta(**OPT_KW)),
         per=tm.chunk_len)[0]
@@ -3268,6 +3384,8 @@ def main():
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
     print_split(wchunk_split, per=wm.chunk_len)
+    require(COPY_LAYER not in wchunk_split[RANGES[1]], "a weather training "
+            "step copied on the card inside chol_jittered")
     wchunk_sources = elementwise_sources(
         lambda: wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), run_seed=SEED),
         per=wm.chunk_len)[0]
@@ -3779,6 +3897,8 @@ def main():
     print("synth step device time inside the ranges (per step; forward "
           "calls only):", flush=True)
     print_split(schunk_split, per=sm.chunk_len)
+    require(COPY_LAYER not in schunk_split[RANGES[1]], "a synth training "
+            "step copied on the card inside chol_jittered")
     sm.param_array = sx_now
     t0 = time.time()
     smu, svar = sm.predict(stxs)

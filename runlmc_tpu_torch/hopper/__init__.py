@@ -20,7 +20,8 @@ PyTorch version beside it.
   K2  capacitance.capacitance     CUDA  csrc/capacitance.cu
   K2 backward  capacitance.capacitance_bwd  CUDA  csrc/capacitance.cu
   K4  the W-block applies: K9 through interp.InterpApply
-  K3  the jittered Cholesky around cuSOLVER's potrf:
+  K3  the jittered Cholesky around cuSOLVER's potrf (potrf.potrf_, in
+      place on K3a's M, called on torch's own libcusolver):
       K3a chol_jitter.chol_prologue (equilibrate, jitter)
       K3b chol_jitter.chol_descale (de-scale, the attempt's flag)
       their backward  chol_jitter.chol_prologue_bwd / chol_descale_bwd

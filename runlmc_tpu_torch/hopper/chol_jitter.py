@@ -1,8 +1,9 @@
 """K3: the jittered Cholesky's equilibrate, jitter and de-scale, with
 their backward: the hand part of runlmc_tpu/lmc/woodbury.py:60-124
 (``chol_jittered``). The factorization between them stays cuSOLVER's
-(``torch.linalg.cholesky_ex``), as the JAX package leaves it to XLA; its
-VJP is the hand kernel of ``hopper/chol_vjp.py``.
+(``potrf``, in place on the prologue's buffer: ``hopper/potrf.py``,
+through ``hopper/chol_vjp.py``'s ``cholesky_ex``), as the JAX package
+leaves it to XLA; its VJP is the hand kernel of ``hopper/chol_vjp.py``.
 
     chol_prologue(A, scale, equilibrate, sd)  -> (M, s, sd)     K3a
     chol_descale(L, info, s)                  -> (O, flag)      K3b
@@ -12,14 +13,20 @@ VJP is the hand kernel of ``hopper/chol_vjp.py``.
 With ``equilibrate`` the kept scale ``sd`` is s = rsqrt(max(|diag A|,
 1e-30)) and M = (A_ij s_i) s_j + scale I; otherwise ``sd`` is the
 one-element d = |mean(diag A)| and M = A + (scale d) I. ``sd`` is
-computed on the first attempt (``sd=None``: a one-CTA pre-pass inside
-the same wrapper call) and passed to the later ones. ``s`` is a fresh
-copy of the kept s, the differentiable s of one attempt (None without
-equilibration). The epilogue writes O = L / s[:, None] (with ``s=None``
-no copy: O is L) and returns the flag: ``cholesky_ex``'s ``info``, which
-the kernel sets to -1 where an entry of L's lower triangle is not
-finite, so that 0 means the attempt succeeded. The kernels read only
-L's lower triangle: ``cholesky_ex`` leaves the upper one zero.
+computed on the first attempt (``sd=None``: inside the prologue's tiles
+with equilibration, a one-CTA pre-pass in the same wrapper call
+without) and passed to the later ones. ``s`` is a fresh copy of the kept
+s, the differentiable s of one attempt (None without equilibration). On
+the card the prologue writes M column-major (the storage potrf factors
+in place) with zeros above the diagonal, which potrf leaves as the
+factor's upper triangle; only the lower triangle enters the
+factorization, and the backward takes M-bar as the cotangent of the
+whole M, as the plain version (all of M) defines it. The epilogue reads
+only L's lower triangle: it writes O = L / s[:, None] with zeros
+above the diagonal (with ``s=None`` no copy: O is L) and returns the
+flag: ``cholesky_ex``'s ``info``, which the kernel sets to -1 where an
+entry of L's lower triangle is not finite, so that 0 means the attempt
+succeeded.
 
 :class:`CholPrologue` and :class:`CholDescale` are the two autograd
 functions; ``woodbury.chol_jittered`` puts ``cholesky_ex`` between them.
@@ -90,13 +97,18 @@ def chol_prologue_plain(A, scale, equilibrate, sd):
 
 def chol_prologue(A, scale, equilibrate, sd=None):
     """``(M, s, sd)`` for one scale of the ladder; ``sd=None`` computes
-    the kept scale first. ``A`` is row-major; on the card M comes back
-    column-major (cholesky_ex copies it into its column-major factor)."""
+    the kept scale first. ``A`` is row-major (A's upper triangle is not
+    read on the card). On the card M comes back column-major: the plain
+    version's lower triangle, bit for bit, and zeros above it."""
     _check_square("chol_prologue", A)
     if build.use_plain("chol_prologue", A):
         if sd is None:
             sd = chol_scale_plain(A, equilibrate)
-        return chol_prologue_plain(A, scale, equilibrate, sd) + (sd,)
+        M, s = chol_prologue_plain(A, scale, equilibrate, sd)
+        # column-major, as on the card (a tensor of its own, not a view:
+        # CholeskyEx factors it in place), so LAPACK factors it in place
+        Mc = torch.empty_strided(M.shape, (1, M.shape[0]), dtype=M.dtype)
+        return Mc.copy_(M), s, sd
     n = A.shape[0]
     prepass = sd is None
     if prepass:
@@ -118,15 +130,19 @@ chol_prologue.launches = build.counter()
 
 
 def chol_descale_plain(L, info, s):
-    """(O, flag): L / s[:, None] (L itself for ``s=None``) and ``info``,
-    or -1 where L is not finite."""
-    flag = torch.where(torch.isfinite(L).all(), info, -1).to(info.dtype)
-    return (L if s is None else L / s[:, None]), flag
+    """(O, flag) from L's lower triangle: L / s[:, None] with zeros
+    above the diagonal (L itself for ``s=None``) and ``info``, or -1
+    where an entry of the lower triangle is not finite."""
+    flag = torch.where(torch.isfinite(torch.tril(L)).all(), info,
+                       -1).to(info.dtype)
+    # tril_ in place keeps L's storage order, as the kernel does
+    return (L if s is None else (L / s[:, None]).tril_()), flag
 
 
 def chol_descale(L, info, s):
     """``(O, flag)`` of one attempt (module docstring). ``L`` is stored
-    row-major or column-major; O is stored like it."""
+    row-major or column-major, from a 16-byte boundary (as torch
+    allocates); O is stored like it."""
     _check_square("chol_descale", L)
     if build.use_plain("chol_descale", L):
         return chol_descale_plain(L, info, s)
@@ -134,6 +150,10 @@ def chol_descale(L, info, s):
     if not (L.is_contiguous() or L.mT.is_contiguous()):
         raise ValueError("chol_descale: L must be stored row-major or "
                          "column-major")
+    if L.data_ptr() % 16:
+        # O's lines must split at L's 16-byte boundaries
+        raise ValueError("chol_descale: L must start on a 16-byte "
+                         "boundary")
     if info.dtype != torch.int32 or info.numel() != 1:
         raise ValueError("chol_descale: info must be cholesky_ex's int32 "
                          "scalar")

@@ -15,8 +15,8 @@ which symmetrizes its input.
     chol_vjp_solve(L, S)       -> A-bar   the solve kernels: both
                                            substitutions, exactly symmetric
     cholesky_backward(L, Lbar) -> A-bar   chol_vjp_solve(L, chol_vjp(L, Lbar))
-    cholesky_ex(A)             -> (L, info)  torch.linalg.cholesky_ex
-                                           with this backward
+    cholesky_ex(M)             -> (L, info)  cuSOLVER's potrf in place
+                                           on M, with this backward
 
 ``chol_vjp`` forms P's lower triangle, n^3 / 3 operations against the
 full GEMM's 2 n^3, with Phi and the symmetrization in its epilogue, from
@@ -28,11 +28,11 @@ mirror. L and L-bar come row-major or column-major (cuSOLVER leaves L
 column-major). Its plain version is two triangular solves through
 ``torch.linalg.solve_triangular`` (cuBLAS's on the card) and the
 symmetrization. :class:`CholeskyEx` is the factorization as an autograd
-function: forward cuSOLVER's ``potrf`` (``torch.linalg.cholesky_ex``, a
-library call by design), backward :func:`cholesky_backward`; ``info``
-carries no gradient. The wrappers launch their kernels for CUDA tensors
-and run the plain PyTorch versions beside them for CPU tensors; each
-counts one launch per call.
+function: forward cuSOLVER's ``potrf`` in place on its input
+(``hopper/potrf.py``, a library call by design), backward
+:func:`cholesky_backward`; ``info`` carries no gradient. The wrappers
+launch their kernels for CUDA tensors and run the plain PyTorch versions
+beside them for CPU tensors; each counts one launch per call.
 """
 
 import ctypes
@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from runlmc_tpu_torch.hopper import build
+from runlmc_tpu_torch.hopper.potrf import potrf_
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # the kernels' tile edge: S's output tiles, L's blocks, Y's tiles
@@ -181,13 +182,15 @@ def cholesky_backward(L, Lbar):
 
 
 class CholeskyEx(torch.autograd.Function):
-    """``torch.linalg.cholesky_ex`` (cuSOLVER's potrf on the card) with
-    :func:`cholesky_backward` as its backward; ``info`` is not
-    differentiable."""
+    """The factorization in place (``hopper/potrf.py`` ``potrf_``) with
+    :func:`cholesky_backward` as its backward: the input is marked dirty
+    and comes back as L; ``info`` is not differentiable. Whatever made
+    the input must not need it for its own backward (K3a's does not)."""
 
     @staticmethod
-    def forward(ctx, A):
-        L, info = torch.linalg.cholesky_ex(A)
+    def forward(ctx, M):
+        L, info = potrf_(M)
+        ctx.mark_dirty(L)
         ctx.save_for_backward(L)
         ctx.mark_non_differentiable(info)
         return L, info
@@ -199,6 +202,6 @@ class CholeskyEx(torch.autograd.Function):
         return cholesky_backward(L, Lbar)
 
 
-def cholesky_ex(A):
-    """``(L, info)`` of :class:`CholeskyEx`."""
-    return CholeskyEx.apply(A)
+def cholesky_ex(M):
+    """``(L, info)`` of :class:`CholeskyEx`: ``M`` factored in place."""
+    return CholeskyEx.apply(M)

@@ -2,17 +2,19 @@
 // with its backward. For a (n, n) matrix A and one scale c of the
 // ladder,
 //
-//   pre-pass   s_i = rsqrt(max(|A_ii|, 1e-30))     (equilibrate), or
-//              d = |mean(diag A)|                  (otherwise)
+//   scale      s_i = rsqrt(max(|A_ii|, 1e-30))     (equilibrate), or
+//              d = |mean(diag A)|                  (otherwise, a pre-pass)
 //   prologue   M = (A_ij s_i) s_j + c delta_ij     (equilibrate), or
-//              M = A + (c d) I                     (otherwise)
-//   [torch.linalg.cholesky_ex(M) -> L, info: cuSOLVER's potrf]
-//   epilogue   O = L / s[:, None], and one flag: info stays 0 only when
-//              every entry of L is finite (otherwise the kernel stores -1
-//              into info); without equilibration only the flag
+//              M = A + (c d) I                     (otherwise),
+//              M's lower triangle, zeros above it
+//   [cuSOLVER's potrf factors M in place: L = M, info]
+//   epilogue   O = L / s[:, None] with zeros above the diagonal, and one
+//              flag: info stays 0 only when every entry of L's lower
+//              triangle is finite (otherwise the kernel stores -1 into
+//              info); without equilibration only the flag
 //
 // and the backward of the prologue and the epilogue with cotangents
-// M-bar and O-bar (torch's Cholesky VJP runs between them):
+// M-bar and O-bar (the Cholesky VJP runs between them):
 //
 //   epilogue   L-bar = O-bar / s_i,  s-bar_i = -sum_j O-bar_ij L_ij / s_i^2
 //   prologue   A-bar_ij = (M-bar_ij s_j) s_i, then
@@ -27,34 +29,54 @@
 // them). The factorization stays cuSOLVER's, as the JAX package leaves
 // it to XLA.
 //
-// Bound on the card: bytes. The prologue reads A and writes M (2 n^2
-// elements), the epilogue reads L's lower triangle and writes O (1.5
-// n^2), the prologue's backward reads M-bar and A and writes A-bar (3
-// n^2), the epilogue's reads O-bar and L's lower triangle and writes
-// L-bar (2.5 n^2); the operations are a few per element.
+// Bound on the card: bytes. The prologue reads A's lower triangle and
+// writes M (1.5 n^2 elements), the epilogue reads L's lower triangle and
+// writes O (1.5 n^2), the prologue's backward reads M-bar and A and
+// writes A-bar (3 n^2), the epilogue's reads O-bar and L's lower
+// triangle and writes L-bar (2.5 n^2); the operations are a few per
+// element.
 //
-// Design: 32 x 32 tiles through shared memory wherever two operands or
-// an operand and the output differ in storage order (cuSOLVER leaves L
-// column-major; the prologue writes M column-major so that cholesky_ex's
-// copy of it into its factor is a straight copy; the cotangents come
-// row-major or column-major), elementwise passes elsewhere. Products and
-// sums that the plain version (torch's elementwise ops) rounds one by one
-// are written with __fmul_rn/__fadd_rn so that nvcc contracts none of
-// them into an FMA: the forward passes equal their plain versions bit for
-// bit. Row and column sums of the backward are per-tile partials (a
+// Design. The prologue is persistent (CTAs sized by the occupancy API)
+// over the 64 x 64 tiles of M: potrf reads only M's lower triangle, so
+// no tile of A above the diagonal is read, and the tiles of M above it
+// are stores of zeros (potrf, called in place, leaves them as the
+// factor's upper triangle: no tril_ after it). It transposes each lower
+// tile through shared memory (A row-major, M column-major, potrf's
+// storage, so that potrf factors M where it lies) and recomputes
+// the tile's own s_i and s_j from A's diagonal on the first attempt
+// (elementwise: the same bits as a pre-pass). The epilogue works along
+// L's storage lines. Both move 16-byte vectors, several loads in flight
+// a thread before any store. No row of an n x n matrix need start on a
+// 16-byte boundary (n = 3094 floats start every other row 8 bytes off),
+// so each line is split at its own boundaries: scalar head, vector body,
+// scalar tail. Products and sums that the plain version (torch's
+// elementwise ops) rounds one by one are written with __fmul_rn/__fadd_rn
+// so that nvcc contracts none of them into an FMA, and the de-scale
+// divides as torch does: the forward passes equal their plain versions
+// bit for bit. The backward runs 32 x 32 tiles through shared memory
+// wherever two operands or an operand and the output differ in storage
+// order (the cotangents come row-major or column-major), elementwise
+// passes elsewhere. Its row and column sums are per-tile partials (a
 // warp's shuffle tree over 32 terms), reduced by one thread per row over
 // the tiles in order: no atomics, a second launch is bit-identical. The
 // flag is the only cross-CTA result: CTAs that see a non-finite entry
 // store the same -1, so it needs no ordering either.
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
+constexpr int kTile = 32;         // the backward's tiles
 constexpr int kRows = 8;          // blockDim.y of a tile CTA (32 x 8 threads)
 constexpr int kThreads = 256;     // elementwise and reduction CTAs
 constexpr int kPrepass = 1024;    // the one-CTA passes
+constexpr int kT = 64;            // K3a's tiles
+constexpr int kThreadsA = 256;    // a K3a CTA
+constexpr int kThreadsB = 128;    // a K3b CTA
+constexpr int kUnrollB = 4;       // K3b's vectors a thread (loads in flight)
+constexpr int kMaxDevices = 16;
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
     return __fmul_rn(a, b);
@@ -105,75 +127,270 @@ __device__ T block_sum(const T* a, int64_t stride, int64_t n, T* red) {
     return total;
 }
 
-// pre-pass, one CTA: s (n) with equilibration, else d = |mean diag A| (1)
+// pre-pass without equilibration, one CTA: d = |mean diag A| (1)
 template <typename T>
 __global__ void k3_scale_kernel(const T* __restrict__ A, T* __restrict__ sd,
-                             int64_t n, int equil) {
+                                int64_t n) {
     __shared__ T red[kPrepass];
-    if (equil) {
-        for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-            const T a = fabs(A[i * (n + 1)]);
-            // torch.clamp keeps a NaN, as this comparison does
-            sd[i] = rsqrt_t(a < tiny<T>() ? tiny<T>() : a);
-        }
-        return;
-    }
     const T total = block_sum(A, n + 1, n, red);
     if (threadIdx.x == 0) sd[0] = fabs(total / T(n));
 }
 
-// prologue: A row-major in, M column-major out (a tile transposed through
-// shared memory); with equilibration also a copy of s into s_out, the
-// differentiable s of this attempt
+// 16-byte accesses: 4 floats or 2 doubles
+__device__ __forceinline__ void ld16(const float* p, float* v) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void ld16(const double* p, double* v) {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = x.x; v[1] = x.y;
+}
+__device__ __forceinline__ void st16(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st16(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// A line of len contiguous elements at p, split at its 16-byte
+// boundaries: head scalars, nv whole vectors, then the tail; ns scalars
+// in head and tail together (fewer than 2 V). Scalar u (< ns) sits at
+// position pos(u).
 template <typename T>
-__global__ void k3_prologue_kernel(const T* __restrict__ A,
-                                const T* __restrict__ sd, T* __restrict__ M,
-                                T* __restrict__ s_out, int64_t n, int equil,
-                                double scale) {
-    __shared__ T tile[kTile][kTile + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int64_t i0 = (int64_t)blockIdx.y * kTile;
-    const int64_t j0 = (int64_t)blockIdx.x * kTile;
-    const T cd = equil ? T(scale) : mul_rn(T(scale), sd[0]);
-    const int64_t j = j0 + tx;
-    const T sj = (equil && j < n) ? sd[j] : T(1);
-    for (int r = ty; r < kTile; r += kRows) {
-        const int64_t i = i0 + r;
-        if (i < n && j < n) {
-            T v = A[i * n + j];
-            if (equil) v = mul_rn(mul_rn(v, sd[i]), sj);
-            tile[r][tx] = add_rn(v, i == j ? cd : T(0));
-        }
+struct Split {
+    static constexpr int V = 16 / sizeof(T);
+    int head, nv, ns;
+    __device__ __forceinline__ Split(const T* p, int len) {
+        const int mis = (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T))
+                              % V);
+        head = min((V - mis) % V, len);
+        nv = (len - head) / V;
+        ns = len - nv * V;
     }
-    if (equil && blockIdx.y == 0 && ty == 0 && j < n) s_out[j] = sj;
-    __syncthreads();
-    // M_ij goes to j * n + i: consecutive lanes take consecutive rows
-    const int64_t i = i0 + tx;
-    for (int c = ty; c < kTile; c += kRows) {
-        const int64_t jj = j0 + c;
-        if (i < n && jj < n) M[jj * n + i] = tile[tx][c];
+    __device__ __forceinline__ int pos(int u) const {
+        return u < head ? u : u + nv * V;
+    }
+};
+
+// t-th tile of the lower block triangle, row by row: (bi, bj), bj <= bi
+__device__ __forceinline__ void tri_tile(int64_t t, int64_t& bi,
+                                         int64_t& bj) {
+    int64_t b = (int64_t)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+    while (b * (b + 1) / 2 > t) --b;
+    while ((b + 1) * (b + 2) / 2 <= t) ++b;
+    bi = b;
+    bj = t - b * (b + 1) / 2;
+}
+
+template <typename T>
+__device__ __forceinline__ T m_entry(T a, T si, T sj, bool diag, T cd,
+                                     int equil) {
+    const T v = equil ? mul_rn(mul_rn(a, si), sj) : a;
+    return add_rn(v, diag ? cd : T(0));
+}
+
+// K3a, persistent: each CTA takes the kT x kT tiles t = blockIdx.x,
+// + gridDim.x, ... of M: first the nlower tiles of its lower block
+// triangle (diagonal tiles whole), then those above it. A lower tile
+// reads its rows of A (row-major) into shared memory and writes its
+// columns of M (column-major), zeros above the diagonal; a tile above
+// the diagonal is stores of zeros, with no load. A line (a row of A's
+// tile, a column of M's) is G threads: thread k its k-th 16-byte
+// vector, the threads past the vectors the line's head and tail
+// scalars; each thread takes P lines of a tile, loads first. With
+// equilibration the tile's s_i and s_j are rsqrt(max(|A_ii|, 1e-30)) of
+// A's own diagonal on the first attempt (prepass; diagonal tiles store
+// them into sd) and sd's later; diagonal tiles also store the attempt's
+// copy s_out.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsA)
+k3_prologue_kernel(const T* __restrict__ A, T* __restrict__ sd,
+                   T* __restrict__ M, T* __restrict__ s_out, int64_t n,
+                   int equil, int prepass, double scale, int64_t nlower,
+                   int64_t ntiles) {
+    constexpr int V = Split<T>::V;
+    constexpr int G = kT / V;            // threads on a line
+    constexpr int LP = kThreadsA / G;    // lines at once
+    constexpr int P = kT / LP;           // lines a thread takes
+    __shared__ T tile[kT][kT + 1];
+    __shared__ T sr[kT], sc[kT];
+    const int k = threadIdx.x % G, l0 = threadIdx.x / G;
+    const T cd = equil ? T(scale) : mul_rn(T(scale), sd[0]);
+    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int64_t bi, bj;
+        if (t < nlower) {
+            tri_tile(t, bi, bj);
+        } else {  // (a, b), b <= a, names the tile (b, a + 1) above
+            tri_tile(t - nlower, bj, bi);
+            ++bj;
+        }
+        const int64_t i0 = bi * kT, j0 = bj * kT;
+        const int rows = (int)(n - i0 < kT ? n - i0 : kT);
+        const int cols = (int)(n - j0 < kT ? n - j0 : kT);
+        if (t >= nlower) {  // the same for the whole CTA: no barrier
+            const T zero[V] = {};
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int c = l0 + p * LP;
+                if (c < cols) {
+                    T* dst = M + (j0 + c) * n + i0;
+                    const Split<T> sp(dst, rows);
+                    if (k < sp.nv) {
+                        st16(dst + sp.head + k * V, zero);
+                    } else {
+                        for (int u = k - sp.nv; u < sp.ns; u += G - sp.nv) {
+                            dst[sp.pos(u)] = T(0);
+                        }
+                    }
+                }
+            }
+            continue;
+        }
+        if (equil && threadIdx.x < 2 * kT) {
+            const bool isrow = threadIdx.x < kT;
+            const int q = threadIdx.x % kT;
+            const int64_t i = (isrow ? i0 : j0) + q;
+            if (q < (isrow ? rows : cols)) {
+                T v;
+                if (prepass) {
+                    const T a = fabs(A[i * (n + 1)]);
+                    // torch.clamp keeps a NaN, as this comparison does
+                    v = rsqrt_t(a < tiny<T>() ? tiny<T>() : a);
+                } else {
+                    v = sd[i];
+                }
+                (isrow ? sr : sc)[q] = v;
+                if (isrow && bi == bj) {
+                    s_out[i] = v;
+                    if (prepass) sd[i] = v;
+                }
+            }
+        }
+        T v[P][V];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int r = l0 + p * LP;
+            if (r < rows) {
+                const T* src = A + (i0 + r) * n + j0;
+                const Split<T> sp(src, cols);
+                if (k < sp.nv) ld16(src + sp.head + k * V, v[p]);
+            }
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int r = l0 + p * LP;
+            if (r < rows) {
+                const T* src = A + (i0 + r) * n + j0;
+                const Split<T> sp(src, cols);
+                if (k < sp.nv) {
+#pragma unroll
+                    for (int e = 0; e < V; ++e) {
+                        tile[r][sp.head + k * V + e] = v[p][e];
+                    }
+                } else {
+                    for (int u = k - sp.nv; u < sp.ns; u += G - sp.nv) {
+                        const int c = sp.pos(u);
+                        tile[r][c] = src[c];
+                    }
+                }
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int c = l0 + p * LP;
+            if (c < cols) {
+                const int64_t j = j0 + c;
+                T* dst = M + j * n + i0;
+                const Split<T> sp(dst, rows);
+                const T sj = equil ? sc[c] : T(1);
+                if (k < sp.nv) {
+                    T w[V];
+#pragma unroll
+                    for (int e = 0; e < V; ++e) {
+                        const int r = sp.head + k * V + e;
+                        w[e] = i0 + r < j ? T(0)
+                             : m_entry(tile[r][c], equil ? sr[r] : T(1), sj,
+                                       i0 + r == j, cd, equil);
+                    }
+                    st16(dst + sp.head + k * V, w);
+                } else {
+                    for (int u = k - sp.nv; u < sp.ns; u += G - sp.nv) {
+                        const int r = sp.pos(u);
+                        dst[r] = i0 + r < j ? T(0)
+                               : m_entry(tile[r][c], equil ? sr[r] : T(1),
+                                         sj, i0 + r == j, cd, equil);
+                    }
+                }
+            }
+        }
+        __syncthreads();
     }
 }
 
-// epilogue, elementwise over L's storage (column-major when lcol): the
-// lower triangle is read and de-scaled, the upper written as 0 / s_i
-// (cholesky_ex leaves it zero); O null: the flag alone
+// K3b over L's storage (column-major when lcol), a line (a column, or a
+// row) at a time: CTA (c, r) takes chunk c of line r, kUnrollB vectors a
+// thread, every load before the first store; chunk 0 also the line's
+// head and tail scalars. Entries of the lower triangle are read, tested
+// and de-scaled; a vector wholly above the diagonal is a store of zeros
+// with no load, and the entries above the diagonal of a vector that
+// straddles it are written as zeros and never tested. O null: the flag
+// alone (the lower triangle read, nothing stored).
 template <typename T>
-__global__ void k3_descale_kernel(const T* __restrict__ L,
-                               const T* __restrict__ s, T* __restrict__ O,
-                               int* __restrict__ flag, int64_t n, int lcol) {
-    const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreadsB)
+k3_descale_kernel(const T* __restrict__ L, const T* __restrict__ s,
+                  T* __restrict__ O, int* __restrict__ flag, int64_t n,
+                  int lcol) {
+    constexpr int V = Split<T>::V;
+    constexpr int CV = kThreadsB * kUnrollB;  // vectors a chunk
+    const int c = blockIdx.x;
     bool bad = false;
     for (int64_t r = blockIdx.y; r < n; r += gridDim.y) {
-        if (c >= n) break;
-        const int64_t i = lcol ? c : r, j = lcol ? r : c;
-        const int64_t p = r * n + c;
-        T v = T(0);
-        if (j <= i) {
-            v = L[p];
-            bad |= !isfinite(v);
+        const T* src = L + r * n;
+        T* dst = O == nullptr ? nullptr : O + r * n;
+        const Split<T> sp(src, (int)n);
+        // the lower triangle of line r: positions q >= r of a column,
+        // q <= r of a row
+        const int lo = lcol ? (int)r : 0;
+        const int hi = lcol ? (int)n - 1 : (int)r;
+        T v[kUnrollB][V];
+        bool got[kUnrollB];
+#pragma unroll
+        for (int u = 0; u < kUnrollB; ++u) {
+            const int w = c * CV + u * kThreadsB + threadIdx.x;
+            const int q0 = sp.head + w * V;
+            got[u] = w < sp.nv && q0 + V - 1 >= lo && q0 <= hi;
+            if (got[u]) ld16(src + q0, v[u]);
         }
-        if (O != nullptr) O[p] = v / s[i];
+#pragma unroll
+        for (int u = 0; u < kUnrollB; ++u) {
+            const int w = c * CV + u * kThreadsB + threadIdx.x;
+            if (w >= sp.nv) continue;
+            const int q0 = sp.head + w * V;
+            T o[V];
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+                const int q = q0 + e;
+                T x = T(0);
+                if (got[u] && q >= lo && q <= hi) {
+                    x = v[u][e];
+                    bad |= !isfinite(x);
+                    if (dst != nullptr) x = x / s[lcol ? q : r];
+                }
+                o[e] = x;
+            }
+            if (dst != nullptr) st16(dst + q0, o);
+        }
+        if (c == 0 && threadIdx.x < sp.ns) {
+            const int q = sp.pos(threadIdx.x);
+            T x = T(0);
+            if (q >= lo && q <= hi) {
+                x = src[q];
+                bad |= !isfinite(x);
+                if (dst != nullptr) x = x / s[lcol ? q : r];
+            }
+            if (dst != nullptr) dst[q] = x;
+        }
     }
     if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = -1;
 }
@@ -318,21 +535,60 @@ inline dim3 rows_grid(int64_t n) {
 
 }  // namespace
 
+// CTAs of kern (threads each, no dynamic shared memory) resident on the
+// current device at once, found once per device
+template <typename K>
+static int resident_ctas(K kern, int threads, int* facts, int* out) {
+    static std::mutex lock;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(lock);
+    if (facts[dev] == 0) {
+        int nsm = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                            threads, 0);
+        if (err != cudaSuccess) return (int)err;
+        facts[dev] = (per_sm > 0 ? per_sm : 1) * nsm;
+    }
+    *out = facts[dev];
+    return 0;
+}
+
 template <typename T>
 static int prologue(const T* A, T* sd, T* M, T* s_out, int64_t n, int equil,
                     double scale, int prepass, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (prepass) k3_scale_kernel<T><<<1, kPrepass, 0, st>>>(A, sd, n, equil);
-    k3_prologue_kernel<T><<<tile_grid(n), dim3(kTile, kRows), 0, st>>>(
-        A, sd, M, s_out, n, equil, scale);
+    if (n <= 0) return 0;
+    if (prepass && !equil) {
+        k3_scale_kernel<T><<<1, kPrepass, 0, st>>>(A, sd, n);
+    }
+    static int facts[kMaxDevices] = {};
+    int cap = 0;
+    const int rc = resident_ctas(k3_prologue_kernel<T>, kThreadsA, facts,
+                                 &cap);
+    if (rc != 0) return rc;
+    const int64_t nt = (n + kT - 1) / kT, nlower = nt * (nt + 1) / 2;
+    const unsigned grid = (unsigned)(nt * nt < cap ? nt * nt : cap);
+    k3_prologue_kernel<T><<<grid, kThreadsA, 0, st>>>(
+        A, sd, M, s_out, n, equil, prepass, scale, nlower, nt * nt);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int descale(const T* L, const T* s, T* O, int* flag, int64_t n,
                    int lcol, void* stream) {
-    k3_descale_kernel<T><<<rows_grid(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(L, s, O, flag, n, lcol);
+    if (n <= 0) return 0;
+    // elements of a chunk: each line's vectors are at most n / V
+    constexpr int64_t chunk = (int64_t)kThreadsB * kUnrollB * (16 / sizeof(T));
+    const int64_t chunks = (n + chunk - 1) / chunk;
+    k3_descale_kernel<T><<<dim3((unsigned)chunks, runlmc::grid_y(n)),
+                           kThreadsB, 0, (cudaStream_t)stream>>>(
+        L, s, O, flag, n, lcol);
     return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,8 @@ The capacitance C is K2, the hand kernel of ``hopper/capacitance.py``
 ``grid.make_grids`` made once per grid; every W and W^T apply (K4) is
 K9's gather or scatter through the group's interpolant
 (``hopper/interp.py``, differentiable); the products with F stay
-``torch.matmul`` and the factorizations ``torch.linalg.cholesky_ex``
-(cuBLAS / cuSOLVER on the card), as the JAX package leaves them to XLA,
+``torch.matmul`` and the factorizations cuSOLVER's ``potrf``, in place
+(``hopper/potrf.py``), as the JAX package leaves them to XLA,
 with K3's equilibrate, jitter and de-scale around each
 (``hopper/chol_jitter.py``, with their backward) and the factorization's
 own backward a hand kernel too (``hopper/chol_vjp.py``);
@@ -61,10 +61,14 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
 
     Each attempt is K3 around cuSOLVER (``hopper/chol_jitter.py``): the
     prologue (equilibrate and jitter; the scale S or the mean is computed
-    on the first attempt and kept), ``torch.linalg.cholesky_ex`` (through
-    ``hopper.chol_vjp.cholesky_ex``, whose backward is the hand VJP), and the
-    epilogue (de-scale, and one device flag: ``info == 0`` and every
-    entry of the factor finite). Scale selection: the first scale whose
+    on the first attempt and kept) writes M's lower triangle and zeros
+    above it, cuSOLVER's ``potrf`` factors M in place
+    (``hopper/potrf.py``, through ``hopper.chol_vjp.cholesky_ex``, whose
+    backward is the hand VJP: no copy of M), and the epilogue de-scales
+    into a new matrix and sets one device flag (``info == 0`` and every
+    entry of the factor's lower triangle finite). An attempt holds two
+    (n, n) matrices beyond A: M, which becomes its factor, and the
+    de-scaled copy. Scale selection: the first scale whose
     flag is set, and otherwise the last scale. (The JAX package keeps the
     first scale whose factor is finite; XLA's Cholesky returns NaNs where
     LAPACK and cuSOLVER report ``info > 0``.) Reading the flag costs one
@@ -94,7 +98,8 @@ def chol_jittered(A, scales=(1e-6, 1e-4, 1e-2), equilibrate=None):
             flag = chol_descale(L, info, None)[1]
         if last or _accepted(flag):
             break
-        # free the failed attempt's (Dm, Dm) buffers before the next one
+        # drop the failed attempt's (Dm, Dm) buffers before the next one
+        # (the allocator reuses them; its graph, if any, goes with them)
         del M, L, info, flag
     return L
 

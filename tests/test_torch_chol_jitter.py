@@ -8,6 +8,8 @@ mirrors of the CUDA kernels' tile loops; and, on bench.py's reduced
 synth copy, the rung where each float32 factorization lands, against
 the JAX package's rule on the same matrices."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,8 @@ import runlmc_tpu_torch as T
 from runlmc_tpu.lmc import woodbury as jwb
 from runlmc_tpu_torch import datasets as tdata
 from runlmc_tpu_torch.hopper import chol_jitter as k3
+from runlmc_tpu_torch.hopper import chol_vjp as cv
+from runlmc_tpu_torch.hopper import potrf
 from runlmc_tpu_torch.lmc import woodbury as twb
 
 KUU_LADDER = (1e-6, 1e-4, 1e-2)
@@ -193,11 +197,92 @@ def test_host_reads_per_attempt(equilibrate, reads):
     assert L.shape == A.shape
 
 
-# ---- numpy mirrors of csrc/chol_jitter.cu's loops (32 x 32 tiles, 32 x
-# 8 threads), run on the storage buffers at a ragged size, against the
-# plain versions: they check the kernels' index arithmetic (storage
-# orders, the triangle, the partial sums' layout), which only the card
-# can run
+class _OutOfPlaceCholesky(torch.autograd.Function):
+    """The earlier attempt's factorization: cholesky_ex into a new factor
+    (M stays as it was), with the same hand backward."""
+
+    @staticmethod
+    def forward(ctx, M):
+        L, info = torch.linalg.cholesky_ex(M)
+        ctx.save_for_backward(L)
+        ctx.mark_non_differentiable(info)
+        return L, info
+
+    @staticmethod
+    def backward(ctx, Lbar, _info_bar):
+        (L,) = ctx.saved_tensors
+        return cv.cholesky_backward(L, Lbar)
+
+
+@pytest.mark.parametrize("equilibrate", [True, False])
+@pytest.mark.parametrize("rung", [0, 1])
+def test_in_place_attempt_matches_the_out_of_place_chain(rung, equilibrate,
+                                                         monkeypatch,
+                                                         reads):
+    """Each attempt factors the prologue's M in place (CholeskyEx marks
+    it dirty, its backward is unchanged): the factor and the float64
+    gradient equal, bit for bit, those of the chain that factors into a
+    new matrix, on the rung the ladder lands on."""
+    A = _matrix(RUNGS[KUU_LADDER][rung])
+    if equilibrate:
+        # graded, as in test_gradient_matches_jax: the same rung
+        d = np.exp(np.random.RandomState(5).uniform(-2, 2, 30))
+        A = d[:, None] * A * d[None, :]
+    w = torch.as_tensor(np.random.RandomState(1).standard_normal(A.shape))
+    out = []
+    for chain in ("in place", "out of place"):
+        if chain == "out of place":
+            monkeypatch.setattr(twb, "cholesky_ex", _OutOfPlaceCholesky.apply)
+        At = torch.as_tensor(A).requires_grad_(True)
+        L = twb.chol_jittered(At, scales=KUU_LADDER, equilibrate=equilibrate)
+        (g,) = torch.autograd.grad(torch.sum(torch.tril(w) * L), At)
+        out.append((L.detach(), g))
+    assert reads == [False] * rung + [True] + [False] * rung + [True]
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("equilibrate", [True, False])
+def test_factor_upper_is_zero_and_a_nan_above_leaves_the_flag(equilibrate,
+                                                             reads):
+    """The factor's strict upper triangle is exactly 0, and a NaN above
+    A's diagonal (which potrf never reads) does not set the flag: the
+    first rung is taken, with the same factor as without the NaN."""
+    A = _matrix(0.5)
+    L0 = twb.chol_jittered(torch.as_tensor(A), equilibrate=equilibrate)
+    A[2, 25] = np.nan
+    L = twb.chol_jittered(torch.as_tensor(A), equilibrate=equilibrate)
+    assert reads == [True, True]
+    assert torch.equal(L, torch.tril(L)) and torch.equal(L, L0)
+    M, _, _ = k3.chol_prologue(torch.as_tensor(A), 1e-6, equilibrate)
+    L1, info = potrf.potrf_(M)
+    assert L1 is M and torch.equal(torch.triu(L1, 1), torch.zeros_like(L1))
+    assert int(k3.chol_descale(L1, info, None)[1]) == 0
+
+
+@pytest.mark.parametrize("order", ["row", "column"])
+def test_potrf_factors_in_place(order):
+    """potrf_ on the CPU: LAPACK's factor in M's own storage, bit for bit
+    cholesky_ex's; what it cannot take raises."""
+    A = torch.as_tensor(_matrix(0.5))
+    M = A.clone() if order == "row" else A.mT.contiguous().mT
+    ptr = M.data_ptr()
+    L, info = potrf.potrf_(M)
+    want, info0 = torch.linalg.cholesky_ex(A)
+    assert L is M and M.data_ptr() == ptr
+    assert torch.equal(L, want) and int(info) == int(info0) == 0
+    with pytest.raises(ValueError):
+        potrf.potrf_(A[:, :5])
+    with pytest.raises(ValueError):
+        potrf.potrf_(A.to(torch.int64))
+
+
+# ---- numpy mirrors of csrc/chol_jitter.cu's loops, run on the storage
+# buffers at ragged sizes, against the plain versions: they check the
+# kernels' index arithmetic (the triangular work list, storage orders,
+# the 16-byte split of each line into a scalar head, a vector body and
+# a scalar tail, the triangle, the partial sums' layout), which only the
+# card can run. The backward's tiles are 32 x 32 on 32 x 8 threads.
 
 TILE, ROWS = 32, 8
 
@@ -224,31 +309,190 @@ def _load_tile(X, xcol, i0, j0, n, lower):
     return t
 
 
-def _mirror_prologue(A, sd, equil, scale):
+# the forward's constants: K3a's 64 x 64 tiles on 256 threads, K3b's 128
+# threads with 4 vectors each; V elements a 16-byte vector (4 for
+# float32, 2 for float64)
+KT, THREADS_A, THREADS_B, UNROLL_B = 64, 256, 128, 4
+
+
+def _split(addr, length, V):
+    """(head, nv, ns) of a line of ``length`` elements whose first sits
+    at element address ``addr`` (Split in the source)."""
+    head = min((V - addr % V) % V, length)
+    nv = (length - head) // V
+    return head, nv, length - nv * V
+
+
+def _pos(u, head, nv, V):
+    return u if u < head else u + nv * V
+
+
+def _line(addr, length, V, G, k):
+    """The positions thread ``k`` of a line's G threads takes, as
+    (positions, is_vector): its vector's V positions, or its scalars."""
+    head, nv, ns = _split(addr, length, V)
+    if k < nv:
+        q0 = head + k * V
+        assert (addr + q0) % V == 0  # an aligned 16-byte access
+        return list(range(q0, q0 + V)), True
+    if ns:
+        assert G - nv >= 1
+    return [_pos(u, head, nv, V)
+            for u in range(k - nv, ns, max(G - nv, 1))], False
+
+
+def _tri_tile(t):
+    b = int((math.sqrt(8.0 * t + 1.0) - 1.0) * 0.5)
+    while b * (b + 1) // 2 > t:
+        b -= 1
+    while (b + 1) * (b + 2) // 2 <= t:
+        b += 1
+    return b, t - b * (b + 1) // 2
+
+
+def _mirror_prologue(A, sd, equil, scale, V=4, a_off=0, prepass=True):
+    """K3a on A's storage (its first element at element address
+    ``a_off``) into a fresh column-major M filled with NaN: returns (M,
+    writes per entry, loads per entry of A, s_out, the kept sd it
+    stores)."""
     n = A.shape[0]
-    Ab, M = A.reshape(-1), np.zeros(n * n)
+    G = KT // V
+    LP = THREADS_A // G
+    P = KT // LP
+    Ab = A.reshape(-1)
+    M = np.full(n * n, np.nan)
+    writes = np.zeros(n * n, dtype=int)
+    a_loads = np.zeros(n * n, dtype=int)
+    s_out, sd_kept = np.full(n, np.nan), np.full(n, np.nan)
     cd = scale if equil else scale * sd[0]
-    nt = -(-n // TILE)
-    for bi in range(nt):
-        for bj in range(nt):
-            i0, j0 = bi * TILE, bj * TILE
-            tile = np.zeros((TILE, TILE + 1))
-            for ty, tx in _threads():
-                j = j0 + tx
-                sj = sd[j] if (equil and j < n) else 1.0
-                for r in range(ty, TILE, ROWS):
-                    i = i0 + r
-                    if i < n and j < n:
-                        v = Ab[i * n + j]
-                        if equil:
-                            v = (v * sd[i]) * sj
-                        tile[r, tx] = v + (cd if i == j else 0.0)
-            for ty, tx in _threads():
-                i = i0 + tx
-                for c in range(ty, TILE, ROWS):
-                    if i < n and j0 + c < n:
-                        M[(j0 + c) * n + i] = tile[tx, c]
-    return M.reshape(n, n).T  # column-major storage
+    nt = -(-n // KT)
+    nlower = nt * (nt + 1) // 2
+    tiles = [_tri_tile(t) for t in range(nlower)]
+    tiles += [(b, a + 1) for a, b in (_tri_tile(u)
+                                      for u in range(nt * nt - nlower))]
+    assert sorted(tiles) == [(i, j) for i in range(nt) for j in range(nt)]
+    for t, (bi, bj) in enumerate(tiles):
+        i0, j0 = bi * KT, bj * KT
+        rows, cols = min(KT, n - i0), min(KT, n - j0)
+        if t >= nlower:  # above the diagonal: stores of zeros, no load
+            assert bi < bj
+            for x in range(THREADS_A):
+                k, l0 = x % G, x // G
+                for p in range(P):
+                    c = l0 + p * LP
+                    if c >= cols:
+                        continue
+                    start = (j0 + c) * n + i0
+                    for r in _line(start, rows, V, G, k)[0]:
+                        M[start + r] = 0.0
+                        writes[start + r] += 1
+            continue
+        sr, sc = np.zeros(KT), np.zeros(KT)
+        if equil:
+            for x in range(2 * KT):
+                isrow, q = x < KT, x % KT
+                i = (i0 if isrow else j0) + q
+                if q < (rows if isrow else cols):
+                    if prepass:
+                        a = abs(Ab[i * (n + 1)])
+                        v = float(torch.rsqrt(torch.tensor(
+                            max(a, 1e-30), dtype=torch.float64)))
+                    else:
+                        v = sd[i]
+                    (sr if isrow else sc)[q] = v
+                    if isrow and bi == bj:
+                        s_out[i] = v
+                        if prepass:
+                            sd_kept[i] = v
+        tile = np.full((KT, KT + 1), np.nan)
+        loaded = np.zeros((KT, KT), dtype=int)
+        for x in range(THREADS_A):
+            k, l0 = x % G, x // G
+            for p in range(P):
+                r = l0 + p * LP
+                if r >= rows:
+                    continue
+                start = (i0 + r) * n + j0
+                for c in _line(a_off + start, cols, V, G, k)[0]:
+                    tile[r, c] = Ab[start + c]
+                    loaded[r, c] += 1
+                    a_loads[start + c] += 1
+        # each entry of the tile's rows and columns read once, no other
+        assert np.all(loaded[:rows, :cols] == 1)
+        assert loaded.sum() == rows * cols
+        for x in range(THREADS_A):
+            k, l0 = x % G, x // G
+            for p in range(P):
+                c = l0 + p * LP
+                if c >= cols:
+                    continue
+                j = j0 + c
+                start = j * n + i0
+                for r in _line(start, rows, V, G, k)[0]:
+                    v = tile[r, c]
+                    if equil:
+                        v = (v * sr[r]) * sc[c]
+                    v = v + (cd if i0 + r == j else 0.0)
+                    M[start + r] = 0.0 if i0 + r < j else v
+                    writes[start + r] += 1
+    # M's storage is column-major, A's row-major
+    return (M.reshape(n, n).T, writes.reshape(n, n).T, a_loads.reshape(n, n),
+            s_out, sd_kept)
+
+
+def _mirror_descale(Lb, s, lcol, n, V=4, with_o=True):
+    """K3b on L's storage ``Lb`` (its first element 16-byte aligned, as
+    the wrapper requires): (O's storage or None, the flag's bad, writes
+    per entry, loads per entry, positions loaded above the diagonal and
+    whether each one's vector held a lower entry)."""
+    CV = THREADS_B * UNROLL_B
+    chunk = THREADS_B * UNROLL_B * V
+    chunks = -(-n // chunk)
+    O = np.full(n * n, np.nan) if with_o else None
+    writes = np.zeros(n * n, dtype=int)
+    loads = np.zeros(n * n, dtype=int)
+    bad = False
+    for c in range(chunks):
+        for r in range(n):
+            start = r * n
+            head, nv, ns = _split(start, n, V)
+            lo, hi = (r, n - 1) if lcol else (0, r)
+            assert nv <= chunks * CV
+            for x in range(THREADS_B):
+                for u in range(UNROLL_B):
+                    w = c * CV + u * THREADS_B + x
+                    if w >= nv:
+                        continue
+                    q0 = head + w * V
+                    assert (start + q0) % V == 0
+                    got = q0 + V - 1 >= lo and q0 <= hi
+                    for e in range(V):
+                        q = q0 + e
+                        v = 0.0
+                        if got:
+                            loads[start + q] += 1
+                        if got and lo <= q <= hi:
+                            v = Lb[start + q]
+                            bad |= not np.isfinite(v)
+                            if with_o:
+                                v = v / s[q if lcol else r]
+                        if with_o:
+                            O[start + q] = v
+                            writes[start + q] += 1
+            if c == 0:
+                for x in range(min(THREADS_B, ns)):
+                    q = _pos(x, head, nv, V)
+                    v = 0.0
+                    if lo <= q <= hi:
+                        v = Lb[start + q]
+                        loads[start + q] += 1
+                        bad |= not np.isfinite(v)
+                        if with_o:
+                            v = v / s[q if lcol else r]
+                    if with_o:
+                        O[start + q] = v
+                        writes[start + q] += 1
+    return O, bad, writes, loads
 
 
 def _mirror_tile_bwd(X, xcol, Y, ycol, s, ocol, pro, n):
@@ -303,35 +547,96 @@ def _spd_and_factor(n=N_MIRROR, seed=6):
     return A, np.linalg.cholesky(A)
 
 
+def _check_prologue_mirror(A, equil, V, a_off, scale=1e-3):
+    """K3a's mirror against the plain version, first attempt and a later
+    one (the kept sd read back): M is the plain version's lower triangle
+    bit for bit with zeros above, each entry written once; A is read
+    once in the lower block triangle and nowhere above it; s and the kept
+    sd are the plain version's."""
+    n = A.shape[0]
+    At = torch.as_tensor(A)
+    sd = k3.chol_scale_plain(At, equil)
+    want, s_want = k3.chol_prologue_plain(At, scale, equil, sd)
+    want = np.tril(want.numpy())
+    bi, bj = np.meshgrid(np.arange(n) // KT, np.arange(n) // KT,
+                         indexing="ij")
+    for prepass in (True, False):
+        M, writes, a_loads, s_out, sd_kept = _mirror_prologue(
+            A, sd.numpy(), equil, scale, V=V, a_off=a_off, prepass=prepass)
+        np.testing.assert_array_equal(M, want)
+        assert np.all(writes == 1)
+        assert np.all(a_loads[bi >= bj] == 1) and np.all(a_loads[bi < bj] == 0)
+        if equil:
+            np.testing.assert_array_equal(s_out, s_want.numpy())
+            if prepass:
+                np.testing.assert_array_equal(sd_kept, sd.numpy())
+
+
 @pytest.mark.parametrize("equil", [True, False])
 def test_mirror_prologue_matches_plain(equil):
     A, _ = _spd_and_factor()
     A[3, 7] += 0.25  # not symmetric
-    At = torch.as_tensor(A)
-    sd = k3.chol_scale_plain(At, equil)
-    want, _ = k3.chol_prologue_plain(At, 1e-3, equil, sd)
-    got = _mirror_prologue(A, sd.numpy(), equil, 1e-3)
-    np.testing.assert_allclose(got, want.numpy(), rtol=1e-15, atol=0)
+    for V in (4, 2):
+        _check_prologue_mirror(A, equil, V, 0)
+
+
+@pytest.mark.parametrize("equil", [True, False])
+@pytest.mark.parametrize("V,a_off", [(4, 0), (4, 1), (4, 3), (2, 1)])
+@pytest.mark.parametrize("n", [130, 131, 129])
+def test_mirror_prologue_ragged_rows(n, V, a_off, equil):
+    """n = 2, 3, 1 mod 4 (three tiles a side, the last ragged): every
+    other row, or every row, starts off a 16-byte boundary, and A itself
+    may start off one (a view into a larger buffer)."""
+    A, _ = _spd_and_factor(n=n, seed=n)
+    A[2, n - 3] = np.nan  # above the diagonal tiles: never read
+    _check_prologue_mirror(A, equil, V, a_off)
+
+
+def _check_descale_mirror(L, lcol, V, with_s):
+    n = L.shape[0]
+    s = np.random.RandomState(7).uniform(0.5, 2.0, n)
+    Lb = _storage(L, lcol)
+    O, bad, writes, loads = _mirror_descale(Lb, s, lcol, n, V=V,
+                                            with_o=with_s)
+    want, _ = k3.chol_descale_plain(torch.as_tensor(L), torch.zeros(
+        (), dtype=torch.int32), torch.as_tensor(s) if with_s else None)
+    lower = np.tril(np.ones((n, n), dtype=bool))
+    lower_st = _storage(lower, lcol)
+    if with_s:
+        np.testing.assert_array_equal(_from_storage(O, lcol, n),
+                                      want.numpy())
+        assert np.all(writes == 1)  # the zeros above are stores too
+    else:
+        assert O is None and not writes.any()
+    # the lower triangle read once; above it only inside a vector that
+    # straddles the diagonal (at most V - 1 a line)
+    assert np.all(loads[lower_st] == 1)
+    above = (loads > 0) & ~lower_st
+    assert np.all(above.reshape(n, n).sum(1) <= V - 1)
+    return bad
 
 
 @pytest.mark.parametrize("lcol", [0, 1])
 def test_mirror_descale_matches_plain(lcol):
-    n = N_MIRROR
     _, L = _spd_and_factor()
-    s = np.random.RandomState(7).uniform(0.5, 2.0, n)
-    Lb = _storage(L, lcol)
-    O = np.zeros(n * n)
-    bad = False
-    for r in range(n):
-        for c in range(n):
-            i, j = (c, r) if lcol else (r, c)
-            v = Lb[r * n + c] if j <= i else 0.0
-            bad |= not np.isfinite(v)
-            O[r * n + c] = v / s[i]
-    want, _ = k3.chol_descale_plain(torch.as_tensor(L), torch.zeros(
-        (), dtype=torch.int32), torch.as_tensor(s))
-    np.testing.assert_array_equal(_from_storage(O, lcol, n), want.numpy())
-    assert not bad
+    for V in (4, 2):
+        for with_s in (True, False):
+            assert not _check_descale_mirror(L, lcol, V, with_s)
+
+
+@pytest.mark.parametrize("with_s", [True, False])
+@pytest.mark.parametrize("V", [4, 2])
+@pytest.mark.parametrize("lcol", [0, 1])
+@pytest.mark.parametrize("n", [130, 131, 129])
+def test_mirror_descale_ragged_rows(n, lcol, V, with_s):
+    """The flag: a NaN above the diagonal (even inside a vector that
+    straddles it) never sets it; one in the lower triangle does."""
+    _, L = _spd_and_factor(n=n, seed=n)
+    L = L.copy()
+    L[0, 1] = L[5, 6] = L[3, n - 1] = np.nan
+    assert not _check_descale_mirror(L, lcol, V, with_s)
+    L[n - 1, n - 2] = np.inf
+    assert _check_descale_mirror(L, lcol, V, with_s)
 
 
 @pytest.mark.parametrize("ocol,lcol", [(0, 0), (0, 1), (1, 0), (1, 1)])

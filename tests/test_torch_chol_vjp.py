@@ -96,11 +96,17 @@ def test_plain_vjp_matches_jax(n, order):
 
 
 def test_cholesky_ex_backward_is_the_hand_vjp():
-    """CholeskyEx's forward is cholesky_ex's, bit for bit, and its
-    backward cholesky_backward's; info carries no gradient."""
+    """CholeskyEx's forward is cholesky_ex's, bit for bit, factoring its
+    input in place (a leaf that requires grad is refused, as for any
+    in-place op), and its backward cholesky_backward's; info carries no
+    gradient."""
     A = torch.as_tensor(_matrix(0.5, n=20, graded=True)).requires_grad_(True)
-    L, info = cv.cholesky_ex(A)
+    with pytest.raises(RuntimeError):
+        cv.cholesky_ex(A)
+    M = A.clone()
+    L, info = cv.cholesky_ex(M)
     L0, info0 = torch.linalg.cholesky_ex(A.detach())
+    assert L is M
     assert torch.equal(L, L0) and torch.equal(info, info0)
     assert not info.requires_grad
     G = torch.randn(20, 20, dtype=torch.float64,

@@ -23,6 +23,7 @@ from runlmc_tpu_torch.hopper import (
     kuu,
     lanczos,
     minres,
+    potrf,
     trsm,
 )
 from runlmc_tpu_torch.lmc import likelihood as lk
@@ -766,10 +767,11 @@ def test_chol_jitter_kernels(dev, dtype, equilibrate, n):
     sd_p = chol_jitter.chol_scale_plain(A, equilibrate)
     Mp, sp = chol_jitter.chol_prologue_plain(A, 1e-3, equilibrate, sd_p)
     _close(sd, sd_p, dtype)
-    _close(M, Mp, dtype)
+    # only M's lower triangle is written
+    _close(torch.tril(M), torch.tril(Mp), dtype)
     assert M.mT.is_contiguous()
-    assert torch.equal(M, chol_jitter.chol_prologue(A, 1e-3, equilibrate,
-                                                    sd)[0])
+    assert torch.equal(torch.tril(M), torch.tril(chol_jitter.chol_prologue(
+        A, 1e-3, equilibrate, sd)[0]))
     L, info = torch.linalg.cholesky_ex(M)
     O, flag = chol_jitter.chol_descale(L, info.clone(), s)
     Op, flag_p = chol_jitter.chol_descale_plain(L, info, sp)
@@ -795,6 +797,99 @@ def test_chol_jitter_kernels(dev, dtype, equilibrate, n):
             A, sd, Mb, sb, 1e-3, equilibrate), dtype)
         assert torch.equal(Ab, chol_jitter.chol_prologue_bwd(
             A, sd, Mb, sb, 1e-3, equilibrate))
+
+
+def _lower_equal(a, b):
+    """a is b's lower triangle with zeros above it."""
+    return torch.equal(a, torch.tril(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("equilibrate", [True, False])
+@pytest.mark.parametrize("n", [3094, 4205, 1024, 1001])
+def test_chol_jitter_forward_at_site_shapes(dev, dtype, equilibrate, n):
+    """K3a and K3b at the sites' n (fx2007's and synth's C, rows off a
+    16-byte boundary) and a ragged n: M the plain version's lower
+    triangle bit for bit with zeros above, and s the plain version's
+    (without equilibration from the same d: the kernel sums the diagonal
+    in another order), also from an A that starts off a 16-byte
+    boundary; the in-place chain (K3a, cuSOLVER's potrf in place, K3b)
+    equal to the bit to the earlier route (cholesky_ex into a new
+    factor), L's strict upper triangle 0 (K3a's zeros: no tril_ runs), O
+    bit for bit the plain version's with zeros above; relaunches
+    bit-identical."""
+    A = _k3_matrix(n, dtype, dev, seed=n)
+    sd_p = chol_jitter.chol_scale_plain(A, equilibrate)
+    Mp, sp = chol_jitter.chol_prologue_plain(A, 1e-4, equilibrate, sd_p)
+    buf = torch.empty(n * n + 1, dtype=dtype, device=dev)
+    A_off = buf[1:].view(n, n)
+    A_off.copy_(A)
+    for src in (A, A_off):
+        M, s, sd = chol_jitter.chol_prologue(src, 1e-4, equilibrate)
+        assert M.mT.is_contiguous()
+        if equilibrate:  # s is elementwise: the plain version's bits
+            assert _lower_equal(M, Mp) and torch.equal(sd, sd_p)
+            assert torch.equal(s, sp)
+        else:  # d is a sum, taken in another order than torch.mean's
+            _close(sd, sd_p, dtype)
+            Mq = chol_jitter.chol_prologue(src, 1e-4, equilibrate, sd_p)[0]
+            assert _lower_equal(Mq, Mp)
+        M2, s2, _ = chol_jitter.chol_prologue(src, 1e-4, equilibrate, sd)
+        assert torch.equal(M, M2) and (s is None or torch.equal(s, s2))
+    # the earlier route: a new factor from the same M (then tril_)
+    L_old, info_old = torch.linalg.cholesky_ex(M)
+    O_old, flag_old = chol_jitter.chol_descale(L_old, info_old.clone(), s)
+    ptr = M.data_ptr()
+    L, info = potrf.potrf_(M)
+    assert L is M and L.data_ptr() == ptr and L.mT.is_contiguous()
+    assert torch.equal(L, L_old) and torch.equal(info, info_old)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    O, flag = chol_jitter.chol_descale(L, info.clone(), s)
+    assert torch.equal(O, O_old) and int(flag) == int(flag_old) == 0
+    Op, flag_p = chol_jitter.chol_descale_plain(L, info, sp)
+    assert torch.equal(O, Op) and int(flag_p) == 0
+    assert torch.equal(O, chol_jitter.chol_descale(L, info.clone(), s)[0])
+    # a NaN above the diagonal is never read; one below sets the flag
+    L[1, n - 1] = float("nan")
+    assert int(chol_jitter.chol_descale(L, info.clone(), s)[1]) == 0
+    L[n - 1, 1] = float("nan")
+    assert int(chol_jitter.chol_descale(L, info.clone(), s)[1]) == -1
+    assert int(chol_jitter.chol_descale(L, info.clone(), None)[1]) == -1
+
+
+def test_chol_jittered_in_place_matches_the_earlier_route(dev):
+    """One chol_jittered call factors in place and equals, bit for bit,
+    the earlier route's factor (K3a, cholesky_ex into a new factor, K3b)
+    with its float32 gradient; it holds two (n, n) matrices and potrf's
+    workspace."""
+    n = 1001
+    A = _k3_matrix(n, torch.float32, dev, eig0=-5e-5, seed=3)
+    w = torch.randn(n, n, generator=torch.Generator().manual_seed(4)).to(dev)
+    out = []
+    for route in ("in place", "earlier"):
+        real = wbm.cholesky_ex
+        if route == "earlier":
+            wbm.cholesky_ex = lambda M: chol_vjp.CholeskyEx.apply(M.clone())
+        try:
+            X = A.clone().requires_grad_(True)
+            F = wbm.chol_jittered(X)
+            (g,) = torch.autograd.grad(torch.sum(torch.tril(w) * F), X)
+        finally:
+            wbm.cholesky_ex = real
+        out.append((F.detach(), g))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        F = wbm.chol_jittered(A)
+    torch.cuda.synchronize()
+    # M (then the factor) and the de-scaled copy, plus cuSOLVER's
+    # workspace, a larger share of a matrix at this n than at the sites'
+    # (the earlier route held a third matrix, the factor)
+    mats = (torch.cuda.max_memory_allocated() - base) / (4 * n * n)
+    assert mats <= 2.5, mats
 
 
 @pytest.mark.parametrize("equilibrate", [True, False])
