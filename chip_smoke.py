@@ -82,7 +82,9 @@ Phases:
    bit-identical, one attempt timed by route with the earlier route's
    copy of M and torch's tril_ timed alone, one weather-twin
    ``chol_jittered`` call's peak memory, and its flag on an indefinite
-   matrix (the ladder landing where the CPU's does); K3's VJP
+   matrix (the ladder landing where the CPU's does), the backward also
+   in the storage orders one exact gradient hands each site (printed);
+   K3's VJP
    (``hopper/chol_vjp.py``: the tri kernel, Phi(L^T L-bar) symmetrized, and the solve kernel, L^-T S L^-1 exactly
    symmetric) on the factor where each C's ladder lands at the fx2007
    (float32), synth (float32, float64) and weather-twin (float32, on no
@@ -214,6 +216,11 @@ Phases:
 
 Any failure raises and exits non-zero without the last line. Detailed
 results also go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --k3-bwd-times [ROOT]
+
+times only K3a bwd and K3b bwd (:func:`k3_bwd_times`) of the package at
+ROOT, a parent's ``git archive`` say, and prints one JSON line.
 """
 
 import contextlib
@@ -544,7 +551,8 @@ LAYERS = (
      lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
     ("K3 backward (hand, chol_jitter.cu)",
-     lambda k: any(p in k for p in ("k3_tile_bwd_kernel<", "k3_reduce_kernel<",
+     lambda k: any(p in k for p in ("k3_line_bwd_kernel<",
+                                    "k3_tile_bwd_kernel<", "k3_finish_kernel<",
                                     "k3_trace_kernel<",
                                     "k3_add_diag_kernel<"))),
     ("K3 equilibrate, jitter, de-scale (hand, chol_jitter.cu)",
@@ -708,6 +716,17 @@ def print_split(split, per=1):
         print("  %s: %.4f ms" % (rng, total), flush=True)
         for name, ms in sorted(layers.items(), key=lambda kv: -kv[1]):
             print("    %-38s %8.4f ms" % (name, ms / per), flush=True)
+
+
+K3_BWD_LAYER = "K3 backward (hand, chol_jitter.cu)"
+
+
+def print_k3_bwd(what, layers):
+    """K3's backward (K3a bwd and K3b bwd) per step of a profiled
+    chunk."""
+    v = layers.get(K3_BWD_LAYER, {"device_ms": 0.0, "launches": 0.0})
+    print("K3 bwd per %s step: %.4f ms device, %.1f launches"
+          % (what, v["device_ms"], v["launches"]), flush=True)
 
 
 def print_layers(layers):
@@ -2240,9 +2259,12 @@ def main():
     # captured while its Woodbury factorization is built (fx2007 and synth
     # in float32, as training factors, and float64, as at model precision;
     # the weather twin's float32 preconditioner), at the scale where the
-    # ladder lands. The backward on seeded cotangents in the storage
-    # orders the path gives them (O-bar row-major, M-bar column-major as
-    # the Cholesky VJP leaves it). Every launch is repeated and must be
+    # ladder lands. The backward on seeded cotangents (O-bar row-major,
+    # M-bar column-major: the kernel table's earlier rows) and, at the timed
+    # sites, on the same values in the storage orders that one exact
+    # gradient of the model hands each site's backward (k3_bwd_orders:
+    # M-bar row-major from the VJP's solve, O-bar as the factor's users
+    # leave it), each printed. Every launch is repeated and must be
     # bit-identical; the prologue (the plain version's lower triangle,
     # zeros above it) and the epilogue must equal their plain versions bit
     # for bit; the factor's strict upper triangle must be 0; and the
@@ -2275,6 +2297,56 @@ def main():
             wbm.chol_jittered = real
         return seen
 
+    def order_of(X):
+        if X.is_contiguous():
+            return "row"
+        return "column" if X.mT.is_contiguous() else "strided"
+
+    def stored(X, order):
+        return X.mT.contiguous().mT if order == "column" else X.contiguous()
+
+    def k3_bwd_orders(mdl, dtype):
+        """{"C": {...}, "K_UU": {...}}: the storage orders (O-bar, L,
+        M-bar, A) that one exact gradient of ``mdl``, its factorizations
+        in ``dtype``, hands K3's backward at each site. C's backward runs
+        first: K_UU's cotangents come through it."""
+        seen = {"descale": [], "prologue": []}
+        real_d = chol_jitter.chol_descale_bwd
+        real_p = chol_jitter.chol_prologue_bwd
+
+        def spy_d(L, s, Obar):
+            seen["descale"].append({"O-bar": order_of(Obar),
+                                    "L": order_of(L)})
+            return real_d(L, s, Obar)
+
+        def spy_p(A, sd, Mbar, sbar, scale, equilibrate):
+            seen["prologue"].append({"M-bar": order_of(Mbar),
+                                     "A": order_of(A)})
+            return real_p(A, sd, Mbar, sbar, scale, equilibrate)
+
+        # the wrappers count on their own module-level names
+        spy_d.launches, spy_p.launches = real_d.launches, real_p.launches
+        prec = mdl.exact_precision
+        mdl.exact_precision = "f32" if dtype == torch.float32 else "model"
+        chol_jitter.chol_descale_bwd = spy_d
+        chol_jitter.chol_prologue_bwd = spy_p
+        try:
+            x = torch.as_tensor(mdl.param_array, dtype=mdl.dtype,
+                                device=dev)
+            mdl._exact_grad(x)
+            torch.cuda.synchronize()
+        finally:
+            chol_jitter.chol_descale_bwd = real_d
+            chol_jitter.chol_prologue_bwd = real_p
+            mdl.exact_precision = prec
+        out = {}
+        for i, site in enumerate(("C", "K_UU")):
+            out[site] = {}
+            for key in ("descale", "prologue"):
+                if i < len(seen[key]):
+                    out[site].update(seen[key][i])
+        return out
+
     def k3_attempt(A, scale, equil, sd, route):
         """One attempt of the chain, (L, O, flag), the factor by
         ``route``: "in place" (the port's potrf, no tril_), "torch in
@@ -2291,7 +2363,12 @@ def main():
         O, flag = chol_jitter.chol_descale(L, info, s if equil else None)
         return L, O, flag
 
-    def k3_check(what, kind, A, scales, equil, paths=None, reps=20):
+    def k3_check(what, kind, A, scales, equil, paths=None, reps=20,
+                 orders=None):
+        """K3's four kernels at one site; its backward with seeded
+        cotangents (O-bar row-major, M-bar column-major) and, where
+        ``orders`` gives the training path's storage orders at each site
+        ({"C": ..., "K_UU": ...}), also in those."""
         dtype, n = A.dtype, A.shape[0]
         dts = str(dtype).replace("torch.", "")
         tol = 1e-14 if dtype == torch.float64 else 1e-6
@@ -2389,6 +2466,43 @@ def main():
                     "prologue_bwd_rel_err", "descale_bwd_rel_err"):
             require(chk[key] is None or chk[key] <= tol, "K3 %s %s %s: %s "
                     "above %g" % (what, kind, dts, key, tol))
+        # the backward in the orders the training path gives each site,
+        # on the same values
+        path_bwd = {}
+        for site, od in (orders or {}).items():
+            if not equil:
+                break
+            Ob2 = stored(Ob, od.get("O-bar", "row"))
+            Mb2 = stored(Mb, od.get("M-bar", "row"))
+            d2 = chol_jitter.chol_descale_bwd(L, s, Ob2)
+            a2 = chol_jitter.chol_prologue_bwd(A, sd, Mb2, d2[1], scale,
+                                               equil)
+            e_d = errors(d2, chol_jitter.chol_descale_bwd_plain(L, s,
+                                                                Ob2))[1]
+            e_a = errors(a2, chol_jitter.chol_prologue_bwd_plain(
+                A, sd, Mb2, d2[1], scale, equil))[1]
+            same2 = (all(torch.equal(a, b) for a, b in zip(
+                d2, chol_jitter.chol_descale_bwd(L, s, Ob2)))
+                and torch.equal(a2, chol_jitter.chol_prologue_bwd(
+                    A, sd, Mb2, d2[1], scale, equil)))
+            path_bwd[site] = {"orders": od, "L_here": order_of(L),
+                              "descale_bwd_rel_err": e_d,
+                              "prologue_bwd_rel_err": e_a,
+                              "bit_identical": bool(same2),
+                              "args": (Ob2, Mb2, d2[1])}
+            print("K3 bwd %s %s %s in the training path's orders of its %s "
+                  "site (O-bar %s, L %s there, %s here; M-bar %s, A %s): "
+                  "descale bwd rel err %.3e, prologue bwd %.3e (tol %.0e); "
+                  "relaunch bit-identical %s"
+                  % (what, kind, dts, site, od.get("O-bar"), od.get("L"),
+                     order_of(L), od.get("M-bar"), od.get("A"), e_d, e_a,
+                     tol, same2), flush=True)
+            require(same2 and e_d <= tol and e_a <= tol, "K3 bwd %s %s %s "
+                    "in the %s site's orders: above %g or not bit-identical"
+                    % (what, kind, dts, site, tol))
+        chk["path_orders_bwd"] = {k: {kk: vv for kk, vv in v.items()
+                                      if kk != "args"}
+                                  for k, v in path_bwd.items()}
         if paths is None:
             return
         # one attempt by route, and the earlier route's copy and tril_
@@ -2444,7 +2558,8 @@ def main():
                lambda: chol_jitter.chol_descale_bwd(L, s, Ob),
                lambda: chol_jitter.chol_descale_bwd_plain(L, s, Ob),
                e * (tri + 2 * n * n + 2 * n), 3.0 * tri + n * n,
-               path=paths[1], plain_reps=reps, extra=site)
+               path=paths[1], plain_reps=reps,
+               extra=dict(site, orders="seeded: O-bar row"))
         record("chol_prologue_bwd", dtype, "cuda", src,
                "runlmc_tpu/lmc/woodbury.py:91", Ab, Ab_p, tol,
                lambda: chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, scale,
@@ -2452,7 +2567,34 @@ def main():
                lambda: chol_jitter.chol_prologue_bwd_plain(
                    A, sd, Mb, sb, scale, equil),
                e * (3 * n * n + 3 * n), 7.0 * n * n, path=paths[1],
-               plain_reps=reps, extra=site)
+               plain_reps=reps, extra=dict(site, orders="seeded: M-bar "
+                                           "column"))
+        for where, pb in path_bwd.items():
+            Ob2, Mb2, sb2 = pb["args"]
+            od = pb["orders"]
+            tag = dict(site, orders="training path's %s site: O-bar %s, "
+                       "M-bar %s" % (where, order_of(Ob2), order_of(Mb2)))
+            record("chol_descale_bwd", dtype, "cuda", src,
+                   "runlmc_tpu/lmc/woodbury.py:123",
+                   chol_jitter.chol_descale_bwd(L, s, Ob2),
+                   chol_jitter.chol_descale_bwd_plain(L, s, Ob2), tol,
+                   lambda: chol_jitter.chol_descale_bwd(L, s, Ob2),
+                   lambda: chol_jitter.chol_descale_bwd_plain(L, s, Ob2),
+                   e * (tri + 2 * n * n + 2 * n), 3.0 * tri + n * n,
+                   path=paths[1], plain_reps=reps, extra=tag)
+            record("chol_prologue_bwd", dtype, "cuda", src,
+                   "runlmc_tpu/lmc/woodbury.py:91",
+                   chol_jitter.chol_prologue_bwd(A, sd, Mb2, sb2, scale,
+                                                 equil),
+                   chol_jitter.chol_prologue_bwd_plain(A, sd, Mb2, sb2,
+                                                       scale, equil), tol,
+                   lambda: chol_jitter.chol_prologue_bwd(A, sd, Mb2, sb2,
+                                                         scale, equil),
+                   lambda: chol_jitter.chol_prologue_bwd_plain(
+                       A, sd, Mb2, sb2, scale, equil),
+                   e * (3 * n * n + 3 * n), 7.0 * n * n, path=paths[1],
+                   plain_reps=reps, extra=tag)
+            del od
 
     # K3's VJP (the Cholesky factorization's backward) at the same sites:
     # the factor each ladder lands on (column-major, as cuSOLVER leaves
@@ -2602,7 +2744,10 @@ def main():
         record("chol_vjp_solve", dtype, "cuda", src,
                "runlmc_tpu/lmc/woodbury.py:121", X["kernel"], X["cublas"],
                stol, lambda: cv.chol_vjp_solve(L, S), lambda: plain(L, S),
-               (n * n // 2 + 2 * n * n) * e, 4.0 * n ** 3 / 3.0,
+               (n * n // 2 + 2 * n * n) * e,
+               # float64 forms all of X (2 n^3), float32 its lower block
+               # triangle (4 n^3 / 3)
+               (2.0 if dtype == torch.float64 else 4.0 / 3.0) * n ** 3,
                library_fn=lambda: plain(L, S), path=path, product=True,
                plain_reps=reps,
                extra=dict(site, k5_route_ms=solve_ms["k5"],
@@ -2649,13 +2794,18 @@ def main():
         sites = k3_sites(build_fn)
         mdl._cache.pop("woodbury32", None)
         mdl._cache.pop("woodbury", None)
+        # the storage orders the training path hands K3's backward (the
+        # weather twin's factors take no gradient)
+        bwd_orders = (None if what == "weather twin"
+                      else k3_bwd_orders(mdl, dtype))
         require([k for k, *_ in sites] == ["K_UU", "C"] and all(
             A.dtype == dtype for _, A, _, _ in sites),
             "the %s %s factorization is not one K_UU and one C" % (what,
                                                                    dtype))
         for kind, A, scales, equil in sites:
             k3_check(what, kind, A, scales, equil,
-                     paths if kind == "C" else None, reps)
+                     paths if kind == "C" else None, reps,
+                     orders=bwd_orders if kind == "C" else None)
             if kind == "C" and (what, dtype) != ("fx2007", torch.float64):
                 vjp_check(what, kind, A, scales, equil, paths[1], reps)
             if what != "weather twin":
@@ -3021,6 +3171,7 @@ def main():
     step_layers = by_layer(chunk_rows, per=tm.chunk_len)
     print("training step device time by layer (per step):", flush=True)
     print_layers(step_layers)
+    print_k3_bwd("fx2007 training", step_layers)
     require("trsm (cuBLAS)" not in step_layers, "an fx2007 training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("training step device time inside the Woodbury solve with C and "
@@ -3892,6 +4043,7 @@ def main():
     sstep_layers = by_layer(schunk_rows, per=sm.chunk_len)
     print("synth step device time by layer (per step):", flush=True)
     print_layers(sstep_layers)
+    print_k3_bwd("synth training", sstep_layers)
     require("trsm (cuBLAS)" not in sstep_layers, "a synth training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("synth step device time inside the ranges (per step; forward "
@@ -4396,5 +4548,72 @@ def main():
     return 0
 
 
+# K3's backward at the C shapes of the training paths and the weather
+# twin (n, dtype)
+K3_BWD_SHAPES = ((3094, "float32"), (3094, "float64"), (4205, "float32"),
+                 (4205, "float64"), (10016, "float32"))
+
+
+def k3_bwd_times(root):
+    """``--k3-bwd-times [ROOT]``: K3a bwd's and K3b bwd's times (profiler
+    device ms and CUDA events) in the package at ROOT (this checkout by
+    default) at ``K3_BWD_SHAPES``, the cotangent row-major and
+    column-major against L column-major (potrf's storage) and a row-major
+    A, on seeded operands; one JSON line. To compare two checkouts on one
+    card, run it for each in one call, in turns."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from runlmc_tpu_torch.hopper import build, chol_jitter
+
+    build.build_all(["chol_jitter"])
+    dev = torch.device("cuda")
+    rows = []
+    for n, dts in K3_BWD_SHAPES:
+        dtype = getattr(torch, dts)
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, dtype=dtype, device=dev)
+
+        A = randn(n, n)
+        A.diagonal().abs_().add_(1.0)
+        L = randn(n, n).tril_().mT.contiguous().mT
+        s = torch.rand(n, generator=g, dtype=dtype, device=dev) + 0.5
+        G, sb = randn(n, n), randn(n)
+        for order in ("row", "column"):
+            X = G.mT.contiguous().mT if order == "column" else G
+            for name, fn in (
+                    ("chol_descale_bwd",
+                     lambda X=X: chol_jitter.chol_descale_bwd(L, s, X)),
+                    ("chol_prologue_bwd",
+                     lambda X=X: chol_jitter.chol_prologue_bwd(
+                         A, s, X, sb, 1e-4, True))):
+                dms, krows, _ = device_profile(fn, reps=10)
+                rows.append({"name": name, "n": n, "dtype": dts,
+                             "cotangent": order, "device_ms": dms,
+                             "ms": cuda_time(fn),
+                             "by_kernel": [[k[:60], c / 10, ms / 10]
+                                           for k, c, ms in krows]})
+            del X
+        # the same bytes through PyTorch's own elementwise kernels: a
+        # product (two reads, one write: K3a bwd's 3 n^2) and a copy
+        C = torch.empty_like(G)
+        for name, fn in (("torch.mul", lambda: torch.mul(G, A, out=C)),
+                         ("copy_", lambda: C.copy_(G))):
+            rows.append({"name": name, "n": n, "dtype": dts,
+                         "device_ms": device_profile(fn, reps=10)[0],
+                         "ms": cuda_time(fn)})
+        del A, L, G, C
+    print(json.dumps({"k3_bwd_times": rows, "root": os.path.abspath(root),
+                      "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k3-bwd-times"]:
+        sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

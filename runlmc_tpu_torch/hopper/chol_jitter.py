@@ -41,9 +41,11 @@ import torch
 
 from runlmc_tpu_torch.hopper import build
 
-# the kernels' tile edge: the backward's partial sums are (tiles, n)
-_TILE = 32
 _TINY = 1e-30
+# the backward's CTAs an SM that keep cross sums (as many as are resident
+# at once): its scratch holds that many rows of n partials a
+# multiprocessor, then n line sums
+_PARTS_PER_SM = 2
 
 
 def _check_square(what, *ts):
@@ -68,6 +70,21 @@ def _order(X):
 
 def _p(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _aligned(t):
+    """``t``, or a copy in its storage order when it does not start on a
+    16-byte boundary (the backward's line pass reads every line of its
+    operands gcd(n, V) elements at a time from there)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _scratch(n, dtype, device):
+    """The backward's partial sums: (parts + 1) n elements and the count
+    of partial rows ``parts``."""
+    parts = _PARTS_PER_SM * torch.cuda.get_device_properties(
+        device).multi_processor_count
+    return torch.empty((parts + 1) * n, dtype=dtype, device=device), parts
 
 
 def _fn(symbol, sfx, argtypes):
@@ -188,17 +205,18 @@ def chol_descale_bwd(L, s, Obar):
     if not (L.is_contiguous() or L.mT.is_contiguous()):
         raise ValueError("chol_descale_bwd: L must be stored row-major or "
                          "column-major")
+    Obar, L = _aligned(Obar), _aligned(L)
     Lbar = torch.empty_like(Obar)
     sbar = torch.empty_like(s)
     build.require_cuda("chol_descale_bwd", s)
-    part = torch.empty(-(-n // _TILE) * n, dtype=L.dtype, device=L.device)
+    part, parts = _scratch(n, L.dtype, L.device)
     sfx = build.suffix("chol_descale_bwd", L.dtype)
-    fn = _fn("descale_bwd", sfx, [_P, _I32, _P, _I32, _P, _P, _P, _P, _I64,
-                                  _P])
+    fn = _fn("descale_bwd", sfx, [_P, _I32, _P, _I32, _P, _P, _P, _P, _I32,
+                                  _I64, _P])
     build.check(fn(build.ptr(Obar), ocol, build.ptr(L),
                    int(not L.is_contiguous()), build.ptr(s), build.ptr(Lbar),
-                   build.ptr(sbar), build.ptr(part), n, build.stream_ptr()),
-                "chol_descale_bwd")
+                   build.ptr(sbar), build.ptr(part), parts, n,
+                   build.stream_ptr()), "chol_descale_bwd")
     chol_descale_bwd.launches[sfx] += 1
     return Lbar, sbar
 
@@ -236,25 +254,27 @@ def chol_prologue_bwd(A, sd, Mbar, sbar, scale, equilibrate):
         return chol_prologue_bwd_plain(A, sd, Mbar, sbar, scale, equilibrate)
     n = A.shape[0]
     Mbar, mcol = _order(Mbar)
+    A = A.contiguous()
+    parts = 0
     if not equilibrate:
         # the diagonal term lands on M-bar's own storage
         Abar = torch.empty_like(Mbar)
         part = torch.empty(1, dtype=A.dtype, device=A.device)
     else:
+        Mbar, A = _aligned(Mbar), _aligned(A)
         Abar = torch.empty_like(A)
-        part = torch.empty(2 * -(-n // _TILE) * n, dtype=A.dtype,
-                           device=A.device)
+        part, parts = _scratch(n, A.dtype, A.device)
         if sbar is not None:
             sbar = sbar.contiguous()
     build.require_cuda("chol_prologue_bwd", A, sd,
                        *([] if sbar is None else [sbar]))
     sfx = build.suffix("chol_prologue_bwd", A.dtype)
-    fn = _fn("prologue_bwd", sfx, [_P, _I32, _P, _P, _P, _P, _P, _I64, _I32,
-                                   _F64, _P])
+    fn = _fn("prologue_bwd", sfx, [_P, _I32, _P, _P, _P, _P, _P, _I32, _I64,
+                                   _I32, _F64, _P])
     build.check(fn(build.ptr(Mbar), mcol, build.ptr(A), build.ptr(sd),
                    _p(sbar if equilibrate else None), build.ptr(Abar),
-                   build.ptr(part), n, int(bool(equilibrate)), float(scale),
-                   build.stream_ptr()), "chol_prologue_bwd")
+                   build.ptr(part), parts, n, int(bool(equilibrate)),
+                   float(scale), build.stream_ptr()), "chol_prologue_bwd")
     chol_prologue_bwd.launches[sfx] += 1
     return Abar
 

@@ -21,10 +21,13 @@ which symmetrizes its input.
 ``chol_vjp`` forms P's lower triangle, n^3 / 3 operations against the
 full GEMM's 2 n^3, with Phi and the symmetrization in its epilogue, from
 the (a-tile, b-tile) pairs of :func:`tri_work`. ``chol_vjp_solve`` forms
-Y = L^-T S and then only the lower block triangle of X = L^-T Y^T (X is
-symmetric), 4 n^3 / 3 operations against two triangular solves' 2 n^3,
-in the order of :func:`solve_work`, and writes each entry with its
-mirror. L and L-bar come row-major or column-major (cuSOLVER leaves L
+Y = L^-T S and then, in float32, only the lower block triangle of X =
+L^-T Y^T (X is symmetric), 4 n^3 / 3 operations against two triangular
+solves' 2 n^3, and writes each entry with its mirror; in float64 all of
+X (2 n^3) and A-bar = 1/2 (X + X^T), the plain version's rounding of
+X's two triangles (at a nearly singular factor the mirrored triangle
+alone strays from it by 1e-8 of a gradient entry). Both in the order of
+:func:`solve_work`. L and L-bar come row-major or column-major (cuSOLVER leaves L
 column-major). Its plain version is two triangular solves through
 ``torch.linalg.solve_triangular`` (cuBLAS's on the card) and the
 symmetrization. :class:`CholeskyEx` is the factorization as an autograd
@@ -85,18 +88,19 @@ def tri_work(n):
     return np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
 
 
-def solve_work(n):
+def solve_work(n, full=False):
     """The solve kernel's work list, in ticket order: (items, 3) int32
     rows (stage, I, c) over the TILE-row blocks. Stage 0 forms Y's block
     (I, c) (Y = L^-T S), I descending, every column tile c; stage 1
-    forms X's block (I, K), K <= I (X = L^-T Y^T), I descending, K
-    descending. Every item reads only items before it: (0, I, c) the
-    blocks (0, J, c), J > I; (1, I, K) the block (0, K, I) and the blocks
-    (1, J, K), J > I."""
+    forms X's block (I, K) (X = L^-T Y^T), I descending, K descending,
+    K <= I unless ``full`` (float64: every K). Every item reads only
+    items before it: (0, I, c) the blocks (0, J, c), J > I; (1, I, K)
+    the block (0, K, I) and the blocks (1, J, K), J > I, and with
+    ``full`` and I < K also (1, K, I)."""
     nb = -(-n // TILE)
     items = [(0, i, c) for i in range(nb - 1, -1, -1) for c in range(nb)]
     items += [(1, i, k) for i in range(nb - 1, -1, -1)
-              for k in range(i, -1, -1)]
+              for k in range(nb - 1 if full else i, -1, -1)]
     return np.asarray(items, dtype=np.int32).reshape(-1, 3)
 
 
@@ -145,7 +149,8 @@ def chol_vjp_solve(L, S):
     """A-bar = L^-T S L^-1 (n, n) for a symmetric ``S``, exactly
     symmetric and row-major, from the factor ``L`` (row-major or
     column-major; its lower triangle is read) and S (read row-major);
-    the CUDA kernels for CUDA tensors (one launch counted)."""
+    the CUDA kernels for CUDA tensors (one launch counted). Float64 forms
+    all of X and symmetrizes it (module docstring)."""
     sfx = _square("chol_vjp_solve", L, S)
     if build.use_plain("chol_vjp_solve", L):
         return chol_vjp_solve_plain(L, S)
@@ -154,14 +159,18 @@ def chol_vjp_solve(L, S):
     n = L.shape[0]
     nb = -(-n // TILE)
     ntri = nb * (nb + 1) // 2
+    full = L.dtype == torch.float64
     dev = L.device
     X = torch.empty((n, n), dtype=L.dtype, device=dev)
     build.require_cuda("chol_vjp_solve", L.mT if lcol else L, S, X)
-    # L's packed tiles and X's lower block triangle, then Y's tiles
-    scratch = torch.empty((2 * ntri + nb * nb) * TILE * TILE,
-                          dtype=L.dtype, device=dev)
+    # L's packed tiles and X's lower block triangle (float64: all of X),
+    # then Y's tiles
+    scratch = torch.empty(
+        (ntri + (nb * nb if full else ntri) + nb * nb) * TILE * TILE,
+        dtype=L.dtype, device=dev)
     flags = torch.empty(2 * nb * nb + 1, dtype=torch.int32, device=dev)
-    work = build.device_work(("solve", n), dev, lambda: solve_work(n))
+    work = build.device_work(("solve", n, full), dev,
+                             lambda: solve_work(n, full))
     fn = build.function("chol_vjp", "chol_vjp_solve_" + sfx,
                         [_P, _I32, _P, _P, _P, _P, _P, _I32, _I64, _P])
     build.check(fn(build.ptr(L), lcol, build.ptr(S), build.ptr(X),

@@ -53,13 +53,27 @@
 // elementwise ops) rounds one by one are written with __fmul_rn/__fadd_rn
 // so that nvcc contracts none of them into an FMA, and the de-scale
 // divides as torch does: the forward passes equal their plain versions
-// bit for bit. The backward runs 32 x 32 tiles through shared memory
-// wherever two operands or an operand and the output differ in storage
-// order (the cotangents come row-major or column-major), elementwise
-// passes elsewhere. Its row and column sums are per-tile partials (a
-// warp's shuffle tree over 32 terms), reduced by one thread per row over
-// the tiles in order: no atomics, a second launch is bit-identical. The
-// flag is the only cross-CTA result: CTAs that see a non-finite entry
+// bit for bit. The backward is persistent too, each CTA on whole storage
+// lines of the output (rows of A-bar; rows or columns of L-bar, as O-bar
+// lies). Where the cotangent and the other factor lie alike (on the
+// training path M-bar and A are both row-major) the line pass reads them
+// with no transpose: every line starts on a multiple of gcd(n, V)
+// elements, so each thread owns the same positions of every line,
+// accessed gcd(n, V) elements at a time (16 bytes where n allows), and
+// keeps their cross sums and s in registers; its CTAs run lines with no
+// barrier between them. Otherwise (O-bar row-major against potrf's
+// column-major L, or a column-major M-bar) the tile pass takes strips of
+// kRT lines and brings the other operand through shared memory in
+// kCT-wide chunks. A sum along a line (A-bar's row sums, s-bar where
+// O-bar is row-major) closes inside its CTA in a fixed order; a sum
+// across lines (A-bar's column sums, s-bar where O-bar is column-major)
+// is a per-CTA partial, written once per CTA and summed by a small
+// finishing pass, which also adds s-bar's term to A-bar's diagonal: one
+// launch, or two where there are cross sums. No atomics: a second launch
+// is bit-identical. A-bar's off-diagonal entries round as (M-bar_ij s_j)
+// s_i, as the plain version does; L-bar is O-bar / s (the line pass
+// multiplies by 1 / s, within an ulp of it). The flag is the only
+// cross-CTA result of the forward: CTAs that see a non-finite entry
 // store the same -1, so it needs no ordering either.
 
 #include <mutex>
@@ -68,9 +82,14 @@
 
 namespace {
 
-constexpr int kTile = 32;         // the backward's tiles
-constexpr int kRows = 8;          // blockDim.y of a tile CTA (32 x 8 threads)
-constexpr int kThreads = 256;     // elementwise and reduction CTAs
+constexpr int kThreads = 256;     // elementwise CTAs, and a backward CTA
+constexpr int kLineCtas = 2;      // the line pass's CTAs an SM (registers)
+constexpr int kRT = 16;           // the tile pass's strips: lines
+constexpr int kCT = 128;          // its chunks: positions
+constexpr int kFinCols = 32;      // the finishing pass: columns a CTA,
+constexpr int kFinLanes = 32;     // partial rows summed side by side,
+constexpr int kFinUnroll = 8;     // and loads in flight a thread
+constexpr int kPanelBytes = 128 * 1024;  // the tile pass's cross sums
 constexpr int kPrepass = 1024;    // the one-CTA passes
 constexpr int kT = 64;            // K3a's tiles
 constexpr int kThreadsA = 256;    // a K3a CTA
@@ -395,105 +414,356 @@ k3_descale_kernel(const T* __restrict__ L, const T* __restrict__ s,
     if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = -1;
 }
 
-// Load a 32 x 32 tile (rows i0.., columns j0..) of X, stored row-major or
-// column-major (xcol), into t[r][c]; entries past n (and, with lower,
-// those above the diagonal) read as 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(T (*t)[kTile + 1],
-                                          const T* __restrict__ X, int xcol,
-                                          int64_t i0, int64_t j0, int64_t n,
-                                          bool lower) {
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    for (int r = ty; r < kTile; r += kRows) {
-        // row-major: lane tx on column j0 + tx of row i0 + r; column-major:
-        // lane tx on row i0 + tx of column j0 + r
-        const int64_t i = xcol ? i0 + tx : i0 + r;
-        const int64_t j = xcol ? j0 + r : j0 + tx;
-        T v = T(0);
-        if (i < n && j < n && !(lower && j > i)) {
-            v = xcol ? X[j * n + i] : X[i * n + j];
-        }
-        if (xcol) t[tx][r] = v; else t[r][tx] = v;
-    }
+// The backward passes. A line is a storage line of the output (a row of
+// a row-major matrix, a column of a column-major one), q a position on
+// it. G is the cotangent (M-bar or O-bar), F the other factor (A, or L's
+// lower triangle), out (A-bar or L-bar) stored like G. PRO: the
+// prologue's (lines are rows i, positions columns j):
+//   out = (G s_q) s_l,  line sum  sum_q G F s_q,  cross sum  sum_l G F s_l
+// else the epilogue's, LR when lines are rows (the lower triangle is
+// q <= l) and otherwise columns (q >= l):
+//   out = G / s_row,    s-bar's sum of G F over the row: a line sum when
+//                       LR, a cross sum otherwise
+// A line sum closes inside the CTA that owns the line. A cross sum is a
+// per-CTA partial (in registers in the line pass, in shared memory in
+// the tile pass), summed over the CTA's lines in order, written as one
+// row of part, and summed over the CTAs by the finishing pass in a fixed
+// order: no atomics anywhere.
+template <bool PRO, bool LR>
+struct Sums {
+    static constexpr bool kCross = PRO || !LR;  // sums across lines
+    static constexpr bool kLine = PRO || LR;    // sums along a line
+};
+
+// F's entry (row, col) of the lower triangle, for the epilogue
+template <bool PRO, bool LR>
+__device__ __forceinline__ bool lower(int64_t l, int64_t q) {
+    return PRO || (LR ? q <= l : q >= l);
 }
 
-// The tile pass of both backwards. PRO: the prologue's (X = M-bar, Y = A,
-// out = A-bar without its diagonal term, row and column partials of
-// (X Y)_ij s_j and (X Y)_ij s_i); else the epilogue's (X = O-bar, Y = L's
-// lower triangle, out = L-bar, row partials of (X Y)_ij). out is stored
-// row-major or column-major (ocol). Partials: rowpart[tile column][row]
-// and colpart[tile row][column].
-template <typename T, bool PRO>
-__global__ void k3_tile_bwd_kernel(const T* __restrict__ X, int xcol,
-                                const T* __restrict__ Y, int ycol,
-                                const T* __restrict__ s, T* __restrict__ out,
-                                int ocol, T* __restrict__ rowpart,
-                                T* __restrict__ colpart, int64_t n) {
-    __shared__ T xs[kTile][kTile + 1];
-    __shared__ T ys[kTile][kTile + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int64_t i0 = (int64_t)blockIdx.y * kTile;
-    const int64_t j0 = (int64_t)blockIdx.x * kTile;
-    load_tile(xs, X, xcol, i0, j0, n, false);
-    if (PRO || j0 <= i0 + kTile - 1) {
-        load_tile(ys, Y, ycol, i0, j0, n, !PRO);
+// W-element accesses (W = gcd(n, V): 16, 8 or sizeof(T) bytes)
+template <int W, typename T>
+__device__ __forceinline__ void ldw(const T* p, T* v) {
+    if constexpr (W * sizeof(T) == 16) {
+        ld16(p, v);
+    } else if constexpr (W * sizeof(T) == 8 && sizeof(T) == 4) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+        v[0] = x.x;
+        v[1] = x.y;
     } else {
-        for (int r = ty; r < kTile; r += kRows) ys[r][tx] = T(0);
+        v[0] = __ldg(p);
     }
-    __syncthreads();
-    for (int r = ty; r < kTile; r += kRows) {
-        const int64_t i = ocol ? i0 + tx : i0 + r;
-        const int64_t j = ocol ? j0 + r : j0 + tx;
-        if (i < n && j < n) {
-            const T x = ocol ? xs[tx][r] : xs[r][tx];
-            out[ocol ? j * n + i : i * n + j] =
-                PRO ? mul_rn(mul_rn(x, s[j]), s[i]) : x / s[i];
-        }
-    }
-    // the products, in place of Y (each entry its own thread's)
-    for (int r = ty; r < kTile; r += kRows) ys[r][tx] = xs[r][tx] * ys[r][tx];
-    __syncthreads();
-    const bool jin = j0 + tx < n, iin = i0 + tx < n;
-    for (int r = ty; r < kTile; r += kRows) {
-        T v = ys[r][tx];
-        if (PRO) v = jin ? v * s[j0 + tx] : T(0);
-        v = warp_sum(v);
-        if (tx == 0 && i0 + r < n) rowpart[blockIdx.x * n + i0 + r] = v;
-    }
-    if (PRO) {
-        for (int c = ty; c < kTile; c += kRows) {
-            T v = iin ? ys[tx][c] * s[i0 + tx] : T(0);
-            v = warp_sum(v);
-            if (tx == 0 && j0 + c < n) colpart[blockIdx.y * n + j0 + c] = v;
-        }
+}
+template <int W, typename T>
+__device__ __forceinline__ void stw(T* p, const T* v) {
+    if constexpr (W * sizeof(T) == 16) {
+        st16(p, v);
+    } else if constexpr (W * sizeof(T) == 8 && sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else {
+        *p = v[0];
     }
 }
 
-// the partials summed over the tiles in order, one thread per row: the
-// epilogue's s-bar, or the prologue's s-bar (with the epilogue's sbar_in)
-// and its diagonal term added to A-bar
+// elements of each line a thread takes in a panel of the line pass
+template <typename T>
+__host__ __device__ constexpr int line_elems() {
+    return sizeof(T) == 4 ? 16 : 8;
+}
+
+// The backward for G, F and out stored alike, persistent: CTA b takes
+// lines b, b + gridDim.x, ..., all its threads on each line, with no
+// barrier between lines, so its warps run lines apart and keep loads in
+// flight. Every line starts on a multiple of W elements (W = gcd(n, V):
+// the base pointers are on 16-byte boundaries), so each thread owns the
+// same positions of every line, W-element accesses p0 + (j kThreads +
+// tid) W, j < line_elems / W, of the panel at p0 (kThreads line_elems
+// positions): every load of a line issued before any store, F's
+// accesses wholly above the diagonal not loaded, and the cross sums and
+// s (or 1 / s) of its positions in registers. Line sums: each warp's
+// share into wpart (dynamic shared memory, a CTA's lines x NW), summed
+// in warp order at the end of the panel and carried across panels in
+// lsum; cross sums: the thread's own, each over the CTA's lines in
+// order, written as the CTA's row of part.
+template <typename T, bool PRO, bool LR, int W>
+__global__ void __launch_bounds__(kThreads, kLineCtas)
+k3_line_bwd_kernel(const T* __restrict__ G, const T* __restrict__ F,
+                   const T* __restrict__ s, T* __restrict__ out,
+                   T* __restrict__ lsum, T* __restrict__ sbar,
+                   T* __restrict__ part, int64_t n) {
+    using S = Sums<PRO, LR>;
+    constexpr int J = line_elems<T>() / W;  // a thread's accesses a line
+    constexpr int NW = kThreads / 32;
+    constexpr int64_t panel = (int64_t)kThreads * line_elems<T>();
+    extern __shared__ __align__(16) unsigned char k3_dyn[];
+    T* wpart = reinterpret_cast<T*>(k3_dyn);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    for (int64_t p0 = 0; p0 < n; p0 += panel) {
+        const bool last = p0 + panel >= n;
+        T sq[J][W], cacc[J][W];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const int64_t q0 = p0 + ((int64_t)j * kThreads + tid) * W;
+#pragma unroll
+            for (int e = 0; e < W; ++e) {
+                cacc[j][e] = T(0);
+                sq[j][e] = T(1);
+                if (q0 < n && (PRO || !LR)) {
+                    sq[j][e] = PRO ? s[q0 + e] : T(1) / s[q0 + e];
+                }
+            }
+        }
+        int nl = 0;  // this CTA's lines
+        for (int64_t l = blockIdx.x; l < n; l += gridDim.x, ++nl) {
+            const int64_t off = l * n;
+            T x[J][W], y[J][W];
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+                const int64_t q0 = p0 + ((int64_t)j * kThreads + tid) * W;
+                if (q0 < n) {  // W divides n
+                    ldw<W>(G + off + q0, x[j]);
+                    // an access with an entry of the lower triangle
+                    if (lower<PRO, LR>(l, LR ? q0 : q0 + W - 1)) {
+                        ldw<W>(F + off + q0, y[j]);
+                    } else {
+#pragma unroll
+                        for (int e = 0; e < W; ++e) y[j][e] = T(0);
+                    }
+                }
+            }
+            const T sl = s[l], rl = T(1) / sl;
+            T lacc = T(0);
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+                const int64_t q0 = p0 + ((int64_t)j * kThreads + tid) * W;
+                if (q0 >= n) continue;
+                T o[W];
+#pragma unroll
+                for (int e = 0; e < W; ++e) {
+                    const T g = x[j][e];
+                    const T f = lower<PRO, LR>(l, q0 + e) ? y[j][e] : T(0);
+                    const T pr = g * f;
+                    if (PRO) {
+                        o[e] = mul_rn(mul_rn(g, sq[j][e]), sl);
+                        lacc += pr * sq[j][e];
+                        cacc[j][e] += pr * sl;
+                    } else {
+                        o[e] = g * (LR ? rl : sq[j][e]);
+                        if (LR) lacc += pr; else cacc[j][e] += pr;
+                    }
+                }
+                stw<W>(out + off + q0, o);
+            }
+            if (S::kLine) {
+                lacc = warp_sum(lacc);
+                if (lane == 0) wpart[nl * NW + warp] = lacc;
+            }
+        }
+        __syncthreads();
+        if (S::kLine) {
+            for (int i = tid; i < nl; i += kThreads) {
+                const int64_t l = blockIdx.x + (int64_t)i * gridDim.x;
+                T t = wpart[i * NW];
+                for (int k = 1; k < NW; ++k) t += wpart[i * NW + k];
+                if (p0 > 0) t = lsum[l] + t;
+                if (PRO || !last) {
+                    lsum[l] = t;
+                } else {
+                    const T sl = s[l];
+                    sbar[l] = -t / (sl * sl);
+                }
+            }
+        }
+        if (S::kCross) {
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+                const int64_t q0 = p0 + ((int64_t)j * kThreads + tid) * W;
+                if (q0 < n) stw<W>(part + blockIdx.x * n + q0, cacc[j]);
+            }
+        }
+        __syncthreads();  // wpart is read
+    }
+}
+
+// The backward when the other factor is stored the other way (PRO:
+// M-bar column-major against a row-major A; else L against O-bar), so
+// one operand goes through shared memory: X, whose storage line q holds
+// the positions l of the strip. Persistent: CTA b takes strips of kRT
+// lines b, b + gridDim.x, ..., each in chunks of kCT positions; a warp
+// owns kRT / 8 lines of a strip, a lane kCT / 32 positions of a chunk
+// (coalesced scalar loads of S, the operand stored like out), and X's
+// chunk arrives as kCT segments of kRT contiguous entries, every load of
+// a chunk issued before the chunk's first barrier. Two barriers a chunk:
+// X's buffer in, and either the buffer free again or, with cross sums,
+// the chunk's sums in (X then alternates between two buffers). Line sums stay in the warp that
+// owns the line (shuffles), cross sums of a chunk go through shared
+// memory into the CTA's partial. PRO: S = A and X = M-bar; else S =
+// O-bar and X = L.
+template <typename T, bool PRO, bool LR>
+__global__ void __launch_bounds__(kThreads, Sums<PRO, LR>::kCross ? 2 : 1)
+k3_tile_bwd_kernel(const T* __restrict__ Sm, const T* __restrict__ X,
+                   const T* __restrict__ s, T* __restrict__ out,
+                   T* __restrict__ lsum, T* __restrict__ sbar,
+                   T* __restrict__ part, int64_t n, int64_t panel) {
+    using S = Sums<PRO, LR>;
+    constexpr int NW = kThreads / 32;
+    constexpr int LPW = kRT / NW;                // lines a warp
+    constexpr int CPL = kCT / 32;                // positions a lane
+    constexpr int XPT = kRT * kCT / kThreads;    // X's loads a thread
+    extern __shared__ __align__(16) unsigned char k3_dyn[];
+    T* acc = reinterpret_cast<T*>(k3_dyn);
+    constexpr int NB = S::kCross ? 2 : 1;  // X's buffers
+    __shared__ T xt[NB][kRT][kCT + 1];
+    __shared__ T cs[NW][kCT];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int64_t nstrips = (n + kRT - 1) / kRT;
+    for (int64_t p0 = 0; p0 < n; p0 += panel) {
+        const int64_t pend = n - p0 < panel ? n : p0 + panel;
+        if (S::kCross) {
+            for (int64_t q = tid; q < pend - p0; q += kThreads) acc[q] = T(0);
+        }
+        int buf = 0;
+        for (int64_t st = blockIdx.x; st < nstrips; st += gridDim.x) {
+            const int64_t l0 = st * kRT;
+            T sl[LPW], lacc[LPW];
+#pragma unroll
+            for (int r = 0; r < LPW; ++r) {
+                const int64_t l = l0 + warp + NW * r;
+                sl[r] = l < n ? s[l] : T(1);
+                lacc[r] = T(0);
+            }
+            for (int64_t q0 = p0; q0 < pend; q0 += kCT, buf = (buf + 1) % NB) {
+                // X is read only where the chunk meets the lower triangle
+                const bool xneed = PRO || (LR ? q0 <= l0 + kRT - 1
+                                              : q0 + kCT - 1 >= l0);
+                T sv[LPW][CPL], xv[XPT], sq[CPL];
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                    const int64_t q = q0 + lane + 32 * c;
+                    sq[c] = q < pend ? s[q] : T(1);
+#pragma unroll
+                    for (int r = 0; r < LPW; ++r) {
+                        const int64_t l = l0 + warp + NW * r;
+                        sv[r][c] = l < n && q < pend ? Sm[l * n + q] : T(0);
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < XPT; ++u) {
+                    const int idx = u * kThreads + tid;
+                    const int64_t q = q0 + idx / kRT, l = l0 + idx % kRT;
+                    xv[u] = xneed && q < pend && l < n ? X[q * n + l] : T(0);
+                }
+                // one buffer: the previous chunk must be done with it
+                if (NB == 1) __syncthreads();
+#pragma unroll
+                for (int u = 0; u < XPT; ++u) {
+                    const int idx = u * kThreads + tid;
+                    xt[buf][idx % kRT][idx / kRT] = xv[u];
+                }
+                __syncthreads();  // xt[buf] is in
+                T csum[CPL];
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                    const int64_t q = q0 + lane + 32 * c;
+                    csum[c] = T(0);
+#pragma unroll
+                    for (int r = 0; r < LPW; ++r) {
+                        const int64_t l = l0 + warp + NW * r;
+                        if (l >= n || q >= pend) continue;
+                        const T xvv = xt[buf][warp + NW * r][lane + 32 * c];
+                        T o;
+                        if (PRO) {  // X = M-bar, S = A
+                            o = mul_rn(mul_rn(xvv, sq[c]), sl[r]);
+                            const T pr = xvv * sv[r][c];
+                            lacc[r] += pr * sq[c];
+                            csum[c] += pr * sl[r];
+                        } else {    // S = O-bar, X = L
+                            const T g = sv[r][c];
+                            const T f = lower<PRO, LR>(l, q) ? xvv : T(0);
+                            o = g / (LR ? sl[r] : sq[c]);
+                            if (LR) lacc[r] += g * f; else csum[c] += g * f;
+                        }
+                        out[l * n + q] = o;
+                    }
+                }
+                if (S::kCross) {
+#pragma unroll
+                    for (int c = 0; c < CPL; ++c) {
+                        cs[warp][lane + 32 * c] = csum[c];
+                    }
+                    __syncthreads();
+                    if (tid < kCT && q0 + tid < pend) {
+                        T t = cs[0][tid];
+                        for (int i = 1; i < NW; ++i) t += cs[i][tid];
+                        acc[q0 - p0 + tid] += t;
+                    }
+                }
+            }
+            if (S::kLine) {
+#pragma unroll
+                for (int r = 0; r < LPW; ++r) {
+                    const int64_t l = l0 + warp + NW * r;
+                    const T t = warp_sum(lacc[r]);
+                    if (lane != 0 || l >= n) continue;
+                    if (PRO) {
+                        lsum[l] = p0 == 0 ? t : lsum[l] + t;
+                    } else {
+                        sbar[l] = -t / (sl[r] * sl[r]);  // one panel
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        if (S::kCross) {
+            for (int64_t q = tid; q < pend - p0; q += kThreads) {
+                part[blockIdx.x * n + p0 + q] = acc[q];
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// The cross sums over the CTAs' partials, kFinCols columns a CTA: lane
+// ty sums partial rows ty, ty + kFinLanes, ... in order, kFinUnroll
+// loads in flight, then one thread the lanes in order. PRO: s-bar =
+// sbar_in + line sum + cross sum, and its term added to A-bar's
+// diagonal; else the epilogue's s-bar.
 template <typename T, bool PRO>
-__global__ void k3_reduce_kernel(const T* __restrict__ rowpart,
-                              const T* __restrict__ colpart, int64_t tiles,
-                              const T* __restrict__ sbar_in,
-                              const T* __restrict__ s,
-                              const T* __restrict__ A, T* __restrict__ sbar,
-                              T* __restrict__ Abar, int64_t n) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+__global__ void __launch_bounds__(kFinCols * kFinLanes)
+k3_finish_kernel(const T* __restrict__ part, int nparts,
+                 const T* __restrict__ lsum, const T* __restrict__ sbar_in,
+                 const T* __restrict__ s, const T* __restrict__ A,
+                 T* __restrict__ Abar, T* __restrict__ sbar, int64_t n) {
+    __shared__ T red[kFinLanes][kFinCols + 1];
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int64_t j = (int64_t)blockIdx.x * kFinCols + tx;
     T acc = T(0);
-    for (int64_t b = 0; b < tiles; ++b) acc += rowpart[b * n + i];
-    const T si = s[i];
+    if (j < n) {
+        for (int b0 = ty; b0 < nparts; b0 += kFinLanes * kFinUnroll) {
+            T v[kFinUnroll];
+#pragma unroll
+            for (int u = 0; u < kFinUnroll; ++u) {
+                const int b = b0 + u * kFinLanes;
+                v[u] = b < nparts ? part[(int64_t)b * n + j] : T(0);
+            }
+#pragma unroll
+            for (int u = 0; u < kFinUnroll; ++u) acc += v[u];
+        }
+    }
+    red[ty][tx] = acc;
+    __syncthreads();
+    if (ty != 0 || j >= n) return;
+    T c = red[0][tx];
+    for (int i = 1; i < kFinLanes; ++i) c += red[i][tx];
+    const T sj = s[j];
     if (!PRO) {
-        sbar[i] = -acc / (si * si);
+        sbar[j] = -c / (sj * sj);
         return;
     }
-    T col = T(0);
-    for (int64_t b = 0; b < tiles; ++b) col += colpart[b * n + i];
-    const T sb = (sbar_in != nullptr ? sbar_in[i] : T(0)) + acc + col;
-    const T a = A[i * (n + 1)];
+    const T sb = ((sbar_in != nullptr ? sbar_in[j] : T(0)) + lsum[j]) + c;
+    const T a = A[j * (n + 1)];
     if (fabs(a) > tiny<T>()) {
-        Abar[i * (n + 1)] += (T(-0.5) * sb * (si * si * si)) * sign_of(a);
+        Abar[j * (n + 1)] += (T(-0.5) * sb * (sj * sj * sj)) * sign_of(a);
     }
 }
 
@@ -521,12 +791,6 @@ __global__ void k3_add_diag_kernel(const T* __restrict__ X,
         const int64_t p = r * n + c;
         out[p] = add_rn(X[p], r == c ? gv : T(0));
     }
-}
-
-inline int64_t tiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
-
-inline dim3 tile_grid(int64_t n) {
-    return dim3((unsigned)tiles_of(n), (unsigned)tiles_of(n));
 }
 
 inline dim3 rows_grid(int64_t n) {
@@ -592,24 +856,131 @@ static int descale(const T* L, const T* s, T* O, int* flag, int64_t n,
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int descale_bwd(const T* Obar, int ocol, const T* L, int lcol,
-                       const T* s, T* Lbar, T* sbar, T* part, int64_t n,
-                       void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    k3_tile_bwd_kernel<T, false><<<tile_grid(n), dim3(kTile, kRows), 0,
-                                   st>>>(Obar, ocol, L, lcol, s, Lbar, ocol,
-                                         part, nullptr, n);
-    k3_reduce_kernel<T, false><<<(unsigned)((n + kThreads - 1) / kThreads),
-                              kThreads, 0, st>>>(
-        part, nullptr, tiles_of(n), nullptr, s, nullptr, sbar, nullptr, n);
+// CTAs of a backward kernel (kThreads each, smem bytes of dynamic
+// shared memory, opted in) resident on the current device at once; with
+// out null only the opt-in
+template <typename K>
+static int resident(K kern, size_t smem, int* out) {
+    int dev = 0, nsm = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    }
+    if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    }
+    if (err == cudaSuccess && out != nullptr) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                            kThreads, smem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    if (out != nullptr) *out = (per_sm > 0 ? per_sm : 1) * nsm;
+    return 0;
+}
+
+// The line pass at one access width W (see k3_line_bwd_kernel).
+template <typename T, bool PRO, bool LR, int W>
+static int line_pass(const T* G, const T* F, const T* s, T* out, T* lsum,
+                     T* sbar, T* part, int64_t grid, int64_t n,
+                     cudaStream_t st, int64_t* used) {
+    constexpr int NW = kThreads / 32;
+    const auto kern = k3_line_bwd_kernel<T, PRO, LR, W>;
+    // the warps' shares of the line sums grow as the grid shrinks to
+    // what is resident
+    size_t smem = 0;
+    for (int round = 0; round < 3; ++round) {
+        smem = sizeof(T) * (size_t)(((n + grid - 1) / grid) * NW);
+        int cap = 0;
+        const int rc = resident(kern, smem, &cap);
+        if (rc != 0) return rc;
+        if (grid <= cap) break;
+        grid = cap;
+    }
+    smem = sizeof(T) * (size_t)(((n + grid - 1) / grid) * NW);
+    const int rc = resident(kern, smem, nullptr);
+    if (rc != 0) return rc;
+    kern<<<(unsigned)grid, kThreads, smem, st>>>(G, F, s, out, lsum, sbar,
+                                                 part, n);
+    *used = grid;
+    return 0;
+}
+
+// One backward: the line pass when G and F are stored alike (same),
+// else the tile pass with X the one stored the other way (PRO: M-bar,
+// else L), then the finishing pass where there are cross sums. part
+// holds maxparts rows of n partials (at most maxparts CTAs take part in
+// the cross sums), then the n line sums.
+template <typename T, bool PRO, bool LR>
+static int bwd_pass(const T* G, const T* F, bool same, const T* s, T* out,
+                    T* sbar, const T* sbar_in, const T* A, T* part,
+                    int maxparts, int64_t n, cudaStream_t st) {
+    using S = Sums<PRO, LR>;
+    constexpr int64_t V = 16 / sizeof(T);
+    T* lsum = part + (int64_t)maxparts * n;
+    int64_t grid = same ? n : (n + kRT - 1) / kRT;
+    if (S::kCross && grid > maxparts) grid = maxparts;
+    int rc = 0;
+    if (same) {
+        // every line starts on a multiple of gcd(n, V) elements
+        const int64_t w = n % V == 0 ? V : (n % 2 == 0 ? 2 : 1);
+        if constexpr (V == 4) {
+            if (w == 4) {
+                rc = line_pass<T, PRO, LR, 4>(G, F, s, out, lsum, sbar, part,
+                                              grid, n, st, &grid);
+            }
+        }
+        if (w == 2) {
+            rc = line_pass<T, PRO, LR, 2>(G, F, s, out, lsum, sbar, part,
+                                          grid, n, st, &grid);
+        } else if (w == 1) {
+            rc = line_pass<T, PRO, LR, 1>(G, F, s, out, lsum, sbar, part,
+                                          grid, n, st, &grid);
+        }
+    } else {
+        const int64_t cap = kPanelBytes / (int64_t)sizeof(T);
+        const int64_t panel = S::kCross && n > cap ? cap : n;
+        const size_t smem = S::kCross ? sizeof(T) * (size_t)panel : 0;
+        const auto tile = k3_tile_bwd_kernel<T, PRO, LR>;
+        int cap_ctas = 0;
+        rc = resident(tile, smem, &cap_ctas);
+        if (rc == 0) {
+            if (grid > cap_ctas) grid = cap_ctas;
+            tile<<<(unsigned)grid, kThreads, smem, st>>>(
+                PRO ? F : G, PRO ? G : F, s, out, lsum, sbar, part, n, panel);
+        }
+    }
+    if (rc != 0) return rc;
+    if (S::kCross) {
+        k3_finish_kernel<T, PRO><<<(unsigned)((n + kFinCols - 1) / kFinCols),
+                                   dim3(kFinCols, kFinLanes), 0, st>>>(
+            part, (int)grid, lsum, sbar_in, s, A, out, sbar, n);
+    }
     return (int)cudaGetLastError();
 }
 
 template <typename T>
+static int descale_bwd(const T* Obar, int ocol, const T* L, int lcol,
+                       const T* s, T* Lbar, T* sbar, T* part, int maxparts,
+                       int64_t n, void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool same = ocol == lcol;
+    // lines are O-bar's: rows (s-bar a line sum) or columns (a cross sum)
+    return ocol ? bwd_pass<T, false, false>(Obar, L, same, s, Lbar, sbar,
+                                            nullptr, nullptr, part,
+                                            maxparts, n, st)
+                : bwd_pass<T, false, true>(Obar, L, same, s, Lbar, sbar,
+                                           nullptr, nullptr, part, maxparts,
+                                           n, st);
+}
+
+template <typename T>
 static int prologue_bwd(const T* Mbar, int mcol, const T* A, const T* s,
-                        const T* sbar_in, T* Abar, T* part, int64_t n,
-                        int equil, double scale, void* stream) {
+                        const T* sbar_in, T* Abar, T* part, int maxparts,
+                        int64_t n, int equil, double scale, void* stream) {
+    if (n <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     if (!equil) {
         // part[0]: g
@@ -618,16 +989,9 @@ static int prologue_bwd(const T* Mbar, int mcol, const T* A, const T* s,
                                                               Abar, n);
         return (int)cudaGetLastError();
     }
-    const int64_t nt = tiles_of(n);
-    T* rowpart = part;
-    T* colpart = part + nt * n;
-    k3_tile_bwd_kernel<T, true><<<tile_grid(n), dim3(kTile, kRows), 0,
-                                  st>>>(Mbar, mcol, A, 0, s, Abar, 0, rowpart,
-                                        colpart, n);
-    k3_reduce_kernel<T, true><<<(unsigned)((n + kThreads - 1) / kThreads),
-                             kThreads, 0, st>>>(
-        rowpart, colpart, nt, sbar_in, s, A, nullptr, Abar, n);
-    return (int)cudaGetLastError();
+    // A and A-bar are row-major: lines are rows
+    return bwd_pass<T, true, true>(Mbar, A, mcol == 0, s, Abar, nullptr,
+                                   sbar_in, A, part, maxparts, n, st);
 }
 
 #define K3_ENTRIES(T, SFX)                                                    \
@@ -643,18 +1007,18 @@ static int prologue_bwd(const T* Mbar, int mcol, const T* A, const T* s,
     }                                                                         \
     extern "C" int k3_descale_bwd_##SFX(const T* Obar, int ocol, const T* L,  \
                                         int lcol, const T* s, T* Lbar,        \
-                                        T* sbar, T* part, int64_t n,          \
-                                        void* stream) {                       \
-        return descale_bwd<T>(Obar, ocol, L, lcol, s, Lbar, sbar, part, n,    \
-                              stream);                                        \
+                                        T* sbar, T* part, int maxparts,       \
+                                        int64_t n, void* stream) {            \
+        return descale_bwd<T>(Obar, ocol, L, lcol, s, Lbar, sbar, part,       \
+                              maxparts, n, stream);                           \
     }                                                                         \
     extern "C" int k3_prologue_bwd_##SFX(const T* Mbar, int mcol, const T* A, \
                                          const T* s, const T* sbar_in,        \
-                                         T* Abar, T* part, int64_t n,         \
-                                         int equil, double scale,             \
+                                         T* Abar, T* part, int maxparts,      \
+                                         int64_t n, int equil, double scale,  \
                                          void* stream) {                      \
-        return prologue_bwd<T>(Mbar, mcol, A, s, sbar_in, Abar, part, n,      \
-                               equil, scale, stream);                         \
+        return prologue_bwd<T>(Mbar, mcol, A, s, sbar_in, Abar, part,         \
+                               maxparts, n, equil, scale, stream);            \
     }
 
 K3_ENTRIES(float, f32)

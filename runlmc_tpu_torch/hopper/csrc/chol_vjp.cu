@@ -19,10 +19,11 @@
 //          substitutions).
 //
 // Bound on the card: operations. tri does n^3 / 3 (the lower triangle of
-// a product whose inner sums start at the row index); solve 4 n^3 / 3:
-// n^3 for Y = L^-T S and n^3 / 3 for the lower triangle of X = L^-T Y^T
-// (X is symmetric, X = X^T = L^-T Y^T), where two general triangular
-// solves do 2 n^3; both at 67 TFLOP/s (FFMA in float32, DMMA in float64).
+// a product whose inner sums start at the row index); solve in float32
+// 4 n^3 / 3: n^3 for Y = L^-T S and n^3 / 3 for the lower triangle of
+// X = L^-T Y^T (X is symmetric, X = X^T = L^-T Y^T), where two general
+// triangular solves do 2 n^3; in float64 those 2 n^3 (all of X, see
+// below); both at 67 TFLOP/s (FFMA in float32, DMMA in float64).
 //
 // The tile machinery of tri and solve: 64 x 64 output tiles, 128
 // threads; the depth comes through a ring of kStages slices of 16 rows of
@@ -46,10 +47,17 @@
 // solve: by blocks of 64 rows,
 //
 //   L_II^T Y_I  = S_I    - sum_{J > I} L_JI^T Y_J   (every column tile c)
-//   L_II^T X_IK = Y_KI^T - sum_{J > I} L_JI^T X_JK  (K <= I only)
+//   L_II^T X_IK = Y_KI^T - sum_{J > I} L_JI^T X_JK  (float32: K <= I)
 //
-// so column tile K of X reads only X's lower block triangle: no entry
-// above it is formed. A work item is (stage, I, c); the host list puts
+// so in float32 column tile K of X reads only X's lower block triangle:
+// no entry above it is formed. Float64 forms every block of X and writes
+// A-bar = 1/2 (X + X^T), as the plain version and the JAX package do:
+// at a nearly singular factor (the float64 K_UU of a 2-step model
+// chunk, condition 9e12) the rounding that X's two triangles do not
+// share reaches 1e-8 of a gradient entry, and the mirrored lower
+// triangle kept it where the symmetrization halves it (the card-vs-CPU
+// float64 chunk's 1e-8 bound). A work item is (stage, I, c); the host
+// list puts
 // stage 0 (Y's block (I, c)) for I descending, then stage 1 (X's block
 // (I, K)) for I descending. A CTA takes its item from an atomic ticket at
 // its start, so it only ever waits on items that started before it (no
@@ -73,7 +81,10 @@
 // 0 writes Y's tile and its flag; stage 1 writes X's tile into scratch
 // (Z) and its flag, then A-bar's entries and their mirrors from the same
 // values (on a diagonal tile, the lower half and its mirror), so A-bar
-// is exactly symmetric and no pass symmetrizes it afterwards.
+// is exactly symmetric and no pass symmetrizes it afterwards; in float64
+// the item of the block above the diagonal, (I, K) with I <= K, reads X's
+// block (K, I) (an earlier item's) and writes both from 1/2 (X_ab +
+// X_ba).
 //
 // Every sum runs in a fixed order, with no atomics on data and no split
 // of a sum across CTAs: a second launch is bit-identical. Nothing waits on
@@ -102,8 +113,15 @@ constexpr int kTile = kT * kT;
 constexpr int kSeq = 16;               // route 1's thread-block edge
 constexpr int kMaxDevices = 16;
 constexpr int kMaxPolls = 1 << 26;
-static_assert(kStages >= kSub && kStages * kSlot >= kT * kEld,
-              "the diagonal product and the epilogue tile fit the ring");
+static_assert(kStages >= kSub && kStages * kSlot >= 2 * kT * kEld,
+              "the diagonal product and two epilogue tiles fit the ring");
+
+// Float64 forms all of X and writes A-bar = 1/2 (X + X^T); float32 only
+// X's lower block triangle, each entry written with its mirror.
+template <typename T>
+__host__ __device__ constexpr bool full_x() {
+    return sizeof(T) == 8;
+}
 
 template <typename T>
 constexpr size_t ring_bytes() {
@@ -668,7 +686,8 @@ __device__ __forceinline__ void solve_block(const T* sm, T* inv, int r,
 
 // The substitutions (see the head of the file). flags: Y's nb x nb
 // release flags, X's, then the ticket; Y nb x nb tiles, Z (X's lower
-// block triangle) and Lp packed, tile (J, I) at tri_index(J, I).
+// block triangle; in float64 all of X, tile (J, I) at J nb + I) and Lp
+// packed, tile (J, I) at tri_index(J, I).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 vjp_solve_kernel(const T* __restrict__ S, T* __restrict__ X,
@@ -720,8 +739,9 @@ vjp_solve_kernel(const T* __restrict__ S, T* __restrict__ X,
         T* x = sm + (q % kStages) * kSlot;
         if (q < nq) {
             const int J = nb - 1 - q / kSub, r0 = (q % kSub) * kBK;
-            const int64_t tj =
-                stage == 0 ? (int64_t)J * nb + c : tri_index(J, c);
+            const int64_t tj = stage == 0 || full_x<T>()
+                                   ? (int64_t)J * nb + c
+                                   : tri_index(J, c);
             load_tile_slice(x, Lp + tri_index(J, I) * kTile, r0);
             load_tile_slice(x + kBK * kLd, src + tj * kTile, r0);
         } else {
@@ -777,21 +797,35 @@ vjp_solve_kernel(const T* __restrict__ S, T* __restrict__ X,
     // blocks) and A-bar's entries with their mirrors
     const int j = (int)threadIdx.x / 2, h = (int)threadIdx.x % 2;
     auto row_of = [&](int i) { return 8 * (i / 4) + 4 * h + i % 4; };
-    if (stage == 0 || I > c) {
+    if (stage == 0 || I > c || full_x<T>()) {
         T* out = stage == 0 ? Y + ((int64_t)I * nb + c) * kTile
-                            : Z + tri_index(I, c) * kTile;
+                 : Z + (full_x<T>() ? (int64_t)I * nb + c : tri_index(I, c))
+                           * kTile;
 #pragma unroll
         for (int i = 0; i < kT / 2; ++i) out[row_of(i) * kT + j] = y[i];
         publish(stage == 0 ? yflag + I * nb + c : zflag + I * nb + c);
-        if (stage == 0) return;
+        // float64: the block above the diagonal writes the pair
+        if (stage == 0 || (full_x<T>() && I > c)) return;
     }
     __syncthreads();  // the slots are read
 #pragma unroll
     for (int i = 0; i < kT / 2; ++i) sm[row_of(i) * kEld + j] = y[i];
+    const bool diag = I == c;
+    // float64: X's block (c, I), published by an earlier item, for the
+    // sums 1/2 (X_ab + X_ba)
+    const T* xo = sm;
+    if (full_x<T>() && !diag) {
+        T* other = sm + kT * kEld;
+        wait_flag(zflag + c * nb + I);
+        const T* zt = Z + ((int64_t)c * nb + I) * kTile;
+        for (int e = threadIdx.x; e < kTile; e += kThreads) {
+            other[(e / kT) * kEld + e % kT] = __ldcg(zt + e);
+        }
+        xo = other;
+    }
     __syncthreads();
     // A-bar's block (I, c) row by row, then its mirror column by column;
     // on the diagonal block the lower half and its mirror
-    const bool diag = I == c;
     for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
         const bool mirror = e >= kTile;
         const int f = mirror ? e - kTile : e;
@@ -801,7 +835,8 @@ vjp_solve_kernel(const T* __restrict__ S, T* __restrict__ X,
         if (a >= n || b >= n || (diag && (mirror ? jj >= r : jj > r))) {
             continue;
         }
-        const T v = sm[r * kEld + jj];
+        T v = sm[r * kEld + jj];
+        if (full_x<T>()) v = T(0.5) * (v + xo[jj * kEld + r]);
         if (mirror) {
             X[(int64_t)b * n + a] = v;
         } else {
@@ -900,8 +935,9 @@ int launch_pack(const T* L, T* Lp, int n, int nb, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
-// scratch: Lp and Z (tri_index(nb, 0) tiles each), then Y (nb * nb
-// tiles); flags: 2 nb^2 + 1 ints; work: nb^2 + tri_index(nb, 0) items.
+// scratch: Lp (tri_index(nb, 0) tiles), Z (as many, or nb * nb in
+// float64), then Y (nb * nb tiles); flags: 2 nb^2 + 1 ints; work: nb^2
+// items of stage 0 and one of stage 1 for each tile of Z.
 template <typename T>
 int solve(const T* L, int lcol, const T* S, T* X, T* scratch, int* flags,
           const int* work, int nwork, int64_t n, void* stream) {
@@ -909,12 +945,13 @@ int solve(const T* L, int lcol, const T* S, T* X, T* scratch, int* flags,
     if (n == 0) return (int)cudaGetLastError();
     const int ni = (int)n, nb = (ni + kT - 1) / kT;
     const int64_t ntri = tri_index(nb, 0);
-    if ((int64_t)nwork != (int64_t)nb * nb + ntri) {
+    const int64_t nz = full_x<T>() ? (int64_t)nb * nb : ntri;
+    if ((int64_t)nwork != (int64_t)nb * nb + nz) {
         return (int)cudaErrorInvalidValue;
     }
     T* Lp = scratch;
     T* Z = Lp + ntri * kTile;
-    T* Y = Z + ntri * kTile;
+    T* Y = Z + nz * kTile;
     cudaStream_t st = (cudaStream_t)stream;
     int rc = lcol ? launch_pack<T, true>(L, Lp, ni, nb, st)
                   : launch_pack<T, false>(L, Lp, ni, nb, st);

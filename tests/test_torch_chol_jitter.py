@@ -4,7 +4,8 @@ port's ``chol_jittered`` (the plain K3a/K3b on the CPU) against the JAX
 package's at every rung of both jitter ladders, in both equilibration
 modes and both dtypes; the hand backward against JAX's gradient and
 against finite differences; the flag; the host reads per attempt; numpy
-mirrors of the CUDA kernels' tile loops; and, on bench.py's reduced
+mirrors of the CUDA kernels' loops (the forward's tiles and lines, the
+backward's line, tile and finishing passes); and, on bench.py's reduced
 synth copy, the rung where each float32 factorization lands, against
 the JAX package's rule on the same matrices."""
 
@@ -284,31 +285,6 @@ def test_potrf_factors_in_place(order):
 # a scalar tail, the triangle, the partial sums' layout), which only the
 # card can run. The backward's tiles are 32 x 32 on 32 x 8 threads.
 
-TILE, ROWS = 32, 8
-
-
-def _threads():
-    for ty in range(ROWS):
-        for tx in range(TILE):
-            yield ty, tx
-
-
-def _load_tile(X, xcol, i0, j0, n, lower):
-    t = np.zeros((TILE, TILE + 1))
-    for ty, tx in _threads():
-        for r in range(ty, TILE, ROWS):
-            i = i0 + tx if xcol else i0 + r
-            j = j0 + r if xcol else j0 + tx
-            v = 0.0
-            if i < n and j < n and not (lower and j > i):
-                v = X[j * n + i] if xcol else X[i * n + j]
-            if xcol:
-                t[tx, r] = v
-            else:
-                t[r, tx] = v
-    return t
-
-
 # the forward's constants: K3a's 64 x 64 tiles on 256 threads, K3b's 128
 # threads with 4 vectors each; V elements a 16-byte vector (4 for
 # float32, 2 for float64)
@@ -495,39 +471,6 @@ def _mirror_descale(Lb, s, lcol, n, V=4, with_o=True):
     return O, bad, writes, loads
 
 
-def _mirror_tile_bwd(X, xcol, Y, ycol, s, ocol, pro, n):
-    nt = -(-n // TILE)
-    out = np.zeros(n * n)
-    rowpart, colpart = np.zeros((nt, n)), np.zeros((nt, n))
-    for bi in range(nt):
-        for bj in range(nt):
-            i0, j0 = bi * TILE, bj * TILE
-            xs = _load_tile(X, xcol, i0, j0, n, False)
-            ys = (_load_tile(Y, ycol, i0, j0, n, not pro)
-                  if pro or j0 <= i0 + TILE - 1 else np.zeros_like(xs))
-            for ty, tx in _threads():
-                for r in range(ty, TILE, ROWS):
-                    i = i0 + tx if ocol else i0 + r
-                    j = j0 + r if ocol else j0 + tx
-                    if i < n and j < n:
-                        x = xs[tx, r] if ocol else xs[r, tx]
-                        out[j * n + i if ocol else i * n + j] = (
-                            (x * s[j]) * s[i] if pro else x / s[i])
-            ys[:, :TILE] = xs[:, :TILE] * ys[:, :TILE]
-            for r in range(TILE):
-                lane = [ys[r, tx] * (s[j0 + tx] if j0 + tx < n else 0.0)
-                        if pro else ys[r, tx] for tx in range(TILE)]
-                if i0 + r < n:
-                    rowpart[bj, i0 + r] = sum(lane)
-            if pro:
-                for c in range(TILE):
-                    lane = [ys[tx, c] * s[i0 + tx] if i0 + tx < n else 0.0
-                            for tx in range(TILE)]
-                    if j0 + c < n:
-                        colpart[bi, j0 + c] = sum(lane)
-    return out, rowpart, colpart
-
-
 def _storage(M, col):
     return (M.T if col else M).reshape(-1).copy()
 
@@ -639,43 +582,372 @@ def test_mirror_descale_ragged_rows(n, lcol, V, with_s):
     assert _check_descale_mirror(L, lcol, V, with_s)
 
 
+# the backward's constants: CTAs of THREADS threads (NW warps); the line
+# pass's LINE_ELEMS positions of each line a thread (by V), so panels of
+# THREADS LINE_ELEMS positions; the tile pass's strips of RT lines in
+# chunks of CT positions, its cross sums in panels of shared memory
+# (PANEL_BYTES); the finishing pass's FIN_LANES lanes of partial rows a
+# column, FIN_UNROLL loads at a time
+THREADS, RT, CT, FIN_LANES, FIN_UNROLL = 256, 16, 128, 32, 8
+LINE_ELEMS = {4: 16, 2: 8}
+NW = THREADS // 32
+PANEL_BYTES = 128 * 1024
+
+
+def _panel(n, V):
+    """The tile pass's panel where there are cross sums."""
+    return min(n, PANEL_BYTES // (16 // V))
+
+
+def _warp_sum(v):
+    """warp_sum's xor butterfly over 32 lanes: every lane ends with the
+    same value."""
+    v = np.asarray(v, dtype=float)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[np.arange(32) ^ off]
+    return v[0]
+
+
+def _block_sum(lacc):
+    """A line sum of a line pass CTA: each warp's butterfly, then the
+    warps in order."""
+    w = [_warp_sum(lacc[32 * i:32 * (i + 1)]) for i in range(len(lacc) // 32)]
+    t = w[0]
+    for x in w[1:]:
+        t += x
+    return t
+
+
+def _low(pro, lr, l, q):
+    """F's entry (line l, position q) lies in the lower triangle."""
+    return np.ones_like(q, dtype=bool) if pro else (q <= l if lr else q >= l)
+
+
+def _line_pass(Gb, Fb, s, n, pro, lr, V, grid, counts, threads=THREADS,
+               elems=None):
+    """k3_line_bwd_kernel on the storages Gb, Fb (each from a 16-byte
+    boundary, as the wrappers make them): every line starts on a
+    multiple of W = gcd(n, V) elements, thread t owns the W-element
+    accesses p0 + (j threads + t) W of each line in the panel at p0.
+    Returns (out's storage, lsum, sbar, part); counts["out"] and
+    counts["f"] count stores and F's loads. ``threads`` and ``elems``
+    (positions a thread a line) default to the kernel's."""
+    cross, line = pro or not lr, pro or lr
+    W = math.gcd(n, V)
+    J = (elems or LINE_ELEMS[V]) // W
+    panel = threads * J * W
+    out, lsum = np.full(n * n, np.nan), np.full(n, np.nan)
+    sbar, part = np.full(n, np.nan), np.full((grid, n), np.nan)
+    t = np.arange(threads)
+    for p0 in range(0, n, panel):
+        last = p0 + panel >= n
+        for b in range(grid):
+            cacc = np.zeros((J, W, threads))
+            for l in range(b, n, grid):
+                off, sl = l * n, s[l]
+                lacc = np.zeros(threads)
+                for j in range(J):
+                    q0 = p0 + (j * threads + t) * W
+                    ok = q0 < n  # W divides n: an access is in or out
+                    assert np.all((off + q0) % W == 0)
+                    got = ok & _low(pro, lr, l, q0 if lr else q0 + W - 1)
+                    for e in range(W):
+                        q = np.where(ok, q0 + e, 0)
+                        counts["f"][(off + q)[got]] += 1
+                        g = np.where(ok, Gb[off + q], 0.0)
+                        f = np.where(got & _low(pro, lr, l, q),
+                                     Fb[off + q], 0.0)
+                        pr = g * f
+                        if pro:
+                            o = (g * s[q]) * sl
+                            lacc += np.where(ok, pr * s[q], 0.0)
+                            cacc[j, e] += np.where(ok, pr * sl, 0.0)
+                        else:  # the reciprocal's product
+                            o = g * (1.0 / (sl if lr else s[q]))
+                            if lr:
+                                lacc += np.where(ok, pr, 0.0)
+                            else:
+                                cacc[j, e] += np.where(ok, pr, 0.0)
+                        out[(off + q)[ok]] = o[ok]
+                        counts["out"][(off + q)[ok]] += 1
+                if line:
+                    tot = _block_sum(lacc)
+                    if p0 > 0:
+                        tot = lsum[l] + tot
+                    if pro or not last:
+                        lsum[l] = tot
+                    else:
+                        sbar[l] = -tot / (sl * sl)
+            if cross:
+                for j in range(J):
+                    for e in range(W):
+                        q = p0 + (j * threads + t) * W + e
+                        part[b, q[q < n]] = cacc[j, e][q < n]
+    return out, lsum, sbar, part
+
+
+def _tile_pass(Sb, Xb, s, n, pro, lr, grid, panel, counts):
+    """k3_tile_bwd_kernel (PRO: S = A, X = M-bar; else S = O-bar, X =
+    L): (out's storage, lsum, sbar, part); counts["out"], counts["x"]."""
+    cross, line = pro or not lr, pro or lr
+    LPW, CPL, XPT = RT // NW, CT // 32, RT * CT // THREADS
+    out, lsum = np.full(n * n, np.nan), np.full(n, np.nan)
+    sbar, part = np.full(n, np.nan), np.full((grid, n), np.nan)
+    nstrips = -(-n // RT)
+    warp, lane = np.meshgrid(np.arange(NW), np.arange(32), indexing="ij")
+    for p0 in range(0, n, panel):
+        pend = min(n, p0 + panel)
+        for b in range(grid):
+            acc = np.zeros(pend - p0)
+            for st in range(b, nstrips, grid):
+                l0 = st * RT
+                lacc = np.zeros((LPW, NW, 32))
+                for q0 in range(p0, pend, CT):
+                    xneed = pro or (q0 <= l0 + RT - 1 if lr
+                                    else q0 + CT - 1 >= l0)
+                    xt = np.zeros((RT, CT))
+                    for u in range(XPT):
+                        idx = u * THREADS + np.arange(THREADS)
+                        q, l = q0 + idx // RT, l0 + idx % RT
+                        ok = xneed & (q < pend) & (l < n)
+                        counts["x"][(q * n + l)[ok]] += 1
+                        xt[idx % RT, idx // RT] = np.where(
+                            ok, Xb[np.where(ok, q * n + l, 0)], 0.0)
+                    csum = np.zeros((CPL, NW, 32))
+                    for c in range(CPL):
+                        q = q0 + lane + 32 * c
+                        sq = np.where(q < pend, s[np.minimum(q, n - 1)], 1.0)
+                        for r in range(LPW):
+                            l = l0 + warp + NW * r
+                            ok = (l < n) & (q < pend)
+                            idx = np.where(ok, l * n + q, 0)
+                            xv = xt[warp + NW * r, lane + 32 * c]
+                            sv = np.where(ok, Sb[idx], 0.0)
+                            sl = np.where(l < n, s[np.minimum(l, n - 1)], 1.0)
+                            if pro:
+                                o = (xv * sq) * sl
+                                pr = xv * sv
+                                lacc[r] += np.where(ok, pr * sq, 0.0)
+                                csum[c] += np.where(ok, pr * sl, 0.0)
+                            else:
+                                f = np.where(_low(pro, lr, l, q), xv, 0.0)
+                                o = sv / (sl if lr else sq)
+                                if lr:
+                                    lacc[r] += np.where(ok, sv * f, 0.0)
+                                else:
+                                    csum[c] += np.where(ok, sv * f, 0.0)
+                            out[idx[ok]] = o[ok]
+                            counts["out"][idx[ok]] += 1
+                    if cross:
+                        for c in range(CPL):
+                            for tq in range(32):
+                                q = q0 + tq + 32 * c
+                                if q < pend:
+                                    t = csum[c, 0, tq]
+                                    for i in range(1, NW):
+                                        t += csum[c, i, tq]
+                                    acc[q - p0] += t
+                if line:
+                    for r in range(LPW):
+                        for wi in range(NW):
+                            l = l0 + wi + NW * r
+                            if l >= n:
+                                continue
+                            tot = _warp_sum(lacc[r, wi])
+                            if pro:
+                                lsum[l] = tot if p0 == 0 else lsum[l] + tot
+                            else:
+                                sbar[l] = -tot / (s[l] * s[l])
+            if cross:
+                part[b, p0:pend] = acc
+    return out, lsum, sbar, part
+
+
+def _finish(part, nparts, n):
+    """k3_finish_kernel's cross sums: lane ty sums partial rows ty, ty +
+    FIN_LANES, ... in order (FIN_UNROLL loads at a time, zeros past the
+    last), then the lanes in order."""
+    lanes = []
+    for ty in range(FIN_LANES):
+        acc = np.zeros(n)
+        for b0 in range(ty, nparts, FIN_LANES * FIN_UNROLL):
+            for u in range(FIN_UNROLL):
+                b = b0 + u * FIN_LANES
+                acc += part[b] if b < nparts else 0.0
+        lanes.append(acc)
+    c = lanes[0]
+    for x in lanes[1:]:
+        c = c + x
+    return c
+
+
+def _mirror_bwd(pro, G, gcol, F, fcol, s, V, grid, panel=None,
+                sbar_in=None, threads=THREADS, elems=None):
+    """bwd_pass: the line pass when G and F are stored alike, else the
+    tile pass, then the finishing pass where there are cross sums. PRO:
+    A-bar (F = A, row-major); else (L-bar, s-bar). Also the stores per
+    entry of out and the loads per entry of F (its storage). ``panel``
+    sets the tile pass's, ``threads`` and ``elems`` the line pass's."""
+    n = G.shape[0]
+    lr = pro or not gcol
+    cross, same = pro or not lr, gcol == fcol
+    Gb, Fb = _storage(G, gcol), _storage(F, fcol)
+    counts = {"out": np.zeros(n * n, dtype=int),
+              "f": np.zeros(n * n, dtype=int)}
+    if not cross:  # one panel: s-bar's line sums close in it
+        panel = n
+    elif panel is None:
+        panel = _panel(n, V)
+    grid = min(grid, n if same else -(-n // RT))
+    if same:
+        out, lsum, sbar, part = _line_pass(Gb, Fb, s, n, pro, lr, V, grid,
+                                           counts, threads, elems)
+    else:
+        counts["x"] = counts["f"] if not pro else np.zeros(n * n, dtype=int)
+        out, lsum, sbar, part = _tile_pass(Fb if pro else Gb,
+                                           Gb if pro else Fb, s, n, pro, lr,
+                                           grid, panel, counts)
+    ocol = 0 if pro else gcol
+    if cross:
+        c = _finish(part, grid, n)
+        if pro:
+            sb = ((sbar_in if sbar_in is not None else 0.0) + lsum) + c
+            a = np.diag(F)
+            out[np.arange(n) * (n + 1)] += np.where(
+                np.abs(a) > 1e-30, (-0.5 * sb * (s * s * s)) * np.sign(a),
+                0.0)
+        else:
+            sbar = -c / (s * s)
+    o = _from_storage(out, ocol, n)
+    return (o if pro else (o, sbar)), counts
+
+
+def _descale_bwd_case(n, seed):
+    _, L = _spd_and_factor(n=n, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    return L, rng.uniform(0.5, 2.0, n), rng.standard_normal((n, n))
+
+
+@pytest.mark.parametrize("n", [129, 130, 131, 132])
 @pytest.mark.parametrize("ocol,lcol", [(0, 0), (0, 1), (1, 0), (1, 1)])
-def test_mirror_descale_bwd_matches_plain(ocol, lcol):
-    n = N_MIRROR
-    _, L = _spd_and_factor()
-    rng = np.random.RandomState(8)
-    s, Ob = rng.uniform(0.5, 2.0, n), rng.standard_normal((n, n))
-    out, rowpart, _ = _mirror_tile_bwd(_storage(Ob, ocol), ocol,
-                                       _storage(L, lcol), lcol, s, ocol,
-                                       False, n)
-    sbar = -rowpart.sum(0) / (s * s)  # the reduce kernel, tile by tile
-    wl, ws = k3.chol_descale_bwd_plain(torch.as_tensor(L),
-                                       torch.as_tensor(s), torch.as_tensor(Ob))
-    np.testing.assert_array_equal(_from_storage(out, ocol, n), wl.numpy())
-    np.testing.assert_allclose(sbar, ws.numpy(), rtol=1e-13, atol=0)
+def test_mirror_descale_bwd_matches_plain(ocol, lcol, n):
+    """n = 1, 2, 3, 0 mod 4 (rows off a 16-byte boundary), every storage
+    order: L-bar the plain version's to an ulp (the line pass multiplies
+    by 1 / s, the tile pass divides), each entry stored once; s-bar to rounding (the line sums in
+    lines, the cross sums through the CTAs' partials); L's lower
+    triangle read once, above it only inside a vector that straddles the
+    diagonal (the line pass) or a chunk that meets it (the tile
+    pass)."""
+    L, s, Ob = _descale_bwd_case(n, n)
+    wl, ws = k3.chol_descale_bwd_plain(torch.as_tensor(L), torch.as_tensor(s),
+                                       torch.as_tensor(Ob))
+    lower = np.tril(np.ones((n, n), dtype=bool))
+    for V in (4, 2):
+        (Lb, sb), counts = _mirror_bwd(False, Ob, ocol, L, lcol, s, V,
+                                       grid=2 * 132)
+        np.testing.assert_allclose(Lb, wl.numpy(), rtol=1e-15, atol=0)
+        np.testing.assert_allclose(sb, ws.numpy(), rtol=1e-13, atol=0)
+        assert np.all(counts["out"] == 1)
+        loads = _from_storage(counts["f"], lcol, n)
+        assert np.all(loads[lower] == 1) and np.all(loads[~lower] <= 1)
+        if ocol == lcol:  # straddling vectors only
+            assert np.all((loads & ~lower).sum(1 if lcol == 0 else 0)
+                          <= V - 1)
 
 
+@pytest.mark.parametrize("n", [129, 130, 131, 132])
 @pytest.mark.parametrize("mcol", [0, 1])
-def test_mirror_prologue_bwd_matches_plain(mcol):
-    n = N_MIRROR
-    A, _ = _spd_and_factor()
-    rng = np.random.RandomState(9)
+def test_mirror_prologue_bwd_matches_plain(mcol, n):
+    """Both storage orders of M-bar (the line pass, the tile pass) at n =
+    1, 2, 3, 0 mod 4, with and without the epilogue's s-bar: A-bar to
+    rounding, each entry stored once."""
+    A, _ = _spd_and_factor(n=n, seed=n + 2)
+    rng = np.random.RandomState(n)
     A += 0.1 * rng.standard_normal((n, n))  # not symmetric
     A[5, 5] = -A[5, 5]
     Mb, sb_in = rng.standard_normal((n, n)), rng.standard_normal(n)
     s = k3.chol_scale_plain(torch.as_tensor(A), True).numpy()
-    out, rowpart, colpart = _mirror_tile_bwd(
-        _storage(Mb, mcol), mcol, A.reshape(-1), 0, s, 0, True, n)
-    Abar = out.reshape(n, n)
-    sbar = sb_in + rowpart.sum(0) + colpart.sum(0)
-    a = np.diag(A)
-    Abar[np.diag_indices(n)] += np.where(
-        np.abs(a) > 1e-30, (-0.5 * sbar * s ** 3) * np.sign(a), 0.0)
-    want = k3.chol_prologue_bwd_plain(
-        torch.as_tensor(A), torch.as_tensor(s), torch.as_tensor(Mb),
-        torch.as_tensor(sb_in), 1e-3, True)
-    np.testing.assert_allclose(Abar, want.numpy(), rtol=1e-13,
-                               atol=1e-13 * np.abs(want.numpy()).max())
+    for V in (4, 2):
+        for sb in (None, sb_in):
+            want = k3.chol_prologue_bwd_plain(
+                torch.as_tensor(A), torch.as_tensor(s), torch.as_tensor(Mb),
+                None if sb is None else torch.as_tensor(sb), 1e-3,
+                True).numpy()
+            Ab, counts = _mirror_bwd(True, Mb, mcol, A, 0, s, V,
+                                     grid=2 * 132, sbar_in=sb)
+            np.testing.assert_allclose(Ab, want, rtol=1e-13,
+                                       atol=1e-13 * np.abs(want).max())
+            assert np.all(counts["out"] == 1)
+
+
+@pytest.mark.parametrize("kind", ["prologue", "epilogue rows",
+                                  "epilogue columns"])
+@pytest.mark.parametrize("same", [True, False])
+def test_mirror_backward_grid_and_panels(kind, same):
+    """Any grid (one CTA, a few, more than the lines) and panels split
+    the sums alike: the result agrees with the plain version to rounding
+    and is the same whatever the panel, for one grid."""
+    n = 131
+    pro = kind == "prologue"
+    if pro:
+        A, _ = _spd_and_factor(n=n, seed=3)
+        A[2, 9] += 0.5
+        rng = np.random.RandomState(4)
+        G, F = rng.standard_normal((n, n)), A
+        s = k3.chol_scale_plain(torch.as_tensor(A), True).numpy()
+        gcol, fcol = (0, 0) if same else (1, 0)
+        want = k3.chol_prologue_bwd_plain(
+            torch.as_tensor(A), torch.as_tensor(s), torch.as_tensor(G), None,
+            1e-3, True).numpy()
+    else:
+        F, s, G = _descale_bwd_case(n, 5)
+        gcol = 1 if kind == "epilogue columns" else 0
+        fcol = gcol if same else 1 - gcol
+        want = np.concatenate([t.numpy().ravel() for t in
+                               k3.chol_descale_bwd_plain(
+                                   torch.as_tensor(F), torch.as_tensor(s),
+                                   torch.as_tensor(G))])
+    for grid in (1, 3, 7, 300):
+        got = []
+        # panels: the tile pass's, or the line pass's with 32-thread
+        # CTAs and fewer positions a thread (64 positions a panel)
+        for panel, elems in ((None, None), (40, 2), (128, 4)):
+            r, counts = _mirror_bwd(pro, G, gcol, F, fcol, s, 2, grid,
+                                    panel=panel,
+                                    threads=THREADS if elems is None else 32,
+                                    elems=elems)
+            assert np.all(counts["out"] == 1)
+            got.append(r if pro else np.concatenate([x.ravel() for x in r]))
+            np.testing.assert_allclose(got[-1], want, rtol=1e-13,
+                                       atol=1e-13 * np.abs(want).max())
+        if not pro and gcol == 0 and not same:
+            # the tile pass's line sums: panels change nothing
+            assert all(np.array_equal(got[0], x) for x in got[1:])
+
+
+@pytest.mark.parametrize("V", [4, 2])
+@pytest.mark.parametrize("n", [129, 130, 131, 132, 3094, 4205, 10016])
+def test_line_pass_accesses_are_aligned_and_cover_each_line_once(n, V):
+    """The line pass's accesses at every site's n: W = gcd(n, V) elements
+    each, on a multiple of W from every line's start (so a 16-byte base
+    keeps them aligned: 16, 8 or one element's bytes), the same
+    positions of every line for a thread, and each position of a line
+    in exactly one access of one thread."""
+    W = math.gcd(n, V)
+    J = LINE_ELEMS[V] // W
+    panel = THREADS * J * W
+    cover = np.zeros(n, dtype=int)
+    for p0 in range(0, n, panel):
+        for j in range(J):
+            q0 = p0 + (j * THREADS + np.arange(THREADS)) * W
+            q0 = q0[q0 < n]
+            assert np.all(q0 % W == 0) and np.all(q0 + W <= n)
+            for e in range(W):
+                cover[q0 + e] += 1
+    assert np.all(cover == 1)
+    lines = np.arange(n, dtype=np.int64) * n
+    assert np.all(lines % W == 0)  # every line starts on a multiple of W
+    assert W * (16 // V) in (16, 8, 16 // V)
 
 
 # ---- the reduced synth copy (bench.py's VALIDATE["synth"]: every 30th

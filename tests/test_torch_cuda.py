@@ -799,6 +799,63 @@ def test_chol_jitter_kernels(dev, dtype, equilibrate, n):
             A, sd, Mb, sb, 1e-3, equilibrate))
 
 
+def _stored(X, col):
+    """X stored column-major (col) or row-major."""
+    return X.mT.contiguous().mT if col else X.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 31, 33, 64, 3094, 4205])
+def test_chol_jitter_backward_every_order(dev, dtype, n):
+    """K3a's and K3b's backward against their plain versions in every
+    storage order of their operands (the line pass where they are stored
+    alike, the tile pass otherwise), with and without the epilogue's
+    s-bar, also from a cotangent that starts off a 16-byte boundary; one
+    launch counted per call; relaunches bit-identical."""
+    A = _k3_matrix(n, dtype, dev, seed=n + 3)
+    L = torch.linalg.cholesky(A)
+    A[0, n - 1] += 0.01  # not symmetric
+    sd = chol_jitter.chol_scale_plain(A, True)
+    g = torch.Generator().manual_seed(n)
+    G = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+    buf = torch.empty(n * n + 1, dtype=dtype, device=dev)
+    G_off = buf[1:].view(n, n)
+    G_off.copy_(G)
+    sb_in = torch.randn(n, generator=g, dtype=dtype).to(dev)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for gcol in (False, True):
+        for fcol in (False, True):
+            Ob, Lf = _stored(G, gcol), _stored(L, fcol)
+            before = dict(chol_jitter.chol_descale_bwd.launches)
+            got = chol_jitter.chol_descale_bwd(Lf, sd, Ob)
+            before[sfx] += 1
+            assert chol_jitter.chol_descale_bwd.launches == before
+            assert got[0].mT.is_contiguous() == gcol or n == 1
+            for a, b in zip(got, chol_jitter.chol_descale_bwd_plain(
+                    Lf, sd, Ob)):
+                _close(a, b, dtype)
+            assert all(torch.equal(a, b) for a, b in zip(
+                got, chol_jitter.chol_descale_bwd(Lf, sd, Ob)))
+        Mb = _stored(G, gcol)
+        for sb in (None, sb_in):
+            before = dict(chol_jitter.chol_prologue_bwd.launches)
+            Ab = chol_jitter.chol_prologue_bwd(A, sd, Mb, sb, 1e-4, True)
+            before[sfx] += 1
+            assert chol_jitter.chol_prologue_bwd.launches == before
+            assert Ab.is_contiguous()
+            _close(Ab, chol_jitter.chol_prologue_bwd_plain(
+                A, sd, Mb, sb, 1e-4, True), dtype)
+            assert torch.equal(Ab, chol_jitter.chol_prologue_bwd(
+                A, sd, Mb, sb, 1e-4, True))
+    # off a 16-byte boundary: the wrappers copy the operand
+    got = chol_jitter.chol_descale_bwd(L, sd, G_off)
+    for a, b in zip(got, chol_jitter.chol_descale_bwd_plain(L, sd, G)):
+        _close(a, b, dtype)
+    Ab = chol_jitter.chol_prologue_bwd(A, sd, G_off, sb_in, 1e-4, True)
+    assert torch.equal(Ab, chol_jitter.chol_prologue_bwd(A, sd, G, sb_in,
+                                                         1e-4, True))
+
+
 def _lower_equal(a, b):
     """a is b's lower triangle with zeros above it."""
     return torch.equal(a, torch.tril(b))
