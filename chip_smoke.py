@@ -220,7 +220,11 @@ results also go to ``chiprun_out/chip_smoke.json``.
     python3 chip_smoke.py --k3-bwd-times [ROOT]
 
 times only K3a bwd and K3b bwd (:func:`k3_bwd_times`) of the package at
-ROOT, a parent's ``git archive`` say, and prints one JSON line.
+ROOT, a parent's ``git archive`` say, and prints one JSON line;
+
+    python3 chip_smoke.py --bwd-times [ROOT]
+
+does the same for K7 bwd and K1 bwd (:func:`bwd_times`).
 """
 
 import contextlib
@@ -409,6 +413,28 @@ def cuda_time(fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
+def queued_time(fn, reps=20, warm=3):
+    """Mean device ms per call over ``reps`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``, about 10 ms), so that the host has
+    enqueued them all before the first starts: CUDA events then time the
+    device's span of the calls, launches that overlap (a programmatic
+    dependent launch) counted once, the host's own time not at all."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _self_device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -535,7 +561,7 @@ LAYERS = (
      lambda k: "gram_apply_kernel" in k or "::cap_kernel<" in k),
     ("K5 triangular solves (hand, trsm.cu)",
      lambda k: "k5_trsm_" in k),
-    ("K7 backward", lambda k: "cross_kernel_bwd_kernel" in k),
+    ("K7 backward", lambda k: "::k7_bwd_" in k),
     ("K13", lambda k: k.startswith("lanczos_")),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
     ("K10", lambda k: "fourier_fwd_kernel" in k),
@@ -543,8 +569,7 @@ LAYERS = (
     ("K8 fft first rows (hand, kern_rows_fft.cu)",
      lambda k: "::rows_fft_kernel<" in k or "::rows_fft_bwd_kernel<" in k),
     ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
-    ("K1 backward", lambda k: "kuu_dense_bwd_kernel" in k
-     or "kuu_table_bwd_kernel" in k),
+    ("K1 backward", lambda k: "::kuu_bwd_" in k),
     ("K1", lambda k: "kuu_dense_kernel" in k),
     ("K7", lambda k: "cross_kernel_kernel" in k),
     ("K9 and K4 W applies (hand, interp.cu)",
@@ -1283,22 +1308,30 @@ def main():
 
     # K7 backward: the cotangents of B and [gamma, period, scale] from a
     # seeded (n, n) cotangent at the fx2007 shape (Q=1, D=13), float64
-    # (the exact oracle) and float32 (a float32 model's); then the mixed
-    # six-kernel table above, both dtypes
+    # (the exact oracle) and float32 (a float32 model's), one point set as
+    # the paths pass it (the pair path); then the mixed six-kernel table
+    # above (two point sets, unsorted outputs: the general path), both
+    # dtypes
     def k7_bwd_bound(args):
         """(bytes, operations) of K7's backward: every input read once,
-        dB and dprm written once; per element and kernel, 3 operations
-        per active input dim for the distance and about 18 for k~, its
-        two derivatives and the three accumulations."""
+        dB and dprm written once; per element and kernel (per unordered
+        pair where the two point sets are one: k~ is symmetric), 3
+        operations per active input dim for the distance and about 18
+        for k~, its two derivatives and the three accumulations."""
         B_, masks_, prm_, G_ = args[4], args[6], args[7], args[8]
-        flops_ = G_.numel() * sum(3.0 * bin(int(mk)).count("1") + 18.0
-                                  for mk in masks_.tolist())
+        na_ = G_.shape[0]
+        elems = (na_ * (na_ + 1) / 2.0 if args[0] is args[2]
+                 and args[1] is args[3] else float(G_.numel()))
+        flops_ = elems * sum(3.0 * bin(int(mk)).count("1") + 18.0
+                             for mk in masks_.tolist())
         return nbytes(*args) + nbytes(B_, prm_), flops_
 
     n_fx = model.X.shape[0]
     for dtype in (torch.float64, torch.float32):
-        bargs = tuple(t.to(dtype) if t.is_floating_point() else t
-                      for t in sargs) + (randn(n_fx, n_fx, dtype=dtype),)
+        xd = model.X.to(dtype)
+        bargs = (xd, model.oidx, xd, model.oidx) + tuple(
+            t.to(dtype) if t.is_floating_point() else t
+            for t in sargs[4:]) + (randn(n_fx, n_fx, dtype=dtype),)
         got = cross.cross_kernel_bwd(*bargs)
         want = cross.cross_kernel_bwd_plain(*bargs)
         again = cross.cross_kernel_bwd(*bargs)
@@ -1316,13 +1349,17 @@ def main():
                      else "float32 report"))
         margs_d = tuple(t.to(dtype) if t.is_floating_point() else t
                         for t in margs) + (randn(150, 400, dtype=dtype),)
-        err = errors(cross.cross_kernel_bwd(*margs_d),
-                     cross.cross_kernel_bwd_plain(*margs_d))[1]
+        got_m = cross.cross_kernel_bwd(*margs_d)
+        err = errors(got_m, cross.cross_kernel_bwd_plain(*margs_d))[1]
+        same_m = all(torch.equal(a, b) for a, b in
+                     zip(got_m, cross.cross_kernel_bwd(*margs_d)))
         print("kernel cross_kernel_bwd mixed table (6 kernels, 5 kinds, "
-              "P=2) %s: rel err %.3e" % (str(dtype).replace("torch.", ""),
-                                          err), flush=True)
+              "P=2, two point sets, unsorted outputs) %s: rel err %.3e, "
+              "relaunch bit-identical %s"
+              % (str(dtype).replace("torch.", ""), err, same_m), flush=True)
         require(err <= (1e-12 if dtype == torch.float64 else 1e-5),
                 "cross_kernel_bwd mixed table disagrees")
+        require(same_m, "cross_kernel_bwd mixed table relaunch differs")
         del bargs, got, want, again
 
     # K9 at the shapes of the predictive mean: W^T alpha for the training
@@ -3743,8 +3780,11 @@ def main():
         apart = cross.cross_kernel_bwd(*kin, torch.addr(Kinv, ao, ao,
                                                         alpha=-1.0))
         rank1_err = errors(fused, apart)[1]
+        rank1_same = all(torch.equal(a, b) for a, b in zip(
+            fused, cross.cross_kernel_bwd(*kin, Kinv, alpha=ao)))
+        require(rank1_same, "K7 bwd's rank-1 form relaunch differs")
         rank1 = {
-            "rel_err": rank1_err,
+            "rel_err": rank1_err, "bit_identical": rank1_same,
             "potri_ms": cuda_time(lambda: torch.cholesky_inverse(Lo), reps=3,
                                   warm=1),
             "fused_ms": cuda_time(lambda: cross.cross_kernel_bwd(
@@ -4613,7 +4653,101 @@ def k3_bwd_times(root):
     return 0
 
 
+# K7 bwd at the exact paths' shapes: (site, n, outputs, kernels, dtype,
+# with the rank-1 form); K1 bwd at the dense grids': (site, grid sizes,
+# outputs, kernels, dtype)
+K7_BWD_SHAPES = (("fx2007", 3113, 13, 1, "float64", False),
+                 ("fx2007", 3113, 13, 1, "float32", False),
+                 ("weather oracle", 15768, 4, 6, "float64", True))
+K1_BWD_SHAPES = (("fx2007", (238,), 13, 1, "float32"),
+                 ("fx2007", (238,), 13, 1, "float64"),
+                 ("synth", (29, 29), 5, 7, "float32"),
+                 ("synth", (29, 29), 5, 7, "float64"),
+                 ("weather twin", (2504,), 4, 6, "float32"))
+
+
+def bwd_times(root):
+    """``--bwd-times [ROOT]``: K7 bwd's and K1 bwd's times (profiler
+    device ms, CUDA events, and the events' device span with the calls
+    queued, :func:`queued_time`) in the package at ROOT (this checkout by
+    default) at ``K7_BWD_SHAPES`` and ``K1_BWD_SHAPES`` on seeded inputs
+    of the paths' shapes: one point set sorted by output (as the models
+    hold it) of RBF kernels on one input dim, a seeded asymmetric
+    cotangent; K7 bwd also in the rank-1 form (alpha in its loads, and
+    ``torch.addr`` first). One JSON line; to compare two checkouts on one
+    card, run it for each in one call, in turns."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from runlmc_tpu_torch.hopper import build, cross, kuu
+
+    build.build_all(["cross_kernel_bwd", "kuu_dense_bwd"])
+    dev = torch.device("cuda")
+    rows = []
+
+    def timed(fn, **row):
+        dms, krows, _ = device_profile(fn, reps=10)
+        row.update(device_ms=dms, ms=cuda_time(fn), queued_ms=queued_time(fn),
+                   by_kernel=[[k[:60], c / 10, ms / 10] for k, c, ms in krows])
+        rows.append(row)
+
+    for site, n, D, Q, dts, rank1 in K7_BWD_SHAPES:
+        dtype = getattr(torch, dts)
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+        f = dict(dtype=dtype, device=dev)
+        counts = np.diff(np.linspace(0, n, D + 1).astype(int))
+        o = torch.as_tensor(np.repeat(np.arange(D), counts),
+                            dtype=torch.int32, device=dev)
+        # each output's inputs sorted, as a model holds a time series
+        x = torch.rand(n, generator=g, **f) * 10.0
+        ends = np.cumsum(counts)
+        x = torch.cat([torch.sort(x[e - c:e])[0]
+                       for c, e in zip(counts, ends)])[:, None]
+        B = torch.randn(Q, D, D, generator=g, **f)
+        kinds = torch.zeros(Q, dtype=torch.int32, device=dev)
+        masks = torch.ones(Q, dtype=torch.int32, device=dev)
+        prm = torch.rand(Q, 3, generator=g, **f) + 0.5
+        G = torch.randn(n, n, generator=g, **f)
+        args = (x, o, x, o, B, kinds, masks, prm, G)
+        timed(lambda: cross.cross_kernel_bwd(*args), name="cross_kernel_bwd",
+              site=site, dtype=dts, form="G")
+        if rank1:
+            a = torch.randn(n, generator=g, **f)
+            timed(lambda: cross.cross_kernel_bwd(*args, alpha=a),
+                  name="cross_kernel_bwd", site=site, dtype=dts,
+                  form="rank-1")
+            timed(lambda: cross.cross_kernel_bwd(
+                *args[:8], torch.addr(G, a, a, alpha=-1.0)),
+                name="cross_kernel_bwd", site=site, dtype=dts,
+                form="torch.addr, then K7 bwd")
+        del args, G
+    for site, sizes, D, Q, dts in K1_BWD_SHAPES:
+        dtype = getattr(torch, dts)
+        m = int(np.prod(sizes))
+        g = torch.Generator(device=dev).manual_seed(SEED + m)
+        f = dict(dtype=dtype, device=dev)
+        axes = [np.arange(s) * 0.05 for s in sizes]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(m, -1)
+        dists = torch.as_tensor(np.linalg.norm(pts - pts[0], axis=-1), **f)
+        prm = torch.rand(Q, 3, generator=g, **f) + 0.5
+        B = torch.randn(Q, D, D, generator=g, **f)
+        G = torch.randn(D * m, D * m, generator=g, **f)
+        args = ((0,) * Q, prm, dists, B, sizes, G)
+        timed(lambda: kuu.kuu_dense_bwd(*args), name="kuu_dense_bwd",
+              site=site, dtype=dts, sizes=list(sizes), D=D, Q=Q)
+        del args, G
+    print(json.dumps({"bwd_times": rows, "root": os.path.abspath(root),
+                      "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-bwd-times"]:
         sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
+    if sys.argv[1:2] == ["--bwd-times"]:
+        sys.exit(bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

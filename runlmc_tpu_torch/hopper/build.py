@@ -96,15 +96,22 @@ def build_all(names=None):
     return todo
 
 
+_FNS = {}
+
+
 def function(name, symbol, argtypes):
     """The C entry point ``symbol`` of library ``name`` (built on first
-    use), with its argument types declared and an int return."""
-    if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(library_path(name))
-    fn = getattr(_LIBS[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    use), with its argument types declared and an int return; bound once
+    per symbol."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        if name not in _LIBS:
+            build_all([name])
+            _LIBS[name] = ctypes.CDLL(library_path(name))
+        fn = getattr(_LIBS[name], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
     return fn
 
 
@@ -152,6 +159,18 @@ def device_work(key, dev, make):
     if key not in _WORK:
         _WORK[key] = torch.as_tensor(make(), device=dev)
     return _WORK[key]
+
+
+_TICKETS = {}
+
+
+def ticket(name, dev):
+    """Kernel ``name``'s last-CTA counter on ``dev``: one int32, zero
+    between launches (the CTA that finishes a launch resets it)."""
+    key = (name, dev)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def counter():

@@ -17,18 +17,24 @@ tensors.
 K7 backward (``csrc/cross_kernel_bwd.cu``) replaces XLA's autodiff of
 the same lines inside ``jax.grad`` of ``exact_mll``: from the cotangent
 G (na, nb) it recomputes each element's k~_q(r) and its derivatives in
-gamma and period, and reduces them into per-row partial tables over the
-column's output; a one-hot product sums the rows of each output into
-S0, S1, S2 (Q, D, D), and four small products give the cotangents of
-``B`` and ``prm`` (see :func:`cross_kernel_bwd`). Like the JAX package,
-it differentiates the parameters only, not the inputs.
-:class:`CrossKernel` joins forward and backward as one autograd
-function; :func:`cross_kernel_bwd_plain` (autograd of the plain
-forward) is what the backward wrapper runs for CPU tensors.
+gamma and period and sums them per pair of outputs (d, e) into S0, S1,
+S2 (Q, D, D); a finishing pass sums the tile pairs' partials in a fixed
+order and does the four small products that give the cotangents of
+``B`` and ``prm`` (see :func:`cross_kernel_bwd`). Rows and columns are
+cut into tiles that never straddle two outputs (:func:`bwd_plan`, a
+host plan cached per output counts and device; the index tensor's
+order is read once per tensor, :func:`output_order`). Where both point
+sets are one, each unordered pair is evaluated once for G[a, b] and
+G[b, a]. Like the JAX package, it differentiates the parameters only,
+not the inputs. :class:`CrossKernel` joins forward and backward as one
+autograd function; :func:`cross_kernel_bwd_plain` (autograd of the
+plain forward) is what the backward wrapper runs for CPU tensors.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from runlmc_tpu_torch.hopper import build
@@ -100,9 +106,11 @@ def cross_kernel(xa, oa, xb, ob, B, kinds, masks, prm):
 cross_kernel.launches = build.counter()
 
 
-# the kernel keeps 3 * _MAX_Q accumulators per lane (kMaxQ in
-# csrc/cross_kernel_bwd.cu); more kernels run as several launches
+# kernels per tile launch (kMaxQ in csrc/cross_kernel_bwd.cu); more run
+# as further launches over slices of q
 _MAX_Q = 8
+# points per tile of the backward's plan (kTile in the CUDA source)
+TILE = 64
 
 
 def cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G,
@@ -119,12 +127,107 @@ def cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G,
         return torch.autograd.grad(K, (b, p), G)
 
 
+def output_tiles(counts, tile=TILE):
+    """(ntiles, 3) int32 rows ``(start, length, output)``: each output's
+    run of a sorted index vector with ``counts[d]`` entries of output d,
+    cut into tiles of at most ``tile`` points (no tile spans two
+    outputs)."""
+    rows, start = [], 0
+    for d, c in enumerate(counts):
+        rows += [(start + s, min(tile, c - s), d) for s in range(0, c, tile)]
+        start += c
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_plan(counts_a, counts_b, pair, tile=TILE):
+    """K7 backward's host plan for rows and columns sorted by output
+    (``counts_a`` / ``counts_b`` entries per output): ``(ta, tb, pairs,
+    ptr, idx)``. ``ta`` / ``tb`` are the :func:`output_tiles`; ``pairs``
+    (npairs, 2) the tile pairs (I, J) that run, I >= J when ``pair`` (one
+    point set: tile pair (I, J) also takes G[J, I]), every pair
+    otherwise. Partial slot 2p is G[I, J]'s, summed into
+    (out I, out J); slot 2p + 1 (pair only) is G[J, I]'s, summed into
+    (out J, out I). ``ptr`` (D * D + 1) and ``idx`` list each
+    (d, e)'s slots, ascending: the finishing pass's order."""
+    D = len(counts_a)
+    ta = output_tiles(counts_a, tile)
+    tb = ta if pair else output_tiles(counts_b, tile)
+    nta, ntb = len(ta), len(tb)
+    I, J = np.meshgrid(np.arange(nta), np.arange(ntb), indexing="ij")
+    keep = (I >= J) if pair else np.ones(I.shape, dtype=bool)
+    pairs = np.stack([I[keep], J[keep]], axis=1).astype(np.int32)
+    np_ = len(pairs)
+    slot = 2 * np.arange(np_)
+    de = ta[pairs[:, 0], 2] * D + tb[pairs[:, 1], 2]
+    if pair:
+        slot = np.concatenate([slot, slot + 1])
+        de = np.concatenate([de, tb[pairs[:, 1], 2] * D
+                             + ta[pairs[:, 0], 2]])
+    order = np.lexsort((slot, de))
+    ptr = np.searchsorted(de[order], np.arange(D * D + 1)).astype(np.int32)
+    return ta, tb, pairs, ptr, slot[order].astype(np.int32)
+
+
+_PLANS = {}
+
+
+def _device_plan(counts_a, counts_b, pair, dev):
+    """:func:`bwd_plan` packed as the kernel reads it (int32 [ta | tb |
+    pairs | ptr | idx]) on ``dev``, with (nta, ntb, npairs); made once
+    per (counts, path, device)."""
+    key = (counts_a, counts_b, pair, dev)
+    if key not in _PLANS:
+        ta, tb, pairs, ptr, idx = bwd_plan(counts_a, counts_b, pair)
+        flat = np.concatenate([a.reshape(-1) for a in
+                               (ta, tb, pairs, ptr, idx)])
+        _PLANS[key] = (torch.as_tensor(flat, device=dev), len(ta), len(tb),
+                       len(pairs))
+    return _PLANS[key]
+
+
+def output_order(o, D):
+    """``(perm, counts)`` of an int32 output-index tensor: a stable sort
+    by output (None where ``o`` is sorted already) and the entries per
+    output. Read from the device once per tensor: the result is kept on
+    the tensor itself, with its version, so later calls (the model keeps
+    one index tensor) do not synchronize."""
+    key = (o._version, D, o.shape, o.device)
+    hit = getattr(o, "_runlmc_output_order", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    host = o.detach().cpu().numpy().astype(np.int64)
+    if host.size and (host.min() < 0 or host.max() >= D):
+        raise ValueError("cross_kernel_bwd: output indices outside [0, %d)"
+                         % D)
+    counts = tuple(int(c) for c in np.bincount(host, minlength=D))
+    perm = None
+    if np.any(host[1:] < host[:-1]):
+        perm = torch.as_tensor(np.argsort(host, kind="stable"),
+                               device=o.device)
+    o._runlmc_output_order = (key, (perm, counts))
+    return o._runlmc_output_order[1]
+
+
+def _same(t, u):
+    """True where ``t`` and ``u`` are one tensor (or views of the same
+    elements)."""
+    return t is u or (t.data_ptr() == u.data_ptr() and t.shape == u.shape
+                      and t.stride() == u.stride() and t.dtype == u.dtype
+                      and t.device == u.device)
+
+
 def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G, alpha=None):
     """``(d B (Q, D, D), d prm (Q, 3))`` from the cotangent ``G``
-    (na, nb) of :func:`cross_kernel`'s output; the CUDA kernel computes
-    the per-row partial tables for CUDA tensors. With ``alpha`` (na,)
-    (and na = nb) the cotangent is G - alpha alpha^T, formed in the
-    kernel's loads."""
+    (na, nb) of :func:`cross_kernel`'s output; the CUDA kernels for CUDA
+    tensors. With ``alpha`` (na,) (and na = nb) the cotangent is
+    G - alpha alpha^T, formed in the kernel's loads.
+
+    Where the two point sets are one (``xa``, ``oa`` the same tensors as
+    ``xb``, ``ob``: every call on the model's paths) the pair path runs,
+    evaluating the kernels once per unordered pair; inputs not sorted by
+    output are sorted first (a gather of G); distinct point sets take the
+    general path (and ``alpha`` there by ``torch.addr`` first)."""
     if build.use_plain("cross_kernel_bwd", G):
         return cross_kernel_bwd_plain(xa, oa, xb, ob, B, kinds, masks, prm, G,
                                       alpha)
@@ -146,43 +249,62 @@ def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G, alpha=None):
     if not (oa.dtype == ob.dtype == kinds.dtype == masks.dtype
             == torch.int32):
         raise ValueError("cross_kernel_bwd: index tensors must be int32")
-    G, xa, oa, xb, ob, B, kinds, masks, prm = (
-        t.contiguous() for t in (G, xa, oa, xb, ob, B, kinds, masks, prm))
+    pair = _same(xa, xb) and _same(oa, ob)
+    xa, oa, xb, ob, B, kinds, masks, prm = (
+        t.contiguous() for t in (xa, oa, xb, ob, B, kinds, masks, prm))
     if alpha is not None:
         alpha = alpha.contiguous()
-    build.require_cuda("cross_kernel_bwd", G, xa, oa, xb, ob, B, kinds,
-                       masks, prm, *([] if alpha is None else [alpha]))
-    # the columns in a stable order by output, and each output's segment
-    perm = torch.argsort(ob, stable=True).to(torch.int32)
-    seg = torch.zeros(D + 1, dtype=torch.int32, device=G.device)
-    seg[1:] = torch.cumsum(torch.bincount(ob.long(), minlength=D)[:D], 0)
-    part = torch.empty((na, D, Q, 3), dtype=G.dtype, device=G.device)
+    build.require_cuda("cross_kernel_bwd", xa, oa, xb, ob, B, kinds, masks,
+                       prm, *([] if alpha is None else [alpha]))
+    perm_a, counts_a = output_order(oa, D)
+    perm_b, counts_b = (perm_a, counts_a) if pair else output_order(ob, D)
+    # the pair path reads G[a, b] and G[b, a] alike, so a column-major G
+    # (the oracle's K^-1 from cholesky_inverse) is read as the row-major
+    # G^T with the two swapped, not copied
+    gt = int(pair and perm_a is None and G.dim() == 2 and na > 1
+             and not G.is_contiguous() and G.t().is_contiguous())
+    G = G.t() if gt else G.contiguous()
+    build.require_cuda("cross_kernel_bwd", G)
+    if alpha is not None and not pair:
+        G, alpha = torch.addr(G, alpha, alpha, alpha=-1.0), None
+    if perm_a is not None:
+        xa, G = xa[perm_a], G[perm_a]
+        alpha = None if alpha is None else alpha[perm_a]
+    if perm_b is not None:
+        xb, G = xb[perm_b], G[:, perm_b].contiguous()
+    if pair:
+        xb = xa
+    if not (na and nb and Q):
+        return (torch.zeros((Q, D, D), dtype=G.dtype, device=G.device),
+                torch.zeros((Q, 3), dtype=G.dtype, device=G.device))
+    plan, nta, ntb, npairs = _device_plan(counts_a, counts_b, pair,
+                                          G.device)
+    # the tile pairs' partial slots, then S (Q, 3, D, D)
+    work = torch.empty(npairs * 2 * Q * 3 + Q * 3 * D * D, dtype=G.dtype,
+                       device=G.device)
+    dB = torch.empty((Q, D, D), dtype=G.dtype, device=G.device)
+    dprm = torch.empty((Q, 3), dtype=G.dtype, device=G.device)
     sfx = build.suffix("cross_kernel_bwd", G.dtype)
     fn = build.function(
         "cross_kernel_bwd", "cross_kernel_bwd_" + sfx,
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        + [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
-    if na and Q:
-        for q0 in range(0, Q, _MAX_Q):
-            build.check(fn(
-                build.ptr(G), build.ptr(xa), build.ptr(xb), build.ptr(perm),
-                build.ptr(seg), build.ptr(kinds), build.ptr(masks),
-                build.ptr(prm),
-                ctypes.c_void_p(None if alpha is None else alpha.data_ptr()),
-                build.ptr(part), na, nb, P, Q, D, q0,
-                min(_MAX_Q, Q - q0), build.stream_ptr(),
-            ), "cross_kernel_bwd")
-            cross_kernel_bwd.launches[sfx] += 1
-    else:
-        part.zero_()
-    onehot = torch.nn.functional.one_hot(oa.long(), D).to(G.dtype)
-    S = torch.einsum("ad,aeqk->qkde", onehot, part)  # (Q, 3, D, D)
-    scale = prm[:, 2]
-    dB = scale[:, None, None] * S[:, 0]
-    dscale = torch.sum(B * S[:, 0], dim=(1, 2))
-    dgamma = scale * torch.sum(B * S[:, 1], dim=(1, 2))
-    dperiod = scale * torch.sum(B * S[:, 2], dim=(1, 2))
-    return dB, torch.stack([dgamma, dperiod, dscale], dim=1)
+    # pointers as plain ints (ctypes converts them by argtypes): the
+    # wrapper's host time is the call's floor at the fx2007 shape
+    build.check(fn(
+        G.data_ptr(), xa.data_ptr(), xb.data_ptr(),
+        None if alpha is None else alpha.data_ptr(), kinds.data_ptr(),
+        masks.data_ptr(), prm.data_ptr(), B.data_ptr(), plan.data_ptr(),
+        nta, ntb, npairs, int(pair), gt, work.data_ptr(),
+        work.data_ptr() + npairs * 2 * Q * 3 * work.element_size(),
+        build.ticket("cross_kernel_bwd", G.device).data_ptr(),
+        dB.data_ptr(), dprm.data_ptr(), nb, P, Q, D,
+        torch.cuda.current_stream(G.device).cuda_stream,
+    ), "cross_kernel_bwd")
+    # one count per tile launch (a slice of at most _MAX_Q kernels)
+    cross_kernel_bwd.launches[sfx] += -(-Q // _MAX_Q)
+    return dB, dprm
 
 
 cross_kernel_bwd.launches = build.counter()

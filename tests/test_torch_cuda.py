@@ -172,6 +172,28 @@ def test_kuu_dense_bwd(dev, dtype, sizes):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes,D", [((1,), 1), ((1,), 3), ((33,), 1),
+                                     ((65,), 2), ((2, 1, 3), 2),
+                                     ((5, 33), 1), ((3, 2, 40), 2),
+                                     ((40, 1), 2)])
+def test_kuu_dense_bwd_tile_edges(dev, dtype, sizes, D):
+    """K1's backward where the grid's innermost axis is not a multiple of
+    the 32-point tile (ragged last tiles), a single point, one output,
+    and a middle or trailing axis of size 1; relaunched to the bit."""
+    m = int(np.prod(sizes))
+    kinds, prm, dists = _kuu_table(5, m, dtype, dev, 6)
+    g = torch.Generator().manual_seed(6)
+    B = torch.randn(5, D, D, generator=g, dtype=dtype).to(dev)
+    G = torch.randn(D * m, D * m, generator=g, dtype=dtype).to(dev)
+    args = (kinds, prm, dists, B, sizes, G)
+    got = kuu.kuu_dense_bwd(*args)
+    for a, b in zip(got, kuu.kuu_dense_bwd_plain(*args)):
+        _close(a, b, dtype)
+    for a, b in zip(got, kuu.kuu_dense_bwd(*args)):
+        assert torch.equal(a, b)
+
+
 def test_training_chunk_matches_cpu(dev):
     """Two exact-objective steps at the model dtype on the card and on
     the CPU from the same parameters; the float64 forward and backward
@@ -430,6 +452,106 @@ def test_cross_kernel_bwd_many_kernels(dev):
     got = cross.cross_kernel_bwd(*args)
     assert cross.cross_kernel_bwd.launches["f64"] == before + 2
     for a, b in zip(got, cross.cross_kernel_bwd_plain(*args)):
+        _close(a, b, torch.float64)
+
+
+def _sorted_table(dtype, dev, counts, seed=8):
+    """The mixed six-kernel table of :func:`_mixed_table` on one point set
+    sorted by output, ``counts`` points per output (runs that start and
+    end inside the 64-point tiles, an empty output), a seeded asymmetric
+    cotangent and alpha."""
+    args = _mixed_table(dtype, dev, seed=seed, na=sum(counts),
+                        nb=sum(counts))
+    n = sum(counts)
+    o = torch.as_tensor(np.repeat(np.arange(len(counts)), counts),
+                        dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, 2, generator=g, dtype=dtype).to(dev)
+    x[5] = x[70]  # a pair at r = 0 off the diagonal
+    G = torch.randn(n, n, generator=g, dtype=dtype).to(dev)
+    alpha = torch.randn(n, generator=g, dtype=dtype).to(dev)
+    B = torch.randn(args[4].shape[0], len(counts), len(counts),
+                    generator=g, dtype=dtype).to(dev)
+    return x, o, B, args[5:8], G, alpha
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_alpha", [False, True])
+def test_cross_kernel_bwd_pair_path_matches_general_path(dev, dtype,
+                                                         with_alpha):
+    """K7's backward on one point set (the pair path: each unordered pair
+    once) against the same inputs as two point sets (the general path)
+    and the plain version; outputs whose runs span tile edges; alpha
+    formed in the loads (pair) or by torch.addr first (general)."""
+    x, o, B, table, G, alpha = _sorted_table(dtype, dev, (3, 70, 0, 77))
+    kw = {"alpha": alpha} if with_alpha else {}
+    pair = cross.cross_kernel_bwd(x, o, x, o, B, *table, G, **kw)
+    general = cross.cross_kernel_bwd(x, o, x.clone(), o.clone(), B, *table,
+                                     G, **kw)
+    want = cross.cross_kernel_bwd_plain(x, o, x, o, B, *table, G, **kw)
+    again = cross.cross_kernel_bwd(x, o, x, o, B, *table, G, **kw)
+    for a, b, c, w in zip(pair, general, again, want):
+        _close(a, w, dtype)
+        _close(b, w, dtype)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_kernel_bwd_unsorted_outputs_pair_path(dev, dtype):
+    """One point set whose outputs are not sorted (the wrapper sorts it
+    first, a gather of G) and whose runs span tile edges, with alpha."""
+    x, o, B, table, G, alpha = _sorted_table(dtype, dev, (30, 90, 40, 1))
+    p = torch.randperm(len(o), generator=torch.Generator().manual_seed(3))
+    o, x = o[p.to(dev)].contiguous(), x[p.to(dev)].contiguous()
+    got = cross.cross_kernel_bwd(x, o, x, o, B, *table, G, alpha=alpha)
+    want = cross.cross_kernel_bwd_plain(x, o, x, o, B, *table, G,
+                                        alpha=alpha)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_kernel_bwd_column_major_cotangent(dev, dtype):
+    """A column-major cotangent on the pair path (the oracle hands over
+    K^-1 from cholesky_inverse so) is read in place as G^T, G[a, b] and
+    G[b, a] swapped: bit-identical to its row-major copy, with and
+    without alpha, and to the plain version within tolerance."""
+    x, o, B, table, G, alpha = _sorted_table(dtype, dev, (3, 70, 0, 77))
+    Gc = G.t().contiguous().t()
+    assert not Gc.is_contiguous() and torch.equal(Gc, G)
+    for kw in ({}, {"alpha": alpha}):
+        got = cross.cross_kernel_bwd(x, o, x, o, B, *table, Gc, **kw)
+        row = cross.cross_kernel_bwd(x, o, x, o, B, *table, G, **kw)
+        want = cross.cross_kernel_bwd_plain(x, o, x, o, B, *table, G, **kw)
+        for a, b, w in zip(got, row, want):
+            assert torch.equal(a, b)
+            _close(a, w, dtype)
+
+
+@pytest.mark.parametrize("Q", [9, 17])
+def test_cross_kernel_bwd_many_kernels_pair_path_alpha(dev, Q):
+    """More kernels than one launch takes, on the pair path with alpha
+    and two input dims (one kernel in three on the first dim only):
+    ceil(Q / 8) tile launches."""
+    kerns = [T.RBF(name="k%d" % i, inv_lengthscale=0.5 + 0.1 * i,
+                   active_dims=(0,) if i % 3 == 0 else None)
+             for i in range(Q)]
+    spec = T.LMCKernelSpec.create(D=3, lmc_kernels=kerns,
+                                  lmc_ranks=[1] * Q).with_input_dim(2)
+    p = from_reference_params(spec.init_raw_params(seed=2), torch.float64,
+                              dev)
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(130, 2, generator=g, dtype=torch.float64).to(dev)
+    o = torch.as_tensor(np.repeat(np.arange(3), [50, 65, 15]),
+                        dtype=torch.int32, device=dev)
+    G = torch.randn(130, 130, generator=g, dtype=torch.float64).to(dev)
+    alpha = torch.randn(130, generator=g, dtype=torch.float64).to(dev)
+    args = (x, o, x, o, spec.coreg_mats(p).detach()) + \
+        spec.kernel_table(p) + (G,)
+    before = cross.cross_kernel_bwd.launches["f64"]
+    got = cross.cross_kernel_bwd(*args, alpha=alpha)
+    assert cross.cross_kernel_bwd.launches["f64"] == before + -(-Q // 8)
+    for a, b in zip(got, cross.cross_kernel_bwd_plain(*args, alpha=alpha)):
         _close(a, b, torch.float64)
 
 

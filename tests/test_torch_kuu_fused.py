@@ -5,9 +5,9 @@ package's ``build_group_state`` in float64 — K_UU and the gradient of
 <G, K_UU> with respect to the raw parameters — for every kernel kind,
 Scaled (trainable and frozen), split active dims, and 1-D and 2-D grids;
 and numpy mirrors of the forward kernel's tile walk (csrc/kuu_dense.cu)
-and of the backward kernel's reduction over offsets (csrc/kuu_dense_bwd.cu,
-stage 2: the derivative formulas of common.cuh ``kern_grads``) against
-the plain versions."""
+and of the backward kernel's tile walk and fused second pass
+(csrc/kuu_dense_bwd.cu, tests/torch_bwd_mirrors.py: the derivative
+formulas of common.cuh ``kern_grads``) against the plain versions."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +25,7 @@ from runlmc_tpu_torch.utils.carry import (
     cast_params,
     from_reference_params,
 )
+from tests import torch_bwd_mirrors as mirrors
 
 # the same products and sums, in another order: float64 rounding
 RTOL = 1e-12
@@ -166,44 +167,14 @@ def _kern_grads_np(kind, r, gamma, period):
     return (r == 0).astype(float), z, z
 
 
-def _stage2_mirror(kinds, prm, dists, B, H, threads=256):
-    """d prm and d B as the backward's stage 2 forms them: per (q, d, e)
-    the sums S of H against k~, dk~/dgamma and dk~/dperiod (per-thread
-    strided partials over the offsets, then a halving tree), then per q
-    the sums over (d, e) in order."""
-    Q, D = B.shape[0], B.shape[1]
-    m = len(dists)
-
-    def reduce(vals):
-        part = np.zeros(threads)
-        for o in range(m):
-            part[o % threads] += vals[o]
-        s = threads // 2
-        while s:
-            part[:s] += part[s:2 * s]
-            s //= 2
-        return part[0]
-
-    dprm = np.zeros((Q, 3))
-    dB = np.zeros((Q, D, D))
-    for q, kind in enumerate(kinds):
-        g, p, sc = prm[q]
-        kg = _kern_grads_np(kind, dists, g, p)
-        acc = np.zeros(3)
-        for d in range(D):
-            for e in range(D):
-                S = [reduce(H[d, e] * f) for f in kg]
-                dB[q, d, e] = sc * S[0]
-                acc += B[q, d, e] * np.asarray(S)
-        dprm[q] = (sc * acc[1], sc * acc[2], acc[0])
-    return dprm, dB
-
-
-@pytest.mark.parametrize("sizes", [(300,), (7, 6)])
+@pytest.mark.parametrize("sizes", [(300,), (7, 6), (1,), (33,)])
 def test_backward_reduction_mirror_matches_autograd(sizes):
-    """The backward kernel's stage 2 (derivatives at r = 0 included: the
-    first offset is 0) mirrored in numpy, from the offset sums H, gives
-    the plain backward's (d prm, d B) for a table of every kind."""
+    """The backward kernel's fused second pass (derivatives at r = 0
+    included: the first offset is 0) mirrored in numpy
+    (tests/torch_bwd_mirrors.py): the tile walk's slots summed per offset
+    through the plan, the per-CTA sums over offsets, the CTAs' sums in
+    order and the warp sums per q give the plain backward's (d prm, d B)
+    for a table of every kind."""
     m = int(np.prod(sizes))
     D = 2
     rng = np.random.RandomState(5)
@@ -214,13 +185,9 @@ def test_backward_reduction_mirror_matches_autograd(sizes):
     dists = np.linalg.norm(grid - grid[0], axis=-1)
     B = rng.standard_normal((len(kinds), D, D))
     G = rng.standard_normal((D * m, D * m))
-    idx = np.asarray(tgrid.bttb.bttb_index_map(sizes))
-    H = np.zeros((D, D, m))
-    for d in range(D):
-        for e in range(D):
-            np.add.at(H[d, e], idx.reshape(-1),
-                      G[d * m:(d + 1) * m, e * m:(e + 1) * m].reshape(-1))
-    got = _stage2_mirror(kinds, prm, dists, B, H)
+    H = mirrors.kuu_offset_sums(mirrors.kuu_tile_walk(G, D, m, sizes), D,
+                                m, sizes)
+    got = mirrors.kuu_reduce(kinds, prm, dists, B, H)
     want = kuu.kuu_dense_bwd(kinds, torch.as_tensor(prm),
                              torch.as_tensor(dists), torch.as_tensor(B),
                              sizes, torch.as_tensor(G))

@@ -1,7 +1,8 @@
 """Kernel K1's backward (K8 fused in): the plain version and the autograd
 function against JAX's autodiff of its dense ``build_group_state``, and
-a line-by-line numpy mirror of the CUDA kernel's walk over offsets (the
-kernel itself runs only on the card: tests/test_torch_cuda.py)."""
+a numpy mirror of the CUDA kernel's tile walk over its host plan
+(tests/torch_bwd_mirrors.py; the kernel itself runs only on the card:
+tests/test_torch_cuda.py), and the plan's coverage and caching."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ from runlmc_tpu_torch.kernels.stationary import eval_table
 from runlmc_tpu_torch.lmc import grid as tgrid
 from runlmc_tpu_torch.utils.carry import _leaves, from_reference_params
 from runlmc_tpu_torch.utils.np_utils import cartesian_product
+from tests import torch_bwd_mirrors as mirrors
 
 # the same products and sums in another order: float64 rounding
 RTOL = 1e-12
@@ -161,57 +163,23 @@ def test_plain_backward_matches_jax_vjp_of_gather_einsum(grid, Q, D):
                                    atol=RTOL * np.abs(want).max())
 
 
-def _kernel_mirror(G, D, m, sizes, o_tile=32, slices=8):
-    """H (D, D, m) by the CUDA kernel's own walk (csrc/kuu_dense_bwd.cu):
-    per (d, e, o), every sign pattern in order, a0 sliced as the
-    kernel's threadIdx.y slices, partial sums added in slice order."""
-    n0, n1, n2 = kuu._sizes3(sizes)
-    dm = D * m
-    H = np.zeros((D, D, m))
-    flat = G.reshape(-1)
-    for d in range(D):
-        for e in range(D):
-            base = d * m * dm + e * m
-            for o in range(m):
-                dl0, dl1, dl2 = o // (n1 * n2), (o // n2) % n1, o % n2
-                len0, len1, len2 = n0 - dl0, n1 - dl1, n2 - dl2
-                chunk = (len0 + slices - 1) // slices
-                parts = []
-                for y in range(slices):
-                    acc = 0.0
-                    lo, hi = y * chunk, min(len0, y * chunk + chunk)
-                    for pat in range(8):
-                        f = [(pat >> p) & 1 for p in range(3)]
-                        if ((f[0] and dl0 == 0) or (f[1] and dl1 == 0)
-                                or (f[2] and dl2 == 0)):
-                            continue
-                        si = [dl if fp else 0
-                              for dl, fp in zip((dl0, dl1, dl2), f)]
-                        sj = [0 if fp else dl
-                              for dl, fp in zip((dl0, dl1, dl2), f)]
-                        for a0 in range(lo, hi):
-                            for a1 in range(len1):
-                                i = ((a0 + si[0]) * n1 + a1 + si[1]) * n2 \
-                                    + si[2]
-                                j = ((a0 + sj[0]) * n1 + a1 + sj[1]) * n2 \
-                                    + sj[2]
-                                p = base + i * dm + j
-                                for a2 in range(len2):
-                                    acc += flat[p + a2 * (dm + 1)]
-                    parts.append(acc)
-                H[d, e, o] = sum(parts)
-    return H
+KUU_SIZES = [(11,), (4, 5), (3, 4, 2), (2, 1, 3), (40,), (3, 35), (1,),
+             (5, 1), (2, 3, 33)]
 
 
-@pytest.mark.parametrize("sizes", [(11,), (4, 5), (3, 4, 2), (2, 1, 3)])
+@pytest.mark.parametrize("sizes", KUU_SIZES)
 def test_kernel_walk_visits_every_pair_once(sizes):
-    """The CUDA kernel's offset decoding and sign patterns, mirrored in
-    numpy, give the plain version's offset sums H on 1-, 2- and 3-D
-    grids: a missed or doubled sign pattern would show here."""
+    """The CUDA kernel's tile walk (csrc/kuu_dense_bwd.cu stage 1: band
+    items of the host plan, lane k on the tile diagonals k and k - T) and
+    the plan's slots per offset, mirrored in numpy, give the plain
+    version's offset sums H on 1-, 2- and 3-D grids, with ragged tiles
+    (sizes not a multiple of 32), one point and axes of size 1: a missed
+    or doubled element would show here."""
     D = 2
     m = int(np.prod(sizes))
     G = _asym(D * m, 5)
-    H = _kernel_mirror(G, D, m, sizes)
+    Hs = [mirrors.kuu_offset_sums(mirrors.kuu_tile_walk(G, D, m, sizes, b),
+                                  D, m, sizes, b) for b in kuu.BANDS]
     # H from np.add.at through the index map, and the plain backward's
     # d B = sum_o tops[o] H[d, e, o] on one RBF row
     idx = j_index_map(sizes)
@@ -229,8 +197,63 @@ def test_kernel_walk_visits_every_pair_once(sizes):
                       torch.as_tensor(dists)).numpy()[0]
     np.testing.assert_allclose(dB.numpy()[0], want @ tops, rtol=RTOL,
                                atol=RTOL * np.abs(want @ tops).max())
-    np.testing.assert_allclose(H, want, rtol=RTOL,
-                               atol=RTOL * np.abs(want).max())
+    for H in Hs:  # every band length the plan takes
+        np.testing.assert_allclose(H, want, rtol=RTOL,
+                                   atol=RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("sizes", KUU_SIZES + [(29, 29), (238,)])
+def test_bwd_plan_covers_every_element_once(sizes):
+    """Every element of an (m, m) block lies in exactly one tile of the
+    plan's items, and each tile of a band item lies on the item's
+    signed offsets; the CSR over offsets lists each valid slot once."""
+    n0, n1, N2 = kuu._sizes_inner(sizes)
+    m = int(np.prod(sizes))
+    tile = min(kuu.TILE, N2)
+    nbk = -(-N2 // tile)
+    for band in kuu.BANDS:
+        seen = np.zeros((m, m), dtype=int)
+        for s0, s1, kb, start, count in kuu.bwd_items(sizes, band):
+            assert 1 <= count <= band
+            a1, a2 = n1 - abs(s1), nbk - abs(kb)
+            for u in range(start, start + count):
+                u2, u1, u0 = u % a2, (u // a2) % a1, u // (a2 * a1)
+                i0, i1 = u0 + max(0, -s0), u1 + max(0, -s1)
+                bi = u2 + max(0, -kb)
+                rb = (i0 * n1 + i1) * N2 + bi * tile
+                cb = ((i0 + s0) * n1 + i1 + s1) * N2 + (bi + kb) * tile
+                rl = min(tile, N2 - bi * tile)
+                cl = min(tile, N2 - (bi + kb) * tile)
+                seen[rb:rb + rl, cb:cb + cl] += 1
+        assert np.all(seen == 1)
+        counts = [c for *_, c in kuu.bwd_items(sizes, band)]
+        assert counts == sorted(counts, reverse=True)  # deepest first
+        _, optr, oent = kuu.bwd_plan(sizes, band)
+        offs = kuu.slot_offsets(sizes, band).reshape(-1)
+        assert optr[-1] == len(oent) == np.sum(offs >= 0)
+        assert len(set(oent.tolist())) == len(oent)
+        for o in range(m):
+            assert np.all(offs[oent[optr[o]:optr[o + 1]]] == o)
+
+
+def test_bwd_plan_is_cached():
+    """The host plan is made once per grid and band (equal grids, trailing
+    axes of size 1 included, share it) and placed once per (grid, D,
+    device); the band is the longest that leaves stage 1 MIN_WARPS warps
+    (the fx2007, synth and weather-twin grids take 4, 4 and 16)."""
+    assert kuu.bwd_plan((7, 6)) is kuu.bwd_plan([7, 6])
+    assert kuu.bwd_plan((9,), 8) is kuu.bwd_plan((9, 1), 8)
+    assert kuu.bwd_items((3, 4, 2)) is kuu.bwd_items((3, 4, 2))
+    dev = torch.device("cpu")
+    a, n, longest = kuu._device_plan((7, 6), 2, dev)
+    b, _, _ = kuu._device_plan((7, 6), 2, dev)
+    band = kuu.band_for((7, 6), 2)
+    assert a is b and n == len(kuu.bwd_items((7, 6), band))
+    _, optr, _ = kuu.bwd_plan((7, 6), band)  # a second-pass CTA's list
+    assert longest == max(optr[min(c + kuu._R, 42)] - optr[c]
+                          for c in range(0, 42, kuu._R))
+    assert [kuu.band_for(s, D) for s, D in
+            (((238,), 13), ((29, 29), 5), ((2504,), 4))] == [4, 4, 16]
 
 
 @pytest.mark.parametrize("sizes", [(5,), (3, 2), (2, 2, 2)])
