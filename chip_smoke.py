@@ -26,8 +26,10 @@ Phases:
    its grid artifacts, and hold K10 (float64 and float32 'slfm' at
    (16, 4, 4097) on the model's own symbols; 'sum' and 'bt' at a small
    shape), K10's backward (float64) and K12 (float64, (16, 15768))
-   against their plain versions; K7 at the report path's (3113, 3113),
-   K7's backward (float64 and float32, a seeded (3113, 3113) cotangent,
+   against their plain versions; K7 at the report path's (3113, 3113)
+   in float64 and float32 (the pair path, held to the bit against the
+   general path on the same inputs as two point sets), K7's backward
+   (float64 and float32, a seeded (3113, 3113) cotangent,
    then the mixed table), K13 (float64 and float32 at (15, 15768) and at
    the reduced copy's (15, 790), eight steps on a diagonal operator with
    a row that breaks down), K7 and its backward at the weather
@@ -224,7 +226,11 @@ ROOT, a parent's ``git archive`` say, and prints one JSON line;
 
     python3 chip_smoke.py --bwd-times [ROOT]
 
-does the same for K7 bwd and K1 bwd (:func:`bwd_times`).
+does the same for K7 bwd and K1 bwd (:func:`bwd_times`), and
+
+    python3 chip_smoke.py --fwd-times [ROOT]
+
+for K1 and K7 forward, with a sha256 of each output (:func:`fwd_times`).
 """
 
 import contextlib
@@ -570,8 +576,10 @@ LAYERS = (
      lambda k: "::rows_fft_kernel<" in k or "::rows_fft_bwd_kernel<" in k),
     ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
     ("K1 backward", lambda k: "::kuu_bwd_" in k),
-    ("K1", lambda k: "kuu_dense_kernel" in k),
-    ("K7", lambda k: "cross_kernel_kernel" in k),
+    ("K1", lambda k: "::kuu_fold_kernel<" in k
+     or "::kuu_write_kernel<" in k),
+    ("K7", lambda k: "::k7_pair_kernel<" in k
+     or "::k7_general_kernel<" in k),
     ("K9 and K4 W applies (hand, interp.cu)",
      lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
@@ -752,6 +760,16 @@ def print_k3_bwd(what, layers):
     v = layers.get(K3_BWD_LAYER, {"device_ms": 0.0, "launches": 0.0})
     print("K3 bwd per %s step: %.4f ms device, %.1f launches"
           % (what, v["device_ms"], v["launches"]), flush=True)
+
+
+def require_layers(layers, names, what):
+    """Fail unless every layer of ``names`` launched in the profile
+    ``layers`` (:func:`by_layer`): a kernel that ``LAYERS`` no longer
+    names would be filed under the elementwise layer."""
+    for name in names:
+        require(layers.get(name, {}).get("launches", 0) > 0,
+                "%s: no launch of layer %s in its profile (LAYERS misses "
+                "its kernels?)" % (what, name))
 
 
 def print_layers(layers):
@@ -1254,15 +1272,26 @@ def main():
     Bq = spec.coreg_mats(model.params)
     table = spec.kernel_table(model.params)
     args = (xa, oa, model.X, model.oidx, Bq) + table
+
+    def k7_bound(args, out):
+        """(bytes, operations) of K7's forward: every input read once, K
+        written once; per element and kernel (per unordered pair on the
+        pair path: k~ is symmetric), 3 operations per active input dim
+        for the distance and about 12 for k~ and the sum."""
+        pair = cross._pair_plan(*args[:4], args[4].shape[1]) is not None
+        elems = (out.shape[0] * (out.shape[0] + 1) / 2.0 if pair
+                 else float(out.numel()))
+        return nbytes(out, *args), elems * sum(
+            3.0 * bin(int(mk)).count("1") + 12.0
+            for mk in args[6].tolist())
+
     out = cross.cross_kernel(*args)
-    flops = 12.0 * out.numel() * Bq.shape[0]
     record("cross_kernel", torch.float64, "cuda",
            "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
            "runlmc_tpu/lmc/likelihood.py:85", out,
            cross.cross_kernel_plain(*args), 1e-12,
            lambda: cross.cross_kernel(*args),
-           lambda: cross.cross_kernel_plain(*args),
-           nbytes(out, *args), flops)
+           lambda: cross.cross_kernel_plain(*args), *k7_bound(args, out))
 
     mixed = T.LMCKernelSpec.create(
         D=3,
@@ -1293,18 +1322,45 @@ def main():
           % rel_err, flush=True)
     require(rel_err <= 1e-12, "cross_kernel mixed table disagrees")
 
-    # K7 at (n, n): the dense exact kernel of the fx2007 report path
-    sargs = (model.X, model.oidx, model.X, model.oidx, Bq) + table
-    out = cross.cross_kernel(*sargs)
-    record("cross_kernel", torch.float64, "cuda",
-           "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
-           "runlmc_tpu/lmc/likelihood.py:85", out,
-           cross.cross_kernel_plain(*sargs), 1e-12,
-           lambda: cross.cross_kernel(*sargs),
-           lambda: cross.cross_kernel_plain(*sargs),
-           nbytes(out, *sargs), 12.0 * out.numel() * Bq.shape[0],
-           path="report (fx2007)")
-    del out
+    # K7 at (n, n): the dense exact kernel of the fx2007 report path, in
+    # float64 and (the float32 ExactLMC's) float32, on the pair path (the
+    # model's one point set, sorted by output); that path against the
+    # general path (the same inputs as two point sets: X.clone()) to the
+    # bit, and relaunched to the bit
+    k7_pair_checks = []
+    n_k7 = model.X.shape[0]
+    for dtype in (torch.float64, torch.float32):
+        xk = model.X.to(dtype)
+        sargs = (xk, model.oidx, xk, model.oidx, Bq.to(dtype), table[0],
+                 table[1], table[2].to(dtype))
+        require(cross._pair_plan(*sargs[:4], Bq.shape[1]) is not None,
+                "the fx2007 model's points do not take K7's pair path")
+        out = cross.cross_kernel(*sargs)
+        general = cross.cross_kernel(xk, model.oidx, xk.clone(),
+                                     model.oidx.clone(), *sargs[4:])
+        chk = {"dtype": str(dtype).replace("torch.", ""), "n": n_k7,
+               "pair_equals_general": bool(torch.equal(out, general)),
+               "relaunch_bit_identical": bool(torch.equal(
+                   out, cross.cross_kernel(*sargs)))}
+        k7_pair_checks.append(chk)
+        print("K7 fx2007 (n=%d) %s: pair path equals the general path to "
+              "the bit %s, relaunch bit-identical %s"
+              % (n_k7, chk["dtype"], chk["pair_equals_general"],
+                 chk["relaunch_bit_identical"]), flush=True)
+        require(chk["pair_equals_general"] and chk["relaunch_bit_identical"],
+                "K7's pair path is not its general path's bits")
+        del general
+        record("cross_kernel", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
+               "runlmc_tpu/lmc/likelihood.py:85", out,
+               cross.cross_kernel_plain(*sargs),
+               1e-12 if dtype == torch.float64 else 1e-5,
+               lambda: cross.cross_kernel(*sargs),
+               lambda: cross.cross_kernel_plain(*sargs),
+               *k7_bound(sargs, out),
+               path=("report (fx2007)" if dtype == torch.float64
+                     else "float32 report"))
+        del out
 
     # K7 backward: the cotangents of B and [gamma, period, scale] from a
     # seeded (n, n) cotangent at the fx2007 shape (Q=1, D=13), float64
@@ -1719,8 +1775,8 @@ def main():
            "runlmc_tpu_torch/hopper/csrc/cross_kernel.cu",
            "runlmc_tpu/lmc/likelihood.py:85", out, k7_plain_slabs(), 1e-12,
            lambda: cross.cross_kernel(*wargs), k7_plain_slabs,
-           nbytes(out, *wargs), 12.0 * out.numel() * wB.shape[0],
-           path="weather oracle", plain_reps=WPLAIN_REPS)
+           *k7_bound(wargs, out), path="weather oracle",
+           plain_reps=WPLAIN_REPS)
     del out
     gdev = torch.Generator(device=dev).manual_seed(SEED)
     wbargs = wargs + (torch.randn(wn, wn, generator=gdev,
@@ -3209,6 +3265,8 @@ def main():
     print("training step device time by layer (per step):", flush=True)
     print_layers(step_layers)
     print_k3_bwd("fx2007 training", step_layers)
+    require_layers(step_layers, ("K1", "K1 backward"), "an fx2007 training "
+                   "step")
     require("trsm (cuBLAS)" not in step_layers, "an fx2007 training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("training step device time inside the Woodbury solve with C and "
@@ -3569,6 +3627,7 @@ def main():
     wstep_layers = by_layer(wchunk_rows, per=wm.chunk_len)
     print("stochastic step device time by layer (per step):", flush=True)
     print_layers(wstep_layers)
+    require_layers(wstep_layers, ("K1",), "a weather stochastic step")
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
     print_split(wchunk_split, per=wm.chunk_len)
@@ -3697,6 +3756,8 @@ def main():
     wrep_dev["exact_log_likelihood_and_grad"], wexact_rows, _ = \
         device_profile(wm.exact_log_likelihood_and_grad)
     wexact_layers = by_layer(wexact_rows)
+    require_layers(wexact_layers, ("K7", "K7 backward"), "the weather exact "
+                   "value and gradient")
     require(all(np.isfinite(v) for v in (wll_slq, wll_exact, wev))
             and np.all(np.isfinite(weg)), "non-finite weather reports")
     print("report (weather, trained, n=%d): log_likelihood (SLQ) %.10g "
@@ -3758,6 +3819,8 @@ def main():
                  _ms(oracle[what]["device_ms"]), oracle[what]["peak_gb"]),
               flush=True)
         print_layers(oracle[what]["layers"])
+        require_layers(oracle[what]["layers"], ("K7",),
+                       "the oracle gradient by the " + what)
         oracle[what].pop("grad")
     print("oracle closed form against the autograd route: value rel err "
           "%.3e, gradient rel err %.3e (tol %g)"
@@ -4084,6 +4147,8 @@ def main():
     print("synth step device time by layer (per step):", flush=True)
     print_layers(sstep_layers)
     print_k3_bwd("synth training", sstep_layers)
+    require_layers(sstep_layers, ("K1", "K1 backward"), "a synth training "
+                   "step")
     require("trsm (cuBLAS)" not in sstep_layers, "a synth training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("synth step device time inside the ranges (per step; forward "
@@ -4564,7 +4629,8 @@ def main():
         "train_elementwise_sources": chunk_sources,
         "stochastic_split": wchunk_split,
         "stochastic_elementwise_sources": wchunk_sources, "loo_zsq": loo,
-        "k1_checks": k1_checks, "k3_checks": k3_checks,
+        "k1_checks": k1_checks, "k7_pair_checks": k7_pair_checks,
+        "k3_checks": k3_checks,
         "vjp_checks": vjp_checks, "k8_fft_checks": k8_checks,
         "oracle": oracle,
         "k3_flag_indefinite": k3_flag, "k3_memory": k3_memory,
@@ -4745,9 +4811,126 @@ def bwd_times(root):
     return 0
 
 
+# K1 forward at the dense grids' shapes (K1_BWD_SHAPES); K7 forward at
+# the paths' shapes: (site, rows of a second point set or None for one
+# point set, n, outputs, kernels, dtype)
+K7_FWD_SHAPES = (("predict", 150, 3113, 13, 1, "float64"),
+                 ("fx2007", None, 3113, 13, 1, "float64"),
+                 ("fx2007", None, 3113, 13, 1, "float32"),
+                 ("weather oracle", None, 15768, 4, 6, "float64"))
+
+
+def fwd_times(root):
+    """``--fwd-times [ROOT]``: K1's and K7's forward times (profiler device
+    ms, CUDA events, and the events' device span with the calls queued,
+    :func:`queued_time`) in the package at ROOT (this checkout by default)
+    at ``K1_BWD_SHAPES`` and ``K7_FWD_SHAPES``, on seeded inputs of the
+    paths' shapes (RBF kernels; for K7 one input dim, the points of each
+    output sorted, as the models hold them), with a sha256 of each
+    output's bytes. K1 runs with its fold in each CTA's prologue and as a
+    launch of its own where the package has both; K7 on one point set
+    (the pair path) and, at fx2007, on the same inputs as two point sets
+    (the general path). Beside each shape, ``fill_`` of a tensor of the
+    output's size: what writing those bytes takes on this card. One JSON
+    line; to compare two checkouts on one card, run it for each in one
+    call, in turns."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from runlmc_tpu_torch.hopper import build, cross, kuu
+
+    build.build_all(["cross_kernel", "kuu_dense"])
+    dev = torch.device("cuda")
+    rows = []
+
+    def timed(fn, **row):
+        out = fn()
+        torch.cuda.synchronize()
+        row["sha256"] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()
+        del out
+        dms, krows, _ = device_profile(fn, reps=10)
+        row.update(device_ms=dms, ms=cuda_time(fn), queued_ms=queued_time(fn),
+                   by_kernel=[[k[:60], c / 10, ms / 10] for k, c, ms in krows])
+        rows.append(row)
+        print(json.dumps({k: v for k, v in row.items() if k != "by_kernel"}),
+              flush=True)
+
+    # the fold's placement, set through the threshold that picks it
+    saved_min = getattr(kuu, "FOLD_LAUNCH_MIN", None)
+    folds = ((("prologue", 1 << 62), ("launch", 0)) if saved_min is not None
+             else (("the package's only", None),))
+    for site, sizes, D, Q, dts in K1_BWD_SHAPES:
+        dtype = getattr(torch, dts)
+        m = int(np.prod(sizes))
+        g = torch.Generator(device=dev).manual_seed(SEED + m)
+        f = dict(dtype=dtype, device=dev)
+        axes = [np.arange(s) * 0.05 for s in sizes]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(m, -1)
+        dists = torch.as_tensor(np.linalg.norm(pts - pts[0], axis=-1), **f)
+        prm = torch.rand(Q, 3, generator=g, **f) + 0.5
+        B = torch.randn(Q, D, D, generator=g, **f)
+        args = ((0,) * Q, prm, dists, B, sizes)
+        for fold, fold_launch_min in folds:
+            if fold_launch_min is not None:
+                kuu.FOLD_LAUNCH_MIN = fold_launch_min
+            timed(lambda: kuu.kuu_dense(*args), name="kuu_dense", site=site,
+                  dtype=dts, sizes=list(sizes), D=D, Q=Q, fold=fold)
+        if saved_min is not None:
+            kuu.FOLD_LAUNCH_MIN = saved_min
+        fill = torch.empty((D * m, D * m), **f)
+        timed(lambda: fill.fill_(1.0), name="fill_ (K1's bytes)", site=site,
+              dtype=dts)
+        del fill
+    for site, nt, n, D, Q, dts in K7_FWD_SHAPES:
+        dtype = getattr(torch, dts)
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+        f = dict(dtype=dtype, device=dev)
+        counts = np.diff(np.linspace(0, n, D + 1).astype(int))
+        o = torch.as_tensor(np.repeat(np.arange(D), counts),
+                            dtype=torch.int32, device=dev)
+        x = torch.rand(n, generator=g, **f) * 10.0
+        ends = np.cumsum(counts)
+        x = torch.cat([torch.sort(x[e - c:e])[0]
+                       for c, e in zip(counts, ends)])[:, None]
+        B = torch.randn(Q, D, D, generator=g, **f)
+        table = (torch.zeros(Q, dtype=torch.int32, device=dev),
+                 torch.ones(Q, dtype=torch.int32, device=dev),
+                 torch.rand(Q, 3, generator=g, **f) + 0.5)
+        if nt is not None:  # K_*X: test points of random outputs
+            xt = torch.rand(nt, 1, generator=g, **f) * 10.0
+            ot = torch.randint(0, D, (nt,), generator=g, device=dev,
+                               dtype=torch.int32)
+            forms = {"two point sets": (xt, ot, x, o)}
+        else:
+            forms = {"one point set": (x, o, x, o)}
+            if n < 10000:
+                forms["the same as two point sets"] = (x, o, x.clone(),
+                                                       o.clone())
+        for form, pts in forms.items():
+            timed(lambda: cross.cross_kernel(*pts, B, *table),
+                  name="cross_kernel", site=site, dtype=dts,
+                  shape=[len(pts[0]), n], D=D, Q=Q, form=form)
+        fill = torch.empty((len(pts[0]), n), **f)
+        timed(lambda: fill.fill_(1.0), name="fill_ (K7's bytes)", site=site,
+              dtype=dts)
+        del fill
+    print(json.dumps({"fwd_times": rows, "root": os.path.abspath(root),
+                      "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-bwd-times"]:
         sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     if sys.argv[1:2] == ["--bwd-times"]:
         sys.exit(bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
+    if sys.argv[1:2] == ["--fwd-times"]:
+        sys.exit(fwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

@@ -168,9 +168,9 @@ METRICS_PATH = TRAIN_PATH + REPORT_PATH
 SLQ_PATH = ("lanczos_step/f64", "fourier_contract/f64", "kern_rows_fft/f64",
             "interp_gather/f64", "interp_scatter/f64")
 # The same reports of float32 models: an fft model's SLQ log-det and
-# ExactLMC's exact gradient.
-F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel_bwd/f32",
-                   "trsm_lower/f32")
+# ExactLMC's exact log-likelihood and gradient.
+F32_REPORT_PATH = ("lanczos_step/f32", "cross_kernel/f32",
+                   "cross_kernel_bwd/f32", "trsm_lower/f32")
 
 
 def reset_launches():

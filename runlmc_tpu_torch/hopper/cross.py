@@ -9,10 +9,16 @@ runlmc_tpu/kernels/stationary.py:64-157. Kernels are described by a
 table (``LMCKernelSpec.kernel_table``): a kind code, a bitmask of active
 input dims and constrained ``[gamma, period, scale]`` per q. The CUDA
 kernel (``csrc/cross_kernel.cu``) fuses distance, k(r) and the
-coregionalization scale, one thread per output element; it is bound by
-its (na, nb) output write. :func:`cross_kernel_plain` evaluates the
-same table in plain PyTorch and is what the wrapper runs for CPU
-tensors.
+coregionalization scale and writes nothing but K; it is bound by its
+(na, nb) output write, or on the weather oracle by its exps. Where the
+two point sets are one and sorted by output (every square call on the
+model's paths) it runs the pair path: the tile pairs I >= J of
+:func:`bwd_plan`, each unordered pair's k(r) once for K[a, b] and
+K[b, a], B[q, out I, out J] and B[q, out J, out I] constants of the
+tile pair. Other inputs take the general path (a thread per column and
+four rows); both give the same bits. :func:`cross_kernel_plain`
+evaluates the same table in plain PyTorch and is what the wrapper runs
+for CPU tensors.
 
 K7 backward (``csrc/cross_kernel_bwd.cu``) replaces XLA's autodiff of
 the same lines inside ``jax.grad`` of ``exact_mll``: from the cotangent
@@ -65,7 +71,9 @@ def cross_kernel(xa, oa, xb, ob, B, kinds, masks, prm):
     """K (na, nb) for inputs ``xa`` (na, P) / ``xb`` (nb, P) with output
     indices ``oa`` / ``ob`` (int32), coregionalization ``B`` (Q, D, D)
     and the kernel table ``kinds``, ``masks`` (int32, (Q,)) and ``prm``
-    (Q, 3); the CUDA kernel for CUDA tensors."""
+    (Q, 3); the CUDA kernel for CUDA tensors: the pair path where ``xa``,
+    ``oa`` are the same tensors as ``xb``, ``ob`` and sorted by output,
+    the general path otherwise."""
     if build.use_plain("cross_kernel", xa):
         return cross_kernel_plain(xa, oa, xb, ob, B, kinds, masks, prm)
     na, P = xa.shape
@@ -82,24 +90,30 @@ def cross_kernel(xa, oa, xb, ob, B, kinds, masks, prm):
     if not (oa.dtype == ob.dtype == kinds.dtype == masks.dtype
             == torch.int32):
         raise ValueError("cross_kernel: index tensors must be int32")
+    empty = not (na and nb and Q)
+    plan = None if empty else _pair_plan(xa, oa, xb, ob, D)
     xa, oa, xb, ob, B, kinds, masks, prm = (
         t.contiguous() for t in (xa, oa, xb, ob, B, kinds, masks, prm)
     )
     build.require_cuda("cross_kernel", xa, oa, xb, ob, B, kinds, masks, prm)
     out = torch.empty((na, nb), dtype=xa.dtype, device=xa.device)
+    if empty:
+        return out.zero_()
     sfx = build.suffix("cross_kernel", xa.dtype)
     fn = build.function(
         "cross_kernel", "cross_kernel_" + sfx,
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    if na and nb:
-        build.check(fn(
-            build.ptr(xa), build.ptr(oa), build.ptr(xb), build.ptr(ob),
-            build.ptr(B), build.ptr(kinds), build.ptr(masks),
-            build.ptr(prm), build.ptr(out), na, nb, P, Q, D,
-            build.stream_ptr(),
-        ), "cross_kernel")
-        cross_kernel.launches[sfx] += 1
+    build.check(fn(
+        xa.data_ptr(), oa.data_ptr(), xb.data_ptr(), ob.data_ptr(),
+        B.data_ptr(), kinds.data_ptr(), masks.data_ptr(), prm.data_ptr(),
+        *((None, 0, 0, 0) if plan is None else
+          (plan[0].data_ptr(),) + plan[1:]),
+        out.data_ptr(), na, nb, P, Q, D,
+        torch.cuda.current_stream(xa.device).cuda_stream,
+    ), "cross_kernel")
+    cross_kernel.launches[sfx] += 1
     return out
 
 
@@ -141,9 +155,9 @@ def output_tiles(counts, tile=TILE):
 
 @functools.lru_cache(maxsize=64)
 def bwd_plan(counts_a, counts_b, pair, tile=TILE):
-    """K7 backward's host plan for rows and columns sorted by output
-    (``counts_a`` / ``counts_b`` entries per output): ``(ta, tb, pairs,
-    ptr, idx)``. ``ta`` / ``tb`` are the :func:`output_tiles`; ``pairs``
+    """K7's host plan for rows and columns sorted by output (``counts_a``
+    / ``counts_b`` entries per output), for the backward and the
+    forward's pair path: ``(ta, tb, pairs, ptr, idx)``. ``ta`` / ``tb`` are the :func:`output_tiles`; ``pairs``
     (npairs, 2) the tile pairs (I, J) that run, I >= J when ``pair`` (one
     point set: tile pair (I, J) also takes G[J, I]), every pair
     otherwise. Partial slot 2p is G[I, J]'s, summed into
@@ -198,7 +212,7 @@ def output_order(o, D):
         return hit[1]
     host = o.detach().cpu().numpy().astype(np.int64)
     if host.size and (host.min() < 0 or host.max() >= D):
-        raise ValueError("cross_kernel_bwd: output indices outside [0, %d)"
+        raise ValueError("cross_kernel: output indices outside [0, %d)"
                          % D)
     counts = tuple(int(c) for c in np.bincount(host, minlength=D))
     perm = None
@@ -207,6 +221,18 @@ def output_order(o, D):
                                device=o.device)
     o._runlmc_output_order = (key, (perm, counts))
     return o._runlmc_output_order[1]
+
+
+def _pair_plan(xa, oa, xb, ob, D):
+    """K7's pair-path plan (:func:`_device_plan`) where ``xa``, ``oa``
+    are the same tensors as ``xb``, ``ob`` and sorted by output; None
+    for the general path."""
+    if not (_same(xa, xb) and _same(oa, ob)):
+        return None
+    perm, counts = output_order(oa, D)
+    if perm is not None:
+        return None
+    return _device_plan(counts, counts, True, xa.device)
 
 
 def _same(t, u):

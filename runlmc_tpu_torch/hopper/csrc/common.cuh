@@ -1,11 +1,14 @@
 // Shared helpers of the port's CUDA kernels: overloaded math so that one
 // template serves float and double, the C entry-point convention
 // (launch on the caller's stream, return cudaGetLastError()), and the
-// kernel table's k(r) (kernels/stationary.py), which K1 and K7 share.
+// kernel table's k(r) (kernels/stationary.py), which K1 and K7 share,
+// and the per-device launch facts that persistent grids are sized by.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace runlmc {
 
@@ -19,6 +22,13 @@ __device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ double dcos(double x) { return cos(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+// a * b + c rounded once
+__device__ __forceinline__ float dfma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double dfma(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+}
 
 // Grid rows beyond this go round a grid-stride loop (gridDim.y limit).
 constexpr int kMaxGridY = 65535;
@@ -90,5 +100,73 @@ constexpr int kMaxTableQ = 64;
 struct KindTable {
     int kind[kMaxTableQ];
 };
+
+// What a launch asks of the host, kept per device: the opt-in
+// shared-memory limit, the SM count, and each kernel's CTAs per SM at
+// each shared-memory size seen (a few a run). Each kernel's dynamic
+// shared-memory limit is raised once, to the opt-in limit, so no later
+// launch sets a function attribute. fn = nullptr asks for the device's
+// facts only; a size past the opt-in limit leaves per_sm unset.
+constexpr int kLaunchDevices = 64;
+constexpr int kSizesKept = 32;
+
+struct LaunchFacts {
+    bool ready = false;
+    int optin = 0;
+    int sms = 0;
+    int kept = 0;
+    const void* fn[kSizesKept];
+    size_t smem[kSizesKept];
+    int per_sm[kSizesKept];
+};
+
+inline int launch_facts(const void* fn, int threads, size_t smem,
+                        int* optin, int* sms, int* per_sm) {
+    static LaunchFacts facts[kLaunchDevices];
+    static std::mutex lock;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kLaunchDevices) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(lock);
+    LaunchFacts& f = facts[dev];
+    if (!f.ready) {
+        err = cudaDeviceGetAttribute(
+            &f.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(
+                &f.sms, cudaDevAttrMultiProcessorCount, dev);
+        }
+        if (err != cudaSuccess) return (int)err;
+        f.ready = true;
+    }
+    *optin = f.optin;
+    *sms = f.sms;
+    if (fn == nullptr || smem > (size_t)f.optin) return 0;
+    bool seen = false;
+    for (int i = 0; i < f.kept; ++i) {
+        if (f.fn[i] != fn) continue;
+        seen = true;
+        if (f.smem[i] == smem) {
+            *per_sm = f.per_sm[i];
+            return 0;
+        }
+    }
+    if (!seen) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, f.optin);
+        if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads,
+                                                        smem);
+    if (err != cudaSuccess) return (int)err;
+    if (f.kept < kSizesKept) {
+        f.fn[f.kept] = fn;
+        f.smem[f.kept] = smem;
+        f.per_sm[f.kept] = *per_sm;
+        ++f.kept;
+    }
+    return 0;
+}
 
 }  // namespace runlmc

@@ -50,6 +50,8 @@
 //   that mask needs r: RBF and Identity read r^2 itself. A table of RBF
 //   kernels on one mask (the weather oracle's) runs a path without a
 //   branch between the kernels, so their exps overlap.
+//   These facts, the distance and k~ from d2 are k7_common.cuh's, shared
+//   with K7's forward.
 // - With alpha, G[a,b] - alpha_a alpha_b rounds the product first, as
 //   torch.addr and the plain version do.
 // - A column-major G on the pair path (the oracle's K^-1 from
@@ -66,7 +68,7 @@
 // atomics in any sum. More than kMaxQ kernels run as further tile
 // launches over slices of q (each launch writes its own q's partials).
 
-#include "common.cuh"
+#include "k7_common.cuh"
 
 namespace {
 
@@ -79,24 +81,6 @@ constexpr int kMaxQ = 8;              // kernels per tile launch
 constexpr int kFinThreads = 256;
 constexpr int kMaxDevices = 16;
 
-// One element into shared memory without passing through registers;
-// where ``valid`` is false the copy writes zero.
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* dst, const T* src,
-                                              bool valid) {
-    const unsigned saddr =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
-                 :: "r"(saddr), "l"(src), "n"(sizeof(T)),
-                    "r"(valid ? (int)sizeof(T) : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
 // g - a * b with the product rounded first (never contracted into an
 // FMA): the rank-1 term as torch.addr and the plain version form it
 __device__ __forceinline__ float sub_prod(float g, float a, float b) {
@@ -104,25 +88,6 @@ __device__ __forceinline__ float sub_prod(float g, float a, float b) {
 }
 __device__ __forceinline__ double sub_prod(double g, double a, double b) {
     return __dsub_rn(g, __dmul_rn(a, b));
-}
-
-// k~, dk~/dgamma, dk~/dperiod as common.cuh kern_grads computes them,
-// from the squared distance d2 and (where the kind needs it) r = sqrt(d2):
-// RBF takes d2 for r * r and Identity tests d2 = 0
-template <typename T>
-__device__ __forceinline__ void kern_grads_d2(int kind, T d2, T r, T gamma,
-                                              T period, T& k, T& dg, T& dp) {
-    if (kind == runlmc::kRBF) {
-        k = runlmc::dexp(T(-0.5) * d2 * gamma);
-        dg = T(-0.5) * d2 * k;
-        dp = T(0);
-    } else if (kind == runlmc::kMatern32 || kind == runlmc::kStdPeriodic) {
-        runlmc::kern_grads<T>(kind, r, gamma, period, k, dg, dp);
-    } else {  // IdentityKern
-        k = d2 == T(0) ? T(1) : T(0);
-        dg = T(0);
-        dp = T(0);
-    }
 }
 
 template <typename T, int NQ, bool PAIR>
@@ -180,12 +145,14 @@ k7_bwd_tile_kernel(const T* __restrict__ G, const T* __restrict__ xa,
     for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
         const int r = idx / kTile, c = idx % kTile;
         const bool v = r < rl && c < cl;
-        cp_async_elem(As + r * kLd + c,
-                      v ? G + (int64_t)(r0 + r) * ldg + c0 + c : G, v);
+        runlmc::cp_async_elem(
+            As + r * kLd + c, v ? G + (int64_t)(r0 + r) * ldg + c0 + c : G,
+            v);
         if (PAIR) {  // Bs[b][a] = G[c0 + b, r0 + a]
             const bool w = r < cl && c < rl;
-            cp_async_elem(Bs + r * kLd + c,
-                          w ? G + (int64_t)(c0 + r) * ldg + r0 + c : G, w);
+            runlmc::cp_async_elem(
+                Bs + r * kLd + c,
+                w ? G + (int64_t)(c0 + r) * ldg + r0 + c : G, w);
         }
     }
     for (int idx = tid; idx < kTile * P; idx += kThreads) {
@@ -206,28 +173,12 @@ k7_bwd_tile_kernel(const T* __restrict__ G, const T* __restrict__ xa,
     }
     __syncthreads();
     if (tid < NQ) {
-        int first = tid;
-        for (int j = tid - 1; j >= 0; --j) {
-            if (smask[j] == smask[tid]) first = j;
-        }
-        int need = 0;
-        for (int j = 0; j < NQ; ++j) {
-            if (smask[j] == smask[tid] && (skind[j] == runlmc::kMatern32 ||
-                                           skind[j] == runlmc::kStdPeriodic)) {
-                need = 1;
-            }
-        }
-        sfirst[tid] = first;
-        sneedr[tid] = need;
+        runlmc::pass_facts(skind, smask, tid, 0, NQ, sfirst[tid],
+                           sneedr[tid]);
     }
-    if (tid == 0) {  // one mask, RBF only (the weather oracle's table)
-        int rbf = 1;
-        for (int j = 0; j < NQ; ++j) {
-            rbf &= skind[j] == runlmc::kRBF && smask[j] == smask[0];
-        }
-        *srbf = rbf;
-    }
-    cp_async_wait_all();
+    if (tid == 0) *srbf = runlmc::one_mask_rbf(skind, smask, 0, NQ);
+    runlmc::cp_async_commit();
+    runlmc::cp_async_wait_all();
     __syncthreads();
 
     const int c = tid % kTile;
@@ -235,17 +186,6 @@ k7_bwd_tile_kernel(const T* __restrict__ G, const T* __restrict__ xa,
     const bool diag = PAIR && I == J;
     const bool has_alpha = alpha != nullptr;
     const bool one_rbf = *srbf != 0;
-    // squared distance of rows r, c over the dims of mask mk
-    auto dist2 = [&](int mk, int r, int c) {
-        T d2 = 0;
-        for (int pp = 0; pp < P; ++pp) {
-            if ((mk >> pp) & 1) {
-                const T df = xr[r * P + pp] - xc[c * P + pp];
-                d2 += df * df;
-            }
-        }
-        return d2;
-    };
     T acc[kVals];
 #pragma unroll
     for (int t = 0; t < kVals; ++t) acc[t] = T(0);
@@ -265,7 +205,8 @@ k7_bwd_tile_kernel(const T* __restrict__ G, const T* __restrict__ xa,
         }
         if (diag && r == c) g2 = T(0);
         if (one_rbf) {  // no branch between the kernels: their exps overlap
-            const T d2 = dist2(smask[0], r, c);
+            const T d2 = runlmc::sq_dist<T>(smask[0], xr + r * P,
+                                            xc + c * P, P);
 #pragma unroll
             for (int qq = 0; qq < NQ; ++qq) {
                 const T k = runlmc::dexp(T(-0.5) * d2 * sgam[qq]);
@@ -282,14 +223,16 @@ k7_bwd_tile_kernel(const T* __restrict__ G, const T* __restrict__ xa,
         // each distinct mask's distance once, for the kernels that share it
         for (int f = 0; f < NQ; ++f) {
             if (sfirst[f] != f) continue;
-            const T d2 = dist2(smask[f], r, c);
+            const T d2 = runlmc::sq_dist<T>(smask[f], xr + r * P,
+                                            xc + c * P, P);
             const T rr = sneedr[f] ? runlmc::dsqrt(d2) : T(0);
 #pragma unroll
             for (int qq = 0; qq < NQ; ++qq) {
                 if (sfirst[qq] != f) continue;
                 const int kind = skind[qq];
                 T k, dg, dp;
-                kern_grads_d2<T>(kind, d2, rr, sgam[qq], sper[qq], k, dg, dp);
+                runlmc::kern_grads_d2<T>(kind, d2, rr, sgam[qq], sper[qq], k,
+                                         dg, dp);
                 acc[3 * qq] += g1 * k;
                 acc[3 * qq + 1] += g1 * dg;
                 if (kind == runlmc::kStdPeriodic) acc[3 * qq + 2] += g1 * dp;

@@ -13,10 +13,21 @@ Replaces runlmc_tpu/lmc/grid.py:535-547 (``build_group_state``, dense
 branch: the elementwise k(r) of runlmc_tpu/kernels/stationary.py:64-157
 on the first rows, an index-map gather of a (Q, m, m) stack, then an
 einsum with B) and XLA's autodiff of it. The forward CUDA kernel
-(``csrc/kuu_dense.cu``) evaluates scale_q k~_q on the m offsets into
-shared memory, works out each element's BTTB offset from the two flat
-grid indices and reads no index map; it is bound by its (Dm)^2 output
-write. The backward (``csrc/kuu_dense_bwd.cu``) sums the cotangent G
+(``csrc/kuu_dense.cu``) folds the sum over q once per (d, e, offset),
+
+    c[d,e,o] = sum_q B[q,d,e] * scale_q * k~_q(dists[o]),
+
+in q order with FMAs (each element's arithmetic of the kernel before
+it, so K_UU keeps its bits), then copies c into the output: CTAs over
+contiguous ranges of the blocks' rows, each block's c in shared memory
+(doubled on a 1-D grid, so that a row is one contiguous slice), 16-byte
+stores along each row with the row's head and tail peeled. It reads no
+index map and is bound by its (Dm)^2 output write. The fold runs in
+each CTA's prologue where the table is small (Q * m under
+:data:`FOLD_LAUNCH_MIN`: fx2007's grid), else as a launch of its own
+into an L2-resident scratch (synth, the weather twin), where the
+prologue's Q * m transcendentals a CTA would cost more than the extra
+launch. The backward (``csrc/kuu_dense_bwd.cu``) sums the cotangent G
 over the pairs of each offset,
 
     H[d,e,o] = sum_{off(i,j)=o} G[(d,i),(e,j)],
@@ -93,24 +104,37 @@ def _checked(what, kinds, prm, dists, B, sizes, *more):
     return ((ctypes.c_int * Q)(*kinds), Q, D, m, n0, n1, n2)
 
 
+# Q * m from which the forward folds over q in a launch of its own, and
+# below which each CTA folds in its prologue (the same bits; measured on
+# the H100 by chip_smoke.py --fwd-times, which times both: the prologue
+# is faster at fx2007's 238, the launch at synth's 5887 and the weather
+# twin's 15024)
+FOLD_LAUNCH_MIN = 2048
+
+
 def kuu_dense(kinds, prm, dists, B, sizes):
     """K_UU (D*m, D*m) from the table rows ``kinds`` (Q ints) and ``prm``
     (Q, 3), the first-row distances ``dists`` (m,) and ``B`` (Q, D, D) on
-    a grid of ``sizes``; the CUDA kernel for CUDA tensors."""
+    a grid of ``sizes``; the CUDA kernel for CUDA tensors, which folds
+    over q in a launch of its own where Q * m >= :data:`FOLD_LAUNCH_MIN`."""
     if build.use_plain("kuu_dense", prm):
         return kuu_dense_plain(kinds, prm, dists, B, sizes)
     prm, dists, B = (t.contiguous() for t in (prm, dists, B))
     karr, Q, D, m, n0, n1, n2 = _checked("kuu_dense", kinds, prm, dists, B,
                                          sizes)
     out = torch.empty((D * m, D * m), dtype=prm.dtype, device=prm.device)
+    folded = (torch.empty(D * D * m, dtype=prm.dtype, device=prm.device)
+              if Q * m >= FOLD_LAUNCH_MIN else None)
     sfx = build.suffix("kuu_dense", prm.dtype)
     fn = build.function(
         "kuu_dense", "kuu_dense_" + sfx,
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     build.check(fn(ctypes.cast(karr, ctypes.c_void_p), build.ptr(prm),
-                   build.ptr(dists), build.ptr(B), build.ptr(out), Q, D, m,
-                   n0, n1, n2, build.stream_ptr()), "kuu_dense")
+                   build.ptr(dists), build.ptr(B),
+                   None if folded is None else build.ptr(folded),
+                   build.ptr(out), Q, D, m, n0, n1, n2,
+                   int(folded is not None), build.stream_ptr()), "kuu_dense")
     kuu_dense.launches[sfx] += 1
     return out
 

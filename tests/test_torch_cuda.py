@@ -81,12 +81,39 @@ def test_kuu_dense(dev, dtype, sizes):
 
 
 def test_kuu_dense_tables_past_the_shared_memory_budget(dev):
-    """Four float64 rows of m=4096 exceed one launch's table budget: the
-    q's run as two launches, the second adding into the output."""
+    """Four float64 kernels on a 64 x 64 grid (m=4096), a table of 128 KB
+    that the kernel before this one had to split over two launches: the
+    folded row alone (32 KB) is in shared memory."""
     kinds, prm, dists = _kuu_table(4, 4096, torch.float64, dev, 1)
     B = torch.randn(4, 1, 1, dtype=torch.float64, device=dev)
     args = (kinds, prm, dists, B, (64, 64))
     _close(kuu.kuu_dense(*args), kuu.kuu_dense_plain(*args), torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes,D", [((1,), 1), ((5,), 3), ((19,), 2),
+                                     ((238,), 13), ((7, 5), 3),
+                                     ((29, 29), 5), ((2, 3, 7), 3),
+                                     ((3, 1), 2), ((2000,), 1)])
+def test_kuu_dense_rows_and_folds(dev, dtype, sizes, D, monkeypatch):
+    """K1 where D*m is odd or 2 mod 4 (rows that start off a 16-byte
+    boundary: peeled heads and tails), a single point, a trailing axis of
+    size 1, a row longer than a CTA's threads' vectors; the fold
+    in each CTA's prologue and as its own launch (the default picks one
+    by Q * m) give the same bits, one count per call."""
+    m = int(np.prod(sizes))
+    kinds, prm, dists = _kuu_table(5, m, dtype, dev, 2)
+    B = torch.randn(5, D, D, generator=torch.Generator().manual_seed(2),
+                    dtype=dtype).to(dev)
+    args = (kinds, prm, dists, B, sizes)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = kuu.kuu_dense.launches[sfx]
+    out = kuu.kuu_dense(*args)
+    _close(out, kuu.kuu_dense_plain(*args), dtype)
+    for fold_launch_min in (1 << 62, 0):  # the prologue, then the launch
+        monkeypatch.setattr(kuu, "FOLD_LAUNCH_MIN", fold_launch_min)
+        assert torch.equal(out, kuu.kuu_dense(*args))
+    assert kuu.kuu_dense.launches[sfx] == before + 3
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -415,6 +442,55 @@ def _mixed_table(dtype, dev, seed=4, na=70, nb=90):
     G = torch.randn(na, nb, generator=g, dtype=dtype)
     return tuple(t.to(dev) for t in (xa, oa, xb, ob)) + (
         spec.coreg_mats(p).detach(),) + spec.kernel_table(p) + (G.to(dev),)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("counts", [(3, 70, 0, 77), (64, 1, 65, 20),
+                                    (150, 0, 0, 1)])
+def test_cross_kernel_pair_path_matches_general_path(dev, dtype, counts):
+    """K7 on one point set sorted by output (the pair path: tile pairs
+    I >= J, K[b, a] through the transposed tile) against the same inputs
+    as two point sets (the general path) to the bit, an asymmetric B,
+    outputs whose runs span tile edges, one empty; the plain version
+    within tolerance; relaunched to the bit."""
+    x, o, B, table, _, _ = _sorted_table(dtype, dev, counts)
+    assert cross._pair_plan(x, o, x, o, len(counts)) is not None
+    pair = cross.cross_kernel(x, o, x, o, B, *table)
+    general = cross.cross_kernel(x, o, x.clone(), o.clone(), B, *table)
+    assert torch.equal(pair, general)
+    assert torch.equal(pair, cross.cross_kernel(x, o, x, o, B, *table))
+    _close(pair, cross.cross_kernel_plain(x, o, x, o, B, *table), dtype)
+
+
+@pytest.mark.parametrize("Q", [6, 11])
+def test_cross_kernel_rbf_tables_and_passes(dev, Q):
+    """K7 on RBF tables on one mask (the branch-free path: six is the
+    weather oracle's table) and on eleven kernels over two masks (two
+    passes of eight), pair and general path alike, unsorted outputs on
+    one point set (the general path)."""
+    kerns = [T.RBF(name="k%d" % i, inv_lengthscale=0.3 + 0.2 * i,
+                   active_dims=(0,) if Q > 6 and i % 2 else None)
+             for i in range(Q)]
+    spec = T.LMCKernelSpec.create(D=4, lmc_kernels=kerns,
+                                  lmc_ranks=[1] * Q).with_input_dim(2)
+    p = from_reference_params(spec.init_raw_params(seed=4), torch.float64,
+                              dev)
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(300, 2, generator=g, dtype=torch.float64).to(dev)
+    o = torch.as_tensor(np.repeat(np.arange(4), [90, 70, 100, 40]),
+                        dtype=torch.int32, device=dev)
+    B = torch.randn(Q, 4, 4, generator=g, dtype=torch.float64).to(dev)
+    table = spec.kernel_table(p)
+    pair = cross.cross_kernel(x, o, x, o, B, *table)
+    assert torch.equal(pair, cross.cross_kernel(x, o, x.clone(), o, B,
+                                                *table))
+    _close(pair, cross.cross_kernel_plain(x, o, x, o, B, *table),
+           torch.float64)
+    perm = torch.randperm(300, generator=g).to(dev)
+    xu, ou = x[perm].contiguous(), o[perm].contiguous()
+    _close(cross.cross_kernel(xu, ou, xu, ou, B, *table),
+           cross.cross_kernel_plain(xu, ou, xu, ou, B, *table),
+           torch.float64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

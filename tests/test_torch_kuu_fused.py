@@ -4,8 +4,9 @@ Its plain path (what the wrappers run for CPU tensors) against the JAX
 package's ``build_group_state`` in float64 — K_UU and the gradient of
 <G, K_UU> with respect to the raw parameters — for every kernel kind,
 Scaled (trainable and frozen), split active dims, and 1-D and 2-D grids;
-and numpy mirrors of the forward kernel's tile walk (csrc/kuu_dense.cu)
-and of the backward kernel's tile walk and fused second pass
+and numpy mirrors of the forward kernel's fold and write pass
+(csrc/kuu_dense.cu, tests/torch_fwd_mirrors.py) and of the backward
+kernel's tile walk and fused second pass
 (csrc/kuu_dense_bwd.cu, tests/torch_bwd_mirrors.py: the derivative
 formulas of common.cuh ``kern_grads``) against the plain versions."""
 
@@ -25,7 +26,9 @@ from runlmc_tpu_torch.utils.carry import (
     cast_params,
     from_reference_params,
 )
+from runlmc_tpu_torch.ops.bttb import bttb_index_map
 from tests import torch_bwd_mirrors as mirrors
+from tests import torch_fwd_mirrors as fwd_mirrors
 
 # the same products and sums, in another order: float64 rounding
 RTOL = 1e-12
@@ -197,72 +200,89 @@ def test_backward_reduction_mirror_matches_autograd(sizes):
                                    atol=RTOL * np.abs(w).max())
 
 
-def _forward_mirror(kinds, prm, dists, B, sizes, rows=8, per_launch=None):
-    """K_UU as kuu_dense_kernel forms it (all columns of a tile's rows at
-    once): the table's values per offset, tiles of ``rows`` rows, each
-    column's row
-    offsets stepped through the grid coordinates (wrapping past the last
-    row), one B read per q where the tile stays in one output block, the
-    q's in launches of ``per_launch``, later ones adding in."""
-    Q, D, m = len(kinds), B.shape[1], len(dists)
-    n0, n1, n2 = kuu._sizes3(sizes)
-    dm = D * m
-    s1, s0 = n2, n1 * n2
-    tops = np.stack([prm[q, 2] * _kern_grads_np(k, dists, prm[q, 0],
-                                                prm[q, 1])[0]
-                     for q, k in enumerate(kinds)])
-    out = np.zeros((dm, dm))
-    per_launch = per_launch or Q
-    cols = np.arange(dm)
-    e, j = cols // m, cols % m
-    j0, j1, j2 = j // s0, (j // s1) % n1, j % n2
-    for q0 in range(0, Q, per_launch):
-        for row0 in range(0, dm, rows):
-            d0 = row0 // m
-            i = row0 - d0 * m
-            i0, i1, i2 = i // s0, (i // s1) % n1, i % n2
-            offs = []
-            for _ in range(rows):
-                offs.append(abs(i0 - j0) * s0 + abs(i1 - j1) * s1
-                            + abs(i2 - j2))
-                i2 += 1
-                if i2 == n2:
-                    i2, i1 = 0, i1 + 1
-                    if i1 == n1:
-                        i1, i0 = 0, i0 + 1
-                        if i0 == n0:
-                            i0 = 0
-            d_last = min((row0 + rows - 1) // m, D - 1)
-            acc = np.zeros((rows, dm))
-            for q in range(q0, min(Q, q0 + per_launch)):
-                for r in range(rows):
-                    d = d0 if d_last == d0 else min((row0 + r) // m, D - 1)
-                    acc[r] += B[q, d, e] * tops[q, offs[r]]
-            for r in range(rows):
-                if row0 + r < dm:
-                    out[row0 + r] = acc[r] + (out[row0 + r] if q0 else 0.0)
-    return out
-
-
-@pytest.mark.parametrize("sizes,D", [((37,), 3), ((6, 7), 2), ((3, 4, 5), 2),
-                                     ((5,), 3)])
-def test_forward_tile_walk_mirror_matches_plain(sizes, D):
-    """The forward kernel's tile walk mirrored in numpy (tiles crossing
-    output blocks, grids shorter than a tile, two launches of q's) gives
-    the plain version's K_UU."""
+def _k1_problem(sizes, D, seed=8):
+    """Every kind (RBF, Matern32, StdPeriodic, Identity) on a grid of
+    ``sizes``: (kinds, prm, first-row distances, B)."""
     m = int(np.prod(sizes))
-    rng = np.random.RandomState(8)
+    rng = np.random.RandomState(seed)
     kinds = (0, 1, 2, 3)
     prm = rng.uniform(0.5, 1.5, (4, 3))
     axes = [np.linspace(0.0, 0.3 * n, n) for n in sizes]
     grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(m, -1)
     dists = np.linalg.norm(grid - grid[0], axis=-1)
-    B = rng.standard_normal((4, D, D))
+    return kinds, prm, dists, rng.standard_normal((4, D, D))
+
+
+# D*m = 111, 15, 105 (odd), 38, 126, 290 (2 mod 4, as fx2007's 3094: a
+# float32 row starts on 16 bytes every other row), 84, 120 (0 mod 4)
+K1_WALKS = [((37,), 3), ((6, 7), 2), ((3, 4, 5), 2), ((5,), 3), ((19,), 2),
+            ((7, 5), 3), ((2, 3, 7), 3), ((58,), 5)]
+
+
+@pytest.mark.parametrize("V", [4, 2])
+@pytest.mark.parametrize("sizes,D", K1_WALKS)
+def test_forward_tile_walk_mirror_matches_plain(sizes, D, V):
+    """The forward kernel mirrored in numpy: the fold, then the write
+    pass's CTAs (one, 40 whose ranges of rows start and end inside a
+    block and cross blocks, and one wave of a card's), its (row, vector)
+    walk with each row's head and tail peeled (V = 4: float32, 2:
+    float64), the doubled row of a 1-D grid (and, where that would not
+    fit, the 1-D grid read as any other) and the grid coordinates of any
+    grid: every element stored once, no read of shared memory the kernel
+    did not fill, and the plain version's K_UU."""
+    kinds, prm, dists, B = _k1_problem(sizes, D)
     want = kuu.kuu_dense_plain(kinds, torch.as_tensor(prm),
                                torch.as_tensor(dists), torch.as_tensor(B),
                                sizes).numpy()
-    for per_launch in (None, 3):
-        got = _forward_mirror(kinds, prm, dists, B, sizes,
-                              per_launch=per_launch)
+    c = fwd_mirrors.kuu_fold(kinds, prm, dists, B)
+    runs = [(1, None), (40, None), (1056, None)] + (
+        [(40, False)] if len(sizes) == 1 else [])
+    for ctas, one_d in runs:
+        got, count = fwd_mirrors.kuu_write(c, D, sizes, V, ctas, one_d)
+        assert np.all(count == 1)
         np.testing.assert_allclose(got, want, rtol=RTOL,
                                    atol=RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("sizes", [(37,), (6, 7), (3, 4, 5)])
+def test_fold_in_q_order_reproduces_the_per_element_sum(sizes, dtype):
+    """Folding over q once per (d, e, offset) and copying the folded value
+    to each element gives each element's own sum in q order bit for bit
+    (K_UU keeps the bits of the kernel that summed per element), and the
+    plain version's K_UU within the dtype's rounding."""
+    D = 3
+    kinds, prm, dists, B = _k1_problem(sizes, D, seed=5)
+    prm, dists, B = (a.astype(dtype) for a in (prm, dists, B))
+    m = len(dists)
+    c = fwd_mirrors.kuu_fold(kinds, prm, dists, B)
+    assert c.dtype == dtype
+    idx = bttb_index_map(sizes)
+    folded = c.reshape(D, D, m)[:, :, idx].transpose(0, 2, 1, 3)
+    tops = [prm[q, 2] * fwd_mirrors.kern_eval(k, dists, prm[q, 0],
+                                               prm[q, 1])
+            for q, k in enumerate(kinds)]
+    per_elem = np.zeros((D, m, D, m), dtype=dtype)
+    for q in range(len(kinds)):
+        per_elem = (B[q][:, None, :, None] * tops[q][idx][None, :, None, :]
+                    + per_elem)
+    assert np.array_equal(folded, per_elem)
+    want = kuu.kuu_dense_plain(kinds, torch.as_tensor(prm),
+                               torch.as_tensor(dists), torch.as_tensor(B),
+                               sizes).numpy()
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(folded.reshape(D * m, D * m), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+def test_fast_division_matches_integer_division():
+    """The write pass's multiply-high division by every divisor a grid
+    axis of up to 2^20 points can have, on the numerators a launch can
+    give it (up to 2^20) and the range's ends."""
+    rng = np.random.RandomState(0)
+    n = np.concatenate([np.arange(4096), rng.randint(0, 1 << 20, 4096),
+                        [(1 << 20) - 1, (1 << 31) - 1]]).astype(np.int64)
+    for d in list(range(1, 600)) + [1023, 1024, 1025, 2504, 4096, 65535,
+                                   (1 << 20) - 1, 1 << 20]:
+        f = fwd_mirrors.fast_div(d)
+        assert np.array_equal(fwd_mirrors.div_by(n, f), n // d), d
