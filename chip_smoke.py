@@ -230,7 +230,13 @@ does the same for K7 bwd and K1 bwd (:func:`bwd_times`), and
 
     python3 chip_smoke.py --fwd-times [ROOT]
 
-for K1 and K7 forward, with a sha256 of each output (:func:`fwd_times`).
+for K1 and K7 forward, with a sha256 of each output (:func:`fwd_times`);
+
+    python3 chip_smoke.py --k10-k9-times [ROOT]
+
+for K10's forward and K9's gather, with a sha256 of each output, the
+wrapper's host µs per call and the card's launch floor
+(:func:`k10_k9_times`).
 """
 
 import contextlib
@@ -550,6 +556,8 @@ def device_profile(fn, reps=1, ranges=False):
     return out + (split,)
 
 
+# K9's layer, which the step profiles require
+K9_LAYER = "K9 and K4 W applies (hand, interp.cu)"
 # device kernels by the layer of the kernel table they belong to; the
 # library-routed part of K3 (the factorization) is told apart by its
 # cuSOLVER kernel names, the hand part around it by its own. Every
@@ -570,7 +578,8 @@ LAYERS = (
     ("K7 backward", lambda k: "::k7_bwd_" in k),
     ("K13", lambda k: k.startswith("lanczos_")),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
-    ("K10", lambda k: "fourier_fwd_kernel" in k),
+    ("K10", lambda k: "::fourier_fwd_kernel<" in k
+     or "::fourier_fwd_small_kernel<" in k),
     ("K12", lambda k: k == "minres_kernel"),
     ("K8 fft first rows (hand, kern_rows_fft.cu)",
      lambda k: "::rows_fft_kernel<" in k or "::rows_fft_bwd_kernel<" in k),
@@ -580,8 +589,9 @@ LAYERS = (
      or "::kuu_write_kernel<" in k),
     ("K7", lambda k: "::k7_pair_kernel<" in k
      or "::k7_general_kernel<" in k),
-    ("K9 and K4 W applies (hand, interp.cu)",
-     lambda k: "::gather_kernel<" in k or "::scatter_kernel<" in k),
+    (K9_LAYER,
+     lambda k: any(p in k for p in ("::gather_kernel<", "::scatter_kernel<",
+                                    "::scatter_warp_kernel<"))),
     ("K6", lambda k: k in ("xr_kernel", "p_kernel")),
     ("K3 backward (hand, chol_jitter.cu)",
      lambda k: any(p in k for p in ("k3_line_bwd_kernel<",
@@ -760,6 +770,27 @@ def print_k3_bwd(what, layers):
     v = layers.get(K3_BWD_LAYER, {"device_ms": 0.0, "launches": 0.0})
     print("K3 bwd per %s step: %.4f ms device, %.1f launches"
           % (what, v["device_ms"], v["launches"]), flush=True)
+
+
+@contextlib.contextmanager
+def generic_kernels():
+    """K10's forward and K9's gather as their generic kernels: K10's
+    generic instance, the gather's generic tap count, one batch row a
+    thread, a thread a row (the selectors patched, restored on
+    exit)."""
+    from runlmc_tpu_torch.hopper import fourier, interp
+
+    saved = (fourier.fourier_instance, interp.gather_taps,
+             interp.gather_chunk, interp.gather_layout)
+    fourier.fourier_instance = lambda rep, D, K: fourier.GENERIC
+    interp.gather_taps = lambda taps: 0
+    interp.gather_chunk = lambda n, nbatch, layout: 1
+    interp.gather_layout = lambda sb, sc, nbatch: interp.GATHER_ROWS
+    try:
+        yield
+    finally:
+        (fourier.fourier_instance, interp.gather_taps,
+         interp.gather_chunk, interp.gather_layout) = saved
 
 
 def require_layers(layers, names, what):
@@ -1541,6 +1572,14 @@ def main():
         vf = randn(nrhs, Dw, Fw, dtype=cplx[dtype])
         kargs = ("slfm", vf, gs.A, gs.That_rep, gs.diag_That)
         out = fourier.fourier_contract(*kargs)
+        again = fourier.fourier_contract(*kargs)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again), "fourier_contract is not "
+                "deterministic at the weather shape")
+        with generic_kernels():
+            require(torch.equal(out, fourier.fourier_contract(*kargs)),
+                    "fourier_contract's instance and its generic kernel "
+                    "differ in bits at the weather shape")
         want = fourier.fourier_contract_plain(*kargs)
         record("fourier_contract", dtype, "cuda",
                "runlmc_tpu_torch/hopper/csrc/fourier.cu",
@@ -1550,7 +1589,8 @@ def main():
                lambda kargs=kargs: fourier.fourier_contract(*kargs),
                lambda kargs=kargs: fourier.fourier_contract_plain(*kargs),
                nbytes(vf, out, gs.A, gs.That_rep, gs.diag_That),
-               (8.0 * Dw * R + 6.0 * R + 8.0 * Dw) * nrhs * Fw)
+               (8.0 * Dw * R + 6.0 * R + 8.0 * Dw) * nrhs * Fw,
+               extra={"instance": fourier.fourier_instance("slfm", Dw, R)})
     # 'sum' and 'bt' at a small shape, both dtypes
     for dtype in (torch.float64, torch.float32):
         vs = randn(5, 3, 257, dtype=cplx[dtype])
@@ -2946,7 +2986,8 @@ def main():
     # (one column), and the gather of kinv_diag's V = W F (3094 columns);
     # the library routes are index_add_ (scatter) and embedding_bag
     # (gather) on the columns as rows
-    def k9_rows(W, nb, dtype, path, site, which=("scatter", "gather")):
+    def k9_rows(W, nb, dtype, path, site, which=("scatter", "gather"),
+                transposed=False):
         tol = 1e-12 if dtype == torch.float64 else 1e-5
         n_, taps = W.indices.shape
         if "scatter" in which:
@@ -2978,10 +3019,21 @@ def main():
                                                  interp.SCATTER_WARP
                                                  else "thread")})
         if "gather" in which:
-            v = randn(nb, W.ncols, dtype=dtype)
+            # kinv_diag's operand is F^T, a transposed view: so here
+            v = (randn(W.ncols, nb, dtype=dtype).T if transposed
+                 else randn(nb, W.ncols, dtype=dtype))
             out = interp.interp_gather(W.indices, W.weights, v)
+            again = interp.interp_gather(W.indices, W.weights, v)
+            torch.cuda.synchronize()
+            require(torch.equal(out, again), "interp_gather is not "
+                    "deterministic at %s" % site)
+            with generic_kernels():
+                require(torch.equal(out, interp.interp_gather(
+                    W.indices, W.weights, v)), "interp_gather's instance "
+                    "and its generic kernel differ in bits at %s" % site)
             idx_l = W.indices.long()
             vT = v.T.contiguous()
+            lay = interp.gather_layout(*v.stride(), nb)
             record("interp_gather", dtype, "cuda",
                    "runlmc_tpu_torch/hopper/csrc/interp.cu",
                    "runlmc_tpu/lmc/woodbury.py:151", out,
@@ -2995,7 +3047,12 @@ def main():
                    library_fn=lambda idx_l=idx_l, vT=vT, W=W:
                    torch.nn.functional.embedding_bag(
                        idx_l, vT, per_sample_weights=W.weights, mode="sum"),
-                   path=path, extra={"site": site, "columns": nb})
+                   path=path, extra={
+                       "site": site, "columns": nb,
+                       "operand": "transposed" if transposed else "rows",
+                       "chunk": interp.gather_chunk(n_, nb, lay),
+                       "layout": lay,
+                       "taps_instance": interp.gather_taps(taps)})
 
     k9_rows(wm.inner_data32[0].interp, nrhs, torch.float32,
             "train (stochastic, fft)", "weather step, float32 inner cycles")
@@ -3005,7 +3062,7 @@ def main():
             torch.float32, "predict", "fx2007 predict preconditioner")
     k9_rows(model.grid_data32[0].interp, dm_fx, torch.float32,
             "loo_zsq (float32)", "fx2007 kinv_diag V = W F",
-            which=("gather",))
+            which=("gather",), transposed=True)
     k9_rows(sm.grid_data32[0].interp, 1, torch.float32, "synth",
             "synth exact step")
 
@@ -3265,8 +3322,8 @@ def main():
     print("training step device time by layer (per step):", flush=True)
     print_layers(step_layers)
     print_k3_bwd("fx2007 training", step_layers)
-    require_layers(step_layers, ("K1", "K1 backward"), "an fx2007 training "
-                   "step")
+    require_layers(step_layers, ("K1", "K1 backward", K9_LAYER),
+                   "an fx2007 training step")
     require("trsm (cuBLAS)" not in step_layers, "an fx2007 training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("training step device time inside the Woodbury solve with C and "
@@ -3627,7 +3684,8 @@ def main():
     wstep_layers = by_layer(wchunk_rows, per=wm.chunk_len)
     print("stochastic step device time by layer (per step):", flush=True)
     print_layers(wstep_layers)
-    require_layers(wstep_layers, ("K1",), "a weather stochastic step")
+    require_layers(wstep_layers, ("K1", "K10", K9_LAYER),
+                   "a weather stochastic step")
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
     print_split(wchunk_split, per=wm.chunk_len)
@@ -4147,8 +4205,8 @@ def main():
     print("synth step device time by layer (per step):", flush=True)
     print_layers(sstep_layers)
     print_k3_bwd("synth training", sstep_layers)
-    require_layers(sstep_layers, ("K1", "K1 backward"), "a synth training "
-                   "step")
+    require_layers(sstep_layers, ("K1", "K1 backward", K9_LAYER),
+                   "a synth training step")
     require("trsm (cuBLAS)" not in sstep_layers, "a synth training step "
             "ran cuBLAS's trsm: a solve left the hand kernels")
     print("synth step device time inside the ranges (per step; forward "
@@ -4926,6 +4984,192 @@ def fwd_times(root):
     return 0
 
 
+# K10's forward at the weather shape and 'sum' / 'bt' at a small one:
+# (rep, batch rows, outputs D, K = Q or R (0 for 'bt'), frequencies F,
+# dtype of the real parts)
+K10_SHAPES = (("slfm", 16, 4, 2, 4097, "float32"),
+              ("slfm", 16, 4, 2, 4097, "float64"),
+              ("sum", 5, 3, 2, 257, "float32"),
+              ("sum", 5, 3, 2, 257, "float64"),
+              ("bt", 5, 3, 0, 257, "float32"),
+              ("bt", 5, 3, 0, 257, "float64"))
+# K9's gather at the paths' shapes: (site, outputs, grid points per input
+# dim, input dims, data rows, batch rows, dtype, operand layout); the
+# kinv_diag operand is F^T, a transposed view
+K9_GATHER_SHAPES = (
+    ("weather", 4, 2504, 1, 15768, 16, "float32", "rows"),
+    ("weather", 4, 2504, 1, 15768, 16, "float64", "rows"),
+    ("fx2007 predict preconditioner", 13, 238, 1, 3113, 151, "float32",
+     "rows"),
+    ("synth", 5, 29, 2, 47480, 1, "float32", "rows"),
+    ("fx2007 kinv_diag V = W F", 13, 238, 1, 3113, 3094, "float32",
+     "transposed"),
+)
+HOST_CALLS = 300
+
+
+def k10_k9_times(root):
+    """``--k10-k9-times [ROOT]``: K10's forward and K9's gather in the
+    package at ROOT (this checkout by default) at ``K10_SHAPES`` and
+    ``K9_GATHER_SHAPES`` on seeded inputs (the interpolants of seeded
+    sorted points on each output's grid): profiler device ms, CUDA
+    events, the events' device span with the calls queued
+    (:func:`queued_time`), a sha256 of the output's bytes, ``fill_`` of
+    a tensor of the output's size, and the wrapper's host µs per call
+    (``perf_counter`` over ``HOST_CALLS`` calls, no sync inside); then
+    ``fill_`` of one element, the card's launch floor, and parts of a
+    wrapper's host time. Where the package has the selectors, K10's
+    generic kernel, the gather's generic taps and every gather layout
+    and chunk are timed as well (queued, with their sha256). One
+    JSON line at the end; to compare two checkouts on one card, run it
+    for each in one call, in turns."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from runlmc_tpu_torch.hopper import build, fourier, interp
+    from runlmc_tpu_torch.ops.interpolation import multi_interpolant
+
+    build.build_all(["fourier", "interp"])
+    dev = torch.device("cuda")
+    rows = []
+
+    def sha(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / HOST_CALLS * 1e6
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps({k: v for k, v in row.items() if k != "by_kernel"}),
+              flush=True)
+
+    def timed(fn, host=True, **row):
+        row["sha256"] = sha(fn)
+        dms, krows, _ = device_profile(fn, reps=10)
+        row.update(device_ms=dms, ms=cuda_time(fn), queued_ms=queued_time(fn),
+                   by_kernel=[[k[:60], c / 10, ms / 10] for k, c, ms in krows])
+        if host:
+            row["host_us"] = host_us(fn)
+        emit(row)
+
+    def variant(fn, **row):  # a selector's choice overridden
+        emit(dict(row, sha256=sha(fn), queued_ms=queued_time(fn)))
+
+    sweeps = hasattr(fourier, "fourier_instance")
+    cplx = {"float32": torch.complex64, "float64": torch.complex128}
+    for rep, nb, D, K, F, dts in K10_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + nb * F + D)
+        f = dict(dtype=getattr(torch, dts), device=dev)
+        c = dict(dtype=cplx[dts], device=dev)
+        vf = torch.randn(nb, D, F, generator=g, **c)
+        if rep == "slfm":
+            args = (torch.randn(D, K, generator=g, **f),
+                    torch.randn(K, F, generator=g, **c),
+                    torch.randn(D, F, generator=g, **c))
+        elif rep == "sum":
+            args = (torch.randn(K, D, D, generator=g, **f),
+                    torch.randn(K, F, generator=g, **c), None)
+        else:
+            args = (None, torch.randn(D, D, F, generator=g, **c), None)
+        run = (lambda rep=rep, vf=vf, args=args:
+               fourier.fourier_contract(rep, vf, *args))
+        shape = dict(name="fourier_contract", rep=rep, dtype=dts,
+                     shape=[nb, D, F], K=K)
+        timed(run, **shape)
+        if sweeps:
+            saved = fourier.fourier_instance
+            try:
+                fourier.fourier_instance = lambda rep, D, K: fourier.GENERIC
+                variant(run, instance="generic", **shape)
+            finally:
+                fourier.fourier_instance = saved
+        fill = torch.empty_like(vf)
+        timed(lambda: fill.fill_(1.0), host=False,
+              name="fill_ (K10's bytes)", dtype=dts, shape=[nb, D, F])
+        del vf, args, fill
+    for site, D, m, dims, n, nb, dts, layout in K9_GATHER_SHAPES:
+        rng = np.random.RandomState(SEED + n)
+        axes = [np.linspace(0.0, 1.0, m) for _ in range(dims)]
+        counts = np.diff(np.linspace(0, n, D + 1).astype(int))
+        Xs = [rng.uniform(0.0, 1.0, (c, dims)) for c in counts]
+        Xs = [X[np.argsort(X[:, 0], kind="stable")] for X in Xs]
+        W = multi_interpolant(Xs, axes).to(getattr(torch, dts), dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + n + nb)
+        f = dict(dtype=getattr(torch, dts), device=dev)
+        v = (torch.randn(W.ncols, nb, generator=g, **f).T
+             if layout == "transposed"
+             else torch.randn(nb, W.ncols, generator=g, **f))
+        run = (lambda W=W, v=v:
+               interp.interp_gather(W.indices, W.weights, v))
+        taps = W.indices.shape[1]
+        shape = dict(name="interp_gather", site=site, dtype=dts,
+                     shape=[nb, n], ncols=W.ncols, taps=taps, operand=layout)
+        timed(run, **shape)
+        if sweeps:
+            saved = (interp.gather_taps, interp.gather_chunk,
+                     interp.gather_layout)
+            try:
+                interp.gather_taps = lambda taps: 0
+                variant(run, instance="generic taps", **shape)
+                interp.gather_taps = saved[0]
+                layouts = {"rows": interp.GATHER_ROWS}
+                if layout == "transposed":
+                    layouts["column tiles"] = interp.GATHER_COLS
+                for lname, lay in layouts.items():
+                    interp.gather_layout = (lambda sb, sc, nbatch, lay=lay:
+                                            lay)
+                    for chunk in interp.GATHER_CHUNKS[lay]:
+                        interp.gather_chunk = (lambda n, nbatch, lay_,
+                                               chunk=chunk: chunk)
+                        variant(run, chunk=chunk, layout=lname, **shape)
+            finally:
+                (interp.gather_taps, interp.gather_chunk,
+                 interp.gather_layout) = saved
+        fill = torch.empty((nb, n), **f)
+        timed(lambda: fill.fill_(1.0), host=False,
+              name="fill_ (the gather's bytes)", site=site, dtype=dts,
+              shape=[nb, n])
+        del v, W, fill
+    one = torch.empty(1, device=dev)
+    for _ in range(2):
+        timed(lambda: one.fill_(1.0), name="fill_ (one element)")
+    # the parts of a wrapper's host time: the stream handle (also of a
+    # tensor's device, where the package's stream_ptr takes one), an
+    # output allocation
+    parts = [("build.stream_ptr()", build.stream_ptr)]
+    if build.stream_ptr.__code__.co_argcount:
+        parts.append(("build.stream_ptr(cuda:0)",
+                      lambda: build.stream_ptr(one.device)))
+    parts += [("torch.cuda.current_stream().cuda_stream",
+               lambda: torch.cuda.current_stream().cuda_stream),
+              ("torch._C._cuda_getCurrentRawStream(0)",
+               lambda: torch._C._cuda_getCurrentRawStream(0)),
+              ("torch.cuda.current_device()", torch.cuda.current_device),
+              ("torch.empty((16, 15768))",
+               lambda: torch.empty((16, 15768), device=dev))]
+    for what, fn in parts:
+        emit(dict(name="host part", part=what, host_us=host_us(fn)))
+    print(json.dumps({"k10_k9_times": rows, "root": os.path.abspath(root),
+                      "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-bwd-times"]:
         sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
@@ -4933,4 +5177,6 @@ if __name__ == "__main__":
         sys.exit(bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     if sys.argv[1:2] == ["--fwd-times"]:
         sys.exit(fwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
+    if sys.argv[1:2] == ["--k10-k9-times"]:
+        sys.exit(k10_k9_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

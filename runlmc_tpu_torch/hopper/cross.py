@@ -111,7 +111,7 @@ def cross_kernel(xa, oa, xb, ob, B, kinds, masks, prm):
         *((None, 0, 0, 0) if plan is None else
           (plan[0].data_ptr(),) + plan[1:]),
         out.data_ptr(), na, nb, P, Q, D,
-        torch.cuda.current_stream(xa.device).cuda_stream,
+        build.stream_ptr(xa.device),
     ), "cross_kernel")
     cross_kernel.launches[sfx] += 1
     return out
@@ -326,7 +326,7 @@ def cross_kernel_bwd(xa, oa, xb, ob, B, kinds, masks, prm, G, alpha=None):
         work.data_ptr() + npairs * 2 * Q * 3 * work.element_size(),
         build.ticket("cross_kernel_bwd", G.device).data_ptr(),
         dB.data_ptr(), dprm.data_ptr(), nb, P, Q, D,
-        torch.cuda.current_stream(G.device).cuda_stream,
+        build.stream_ptr(G.device),
     ), "cross_kernel_bwd")
     # one count per tile launch (a slice of at most _MAX_Q kernels)
     cross_kernel_bwd.launches[sfx] += -(-Q // _MAX_Q)

@@ -28,14 +28,30 @@
 // (b, f): about 2.6 us at 3.35 TB/s. The backward reads G and v (8.4 MB)
 // and writes H (1.0 MB).
 //
-// Design: one thread per (b, f) for the forward, one per (d, e, f) for the
-// backward; neighbouring threads take neighbouring frequencies, so every
-// read and write of a warp is coalesced. The forward loops over the output
-// d and recomputes each output's sum from v (D^2 reads of v per thread,
-// served by L1; 'slfm' recomputes the rank projection per output, D^2 R
+// Design. The forward has an instance specialised on small shapes, at
+// D <= 4 and K <= 2 ('slfm' R, 'sum' Q; 'bt' D <= 4), and a generic
+// kernel for any other shape; the host picks one from (rep, D, K) alone
+// (hopper/fourier.py fourier_instance). The instance runs one thread
+// per (b, f), as the generic kernel, but reads the symbol values of its
+// f (T[r,f] and K[d,f], T[q,f], or S[d,e,f]) and its D operand values
+// once into registers, all at once, forms the rank projections once
+// ('slfm': R sums over e, not D R) and writes the D outputs. A and B are read straight from global memory
+// (the same address across the warp, served by L1): no shared memory and
+// no barrier. A thread over a chunk of 2 or 4 batch rows, with the
+// symbol held across them, was slower on the H100 at every shape timed
+// (the weather group's 16 rows, 128 rows, 'sum' and 'bt' at 5 rows):
+// the symbol's rereads come from L2, and the chunk cuts the threads in
+// flight. Each output keeps the generic kernel's order of operations
+// (the same sums over e, r or q, started from 0, in the same order, with
+// the same complex helpers), so the instance's outputs equal the generic
+// kernel's to the bit. The generic kernel loops over the output d and
+// recomputes each output's sum from v (D^2 reads of v per thread, served
+// by L1; 'slfm' recomputes the rank projection per output, D^2 R
 // multiply-adds), which needs no per-thread arrays and so takes any D, Q
-// and R. The real matrices B or A sit in shared memory. The backward loops
-// over b in a fixed order: deterministic, no atomics.
+// and R; its real matrices B or A sit in shared memory. Neighbouring
+// threads take neighbouring frequencies, so every read and write of a
+// warp is coalesced. The backward runs one thread per (d, e, f) and
+// loops over b in a fixed order: deterministic, no atomics.
 
 #include "common.cuh"
 
@@ -122,6 +138,91 @@ __global__ void fourier_fwd_kernel(int rep, const C* __restrict__ v,
     }
 }
 
+// The small instance, one per rep: REP as the generic kernel's rep,
+// D <= DM and K <= KM (loops unrolled to DM and KM, guarded by the runtime D and K).
+template <typename T, typename C, int REP, int DM, int KM>
+__global__ void __launch_bounds__(kThreads)
+fourier_fwd_small_kernel(const C* __restrict__ v, C* __restrict__ g,
+                         const T* __restrict__ mat,
+                         const C* __restrict__ sym,
+                         const C* __restrict__ diag, int nb, int D, int K,
+                         int F) {
+    const int f = blockIdx.x * blockDim.x + threadIdx.x;
+    if (f >= F) return;
+    const int64_t dF = (int64_t)D * F;
+    const C zero = cmake(T(0), T(0));
+    // the symbol values of this f: T[r,f] and K[d,f] ('slfm'), T[q,f]
+    // ('sum'), S[d,e,f] at s[d DM + e] ('bt')
+    constexpr int NS = REP == 1 ? DM * DM : KM;
+    C s[NS];
+    C kd[DM];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+        if constexpr (REP == 1) {
+            const int d = i / DM, e = i % DM;
+            s[i] = (d < D && e < D) ? sym[((int64_t)d * D + e) * F + f]
+                                    : zero;
+        } else {
+            s[i] = i < K ? sym[(int64_t)i * F + f] : zero;
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < DM; ++d) {
+        kd[d] = (REP == 2 && d < D) ? diag[(int64_t)d * F + f] : zero;
+    }
+    for (int64_t b = blockIdx.y; b < nb; b += gridDim.y) {
+        C x[DM];
+#pragma unroll
+        for (int e = 0; e < DM; ++e) {
+            x[e] = e < D ? v[b * dF + (int64_t)e * F + f] : zero;
+        }
+        C* gb = g + b * dF + f;
+        C p[KM];
+        if constexpr (REP == 2) {
+#pragma unroll
+            for (int r = 0; r < KM; ++r) {
+                p[r] = zero;
+                if (r >= K) continue;
+#pragma unroll
+                for (int e = 0; e < DM; ++e) {
+                    if (e < D) p[r] = cadd(p[r], cscale(x[e], mat[e * K + r]));
+                }
+                p[r] = cmul(p[r], s[r]);
+            }
+        }
+#pragma unroll
+        for (int d = 0; d < DM; ++d) {
+            if (d >= D) break;
+            C acc = zero;
+            if constexpr (REP == 0) {
+#pragma unroll
+                for (int q = 0; q < KM; ++q) {
+                    if (q >= K) continue;
+                    const T* Bqd = mat + ((int64_t)q * D + d) * D;
+                    C t = zero;
+#pragma unroll
+                    for (int e = 0; e < DM; ++e) {
+                        if (e < D) t = cadd(t, cscale(x[e], Bqd[e]));
+                    }
+                    acc = cadd(acc, cmul(s[q], t));
+                }
+            } else if constexpr (REP == 1) {
+#pragma unroll
+                for (int e = 0; e < DM; ++e) {
+                    if (e < D) acc = cadd(acc, cmul(s[d * DM + e], x[e]));
+                }
+            } else {
+#pragma unroll
+                for (int r = 0; r < KM; ++r) {
+                    if (r < K) acc = cadd(acc, cscale(p[r], mat[d * K + r]));
+                }
+                acc = cadd(acc, cmul(kd[d], x[d]));
+            }
+            gb[(int64_t)d * F] = acc;
+        }
+    }
+}
+
 template <typename T, typename C>
 __global__ void fourier_bwd_kernel(const C* __restrict__ G,
                                    const C* __restrict__ v,
@@ -140,14 +241,45 @@ __global__ void fourier_bwd_kernel(const C* __restrict__ G,
     H[(int64_t)de * F + f] = acc;
 }
 
+// forward instances (hopper/fourier.py GENERIC, SMALL)
+constexpr int kGeneric = 0;
+constexpr int kSmall = 1;
+
+template <typename T, typename C, int REP, int DM, int KM>
+int launch_small(const C* v, C* g, const T* mat, const C* sym,
+                 const C* diag, int nb, int D, int K, int F,
+                 cudaStream_t stream) {
+    if (D > DM || K > KM) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)((F + kThreads - 1) / kThreads),
+              (unsigned)runlmc::grid_y(nb));
+    fourier_fwd_small_kernel<T, C, REP, DM, KM>
+        <<<grid, kThreads, 0, stream>>>(v, g, mat, sym, diag, nb, D, K, F);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, typename C>
-int launch_fwd(int rep, const C* v, C* g, const T* mat, const C* sym,
-               const C* diag, int nb, int D, int K, int F, void* stream) {
+int launch_fwd(int rep, int instance, const C* v, C* g,
+               const T* mat, const C* sym, const C* diag, int nb, int D,
+               int K, int F, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (instance == kSmall) {
+        if (rep == 0)
+            return launch_small<T, C, 0, 4, 2>(v, g, mat, sym, diag,
+                                               nb, D, K, F, st);
+        if (rep == 1)
+            return launch_small<T, C, 1, 4, 1>(v, g, mat, sym, diag,
+                                               nb, D, 0, F, st);
+        if (rep == 2)
+            return launch_small<T, C, 2, 4, 2>(v, g, mat, sym, diag,
+                                               nb, D, K, F, st);
+        return (int)cudaErrorInvalidValue;
+    }
+    if (instance != kGeneric) return (int)cudaErrorInvalidValue;
     const int nmat = rep == 0 ? K * D * D : (rep == 2 ? D * K : 0);
     const size_t smem = (size_t)nmat * sizeof(T);
     dim3 grid((unsigned)((F + kThreads - 1) / kThreads),
               (unsigned)runlmc::grid_y(nb));
-    fourier_fwd_kernel<T, C><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    fourier_fwd_kernel<T, C><<<grid, kThreads, smem, st>>>(
         rep, v, g, mat, sym, diag, nb, D, K, F);
     return (int)cudaGetLastError();
 }
@@ -163,20 +295,20 @@ int launch_bwd(const C* G, const C* v, C* H, int nb, int D, int F,
 
 }  // namespace
 
-extern "C" int fourier_fwd_f32(int rep, const float2* v, float2* g,
-                               const float* mat, const float2* sym,
-                               const float2* diag, int nb, int D, int K,
-                               int F, void* stream) {
-    return launch_fwd<float, float2>(rep, v, g, mat, sym, diag, nb, D, K, F,
-                                     stream);
+extern "C" int fourier_fwd_f32(int rep, int instance, const float2* v,
+                               float2* g, const float* mat,
+                               const float2* sym, const float2* diag, int nb,
+                               int D, int K, int F, void* stream) {
+    return launch_fwd<float, float2>(rep, instance, v, g, mat, sym, diag, nb,
+                                     D, K, F, stream);
 }
 
-extern "C" int fourier_fwd_f64(int rep, const double2* v, double2* g,
-                               const double* mat, const double2* sym,
-                               const double2* diag, int nb, int D, int K,
-                               int F, void* stream) {
-    return launch_fwd<double, double2>(rep, v, g, mat, sym, diag, nb, D, K,
-                                       F, stream);
+extern "C" int fourier_fwd_f64(int rep, int instance, const double2* v,
+                               double2* g, const double* mat,
+                               const double2* sym, const double2* diag,
+                               int nb, int D, int K, int F, void* stream) {
+    return launch_fwd<double, double2>(rep, instance, v, g, mat, sym, diag,
+                                       nb, D, K, F, stream);
 }
 
 extern "C" int fourier_bwd_f32(const float2* G, const float2* v, float2* H,

@@ -23,9 +23,14 @@ H. Torch's complex gradients follow the conjugate Wirtinger convention:
 for g = S vf the cotangent of S is G conj(vf), and a real parameter
 takes the real part. The operand's cotangent is the forward with the
 conjugated, transposed symbol. :class:`FourierContract` joins the two
-as one autograd function. :func:`fourier_contract_plain` and
-:func:`fourier_contract_bwd_plain` are the plain PyTorch versions,
-which the wrappers run for CPU tensors.
+as one autograd function.
+
+The forward launches an instance specialised on small shapes where it
+fits (:func:`fourier_instance`, from (rep, D, K) alone: the operand and
+the symbol of a (b, f) in registers) and the generic kernel otherwise.
+The instance gives the generic kernel's bits.
+:func:`fourier_contract_plain` and :func:`fourier_contract_bwd_plain`
+are the plain PyTorch versions, which the wrappers run for CPU tensors.
 """
 
 import ctypes
@@ -35,6 +40,13 @@ import torch
 from runlmc_tpu_torch.hopper import build
 
 REPS = {"sum": 0, "bt": 1, "slfm": 2}
+# forward instances (csrc/fourier.cu kGeneric, kSmall) and the largest
+# (D, K) the small one takes: K is Q for 'sum' and R for 'slfm', and 'bt'
+# has no K
+GENERIC = 0
+SMALL = 1
+SMALL_MAX_D = 4
+SMALL_MAX_K = 2
 _SMEM_LIMIT = 48 * 1024
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
@@ -50,6 +62,14 @@ def fourier_contract_plain(rep, vf, mat, sym, diag=None):
         proj = torch.einsum("dr,bdf->brf", A, vf) * sym
         return torch.einsum("dr,brf->bdf", A, proj) + diag * vf
     raise ValueError("unknown representation %r" % (rep,))
+
+
+def fourier_instance(rep, D, K):
+    """The forward's instance for ``rep`` at D outputs and K = Q ('sum')
+    or R ('slfm'; 0 for 'bt'): a pure function of the three."""
+    if D <= SMALL_MAX_D and (rep == "bt" or K <= SMALL_MAX_K):
+        return SMALL
+    return GENERIC
 
 
 def _real_suffix(what, t):
@@ -100,21 +120,20 @@ def fourier_contract(rep, vf, mat, sym, diag=None):
     diag = tensors[3] if rep == "slfm" else None
     build.require_cuda("fourier_contract", *tensors)
     g = torch.empty_like(vf)
-    fn = build.function(
-        "fourier", "fourier_fwd_" + sfx,
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p],
-    )
+    fn = build.function("fourier", "fourier_fwd_" + sfx, _FWD_ARGS)
     if nb:
-        build.check(fn(REPS[rep], build.ptr(vf), build.ptr(g),
-                       None if mat is None else build.ptr(mat),
-                       build.ptr(sym),
-                       None if diag is None else build.ptr(diag),
+        build.check(fn(REPS[rep], fourier_instance(rep, D, K),
+                       vf.data_ptr(),
+                       g.data_ptr(), None if mat is None else mat.data_ptr(),
+                       sym.data_ptr(),
+                       None if diag is None else diag.data_ptr(),
                        nb, D, K, F, build.stream_ptr()), "fourier_contract")
         fourier_contract.launches[sfx] += 1
     return g
 
 
+_FWD_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
 fourier_contract.launches = build.counter()
 
 

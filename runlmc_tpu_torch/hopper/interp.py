@@ -11,7 +11,13 @@ result on every run. It has two variants, chosen by
 :func:`scatter_variant` from (ncols, nnz, nbatch) alone: a thread per
 column for short columns over many batch rows, a warp per column (lanes
 on strided entries, then a fixed shuffle tree) for long columns that
-would leave the card idle (synth's one-column apply).
+would leave the card idle (synth's one-column apply). The gather loads
+each row's taps once as vectors where the tap count has an instance
+(:func:`gather_taps`), walks a chunk of batch rows per thread
+(:func:`gather_chunk`, from (n, nbatch) and the layout), and reads its
+operand through its two strides, so a transposed view is not copied;
+such a view (batch rows adjacent) takes tiles with lanes on batch rows
+(:func:`gather_layout`).
 Both CUDA kernels (``csrc/interp.cu``) are bound by bytes. The plain
 versions below are what the wrappers run for CPU tensors;
 :func:`interp_scatter_lanes` sums in the warp variant's order, for the
@@ -27,6 +33,7 @@ round (W's weights are constants).
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,6 +67,69 @@ SCATTER_WARP = 1
 WARP_MIN_MEAN = 16
 CARD_THREADS = 132 * 2048
 WARP = 32
+
+
+# gather layouts (csrc/interp.cu kGatherRows, kGatherCols): a thread a
+# row over a chunk of batch rows, or tiles of GATHER_TILE rows x
+# GATHER_TILE * chunk batch rows with lanes on batch rows, for an
+# operand whose batch rows are adjacent in memory (a transposed view)
+GATHER_ROWS = 0
+GATHER_COLS = 1
+GATHER_TILE = 32
+# gather: the CTA (csrc/interp.cu kGatherThreads), the tap counts with an
+# instance of their own, and each layout's chunks (batch rows a thread),
+# largest first; the largest chunk that leaves the grid at least
+# GATHER_FILL threads (a quarter of the card's resident threads) is
+# taken, else the smallest
+GATHER_THREADS = 256
+GATHER_TAPS = (4, 16)
+GATHER_CHUNKS = {GATHER_ROWS: (4, 2, 1), GATHER_COLS: (2,)}
+GATHER_FILL = CARD_THREADS // 4
+MAX_GRID_Y = 65535
+
+
+def gather_taps(taps):
+    """The gather's instance for ``taps`` taps a row: the tap count
+    itself where it has one (taps in registers, loaded as vectors), else
+    0 (the generic instance): a pure function of ``taps``."""
+    return taps if taps in GATHER_TAPS else 0
+
+
+@functools.lru_cache(maxsize=256)
+def gather_chunk(n, nbatch, layout):
+    """Batch rows per thread of the gather of ``n`` rows over ``nbatch``
+    batch rows in ``layout`` (every tap instance alike): a pure function
+    of the three, so kept per shape."""
+    chunks = GATHER_CHUNKS[layout]
+    for c in chunks[:-1]:
+        (gx, gy), _, _ = gather_grid(n, nbatch, c, layout)
+        if gx * gy * GATHER_THREADS >= GATHER_FILL:
+            return c
+    return chunks[-1]
+
+
+def gather_layout(sb, sc, nbatch):
+    """The gather's layout for an operand of strides (``sb``, ``sc``)
+    over ``nbatch`` batch rows: the column tiles where batch rows are
+    adjacent (sb == 1, sc != 1) and fill a warp, else a thread a row: a
+    pure function of the three."""
+    if sb == 1 and sc != 1 and nbatch >= GATHER_TILE:
+        return GATHER_COLS
+    return GATHER_ROWS
+
+
+def gather_grid(n, nbatch, chunk, layout):
+    """The gather's launch as csrc/interp.cu's gather forms it: ((grid
+    x, grid y), rows, batch rows), each axis as (its grid size, items a
+    CTA, strided). Grid x is over blocks of rows (GATHER_THREADS in the
+    row layout, GATHER_TILE in the column tiles), grid y over blocks of
+    batch rows (``chunk``, or GATHER_TILE * ``chunk``), strided: grid
+    row y takes blocks y, y + grid y, ..."""
+    rows, per = ((GATHER_TILE, GATHER_TILE * chunk) if layout == GATHER_COLS
+                 else (GATHER_THREADS, chunk))
+    gx = -(-n // rows)
+    gy = max(1, min(-(-nbatch // per), MAX_GRID_Y))
+    return (gx, gy), (gx, rows, False), (gy, per, True)
 
 
 def scatter_variant(ncols, nnz, nbatch):
@@ -99,31 +169,41 @@ def _flat_batch(t):
     return batch, t.reshape(-1, t.shape[-1]).contiguous()
 
 
+_GATHER_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+
+
 def interp_gather(idx, w, v):
     """W v for ``v`` (..., ncols), ``idx`` (n, taps) int32, ``w`` (n, taps)
-    -> (..., n); the CUDA kernel for CUDA tensors."""
+    -> (..., n) contiguous; the CUDA kernel for CUDA tensors, which reads
+    ``v`` through its strides (no copy of a transposed view)."""
     if build.use_plain("interp_gather", v):
         return interp_gather_plain(idx, w, v)
     n, taps = idx.shape
     if idx.dtype != torch.int32 or w.shape != idx.shape or w.dtype != v.dtype:
         raise ValueError("interp_gather: idx int32 and w (n, taps) in v's "
                          "dtype expected")
-    batch, v2 = _flat_batch(v)
-    ncols = v2.shape[1]
+    # a view wherever the strides allow (the paths pass 2-D operands)
+    v2 = v if v.dim() == 2 else v.reshape(-1, v.shape[-1])
+    sb, sc = v2.stride()
     idx, w = idx.contiguous(), w.contiguous()
-    build.require_cuda("interp_gather", idx, w, v2)
     out = torch.empty((v2.shape[0], n), dtype=v.dtype, device=v.device)
+    build.require_cuda("interp_gather", idx, w, out)
     sfx = build.suffix("interp_gather", v.dtype)
-    fn = build.function(
-        "interp", "interp_gather_" + sfx,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    )
+    fn = build.function("interp", "interp_gather_" + sfx, _GATHER_ARGS)
     if out.numel():
-        build.check(fn(build.ptr(idx), build.ptr(w), build.ptr(v2),
-                       build.ptr(out), n, taps, ncols, v2.shape[0],
-                       build.stream_ptr()), "interp_gather")
+        aligned = idx.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        nb = v2.shape[0]
+        layout = gather_layout(sb, sc, nb)
+        build.check(fn(idx.data_ptr(), w.data_ptr(), v2.data_ptr(),
+                       out.data_ptr(), n, taps, nb, sb, sc,
+                       gather_taps(taps) if aligned else 0,
+                       gather_chunk(n, nb, layout), layout,
+                       build.stream_ptr()),
+                    "interp_gather")
         interp_gather.launches[sfx] += 1
-    return out.reshape(batch + (n,))
+    return out if v.dim() == 2 else out.reshape(v.shape[:-1] + (n,))
 
 
 def interp_scatter(ptr, rows, wt, x):

@@ -23,6 +23,8 @@ import os
 
 import torch
 
+from runlmc_tpu_torch.hopper import build
+
 # cublasFillMode_t and cudaDataType
 _LOWER = 0
 _DATA_TYPE = {torch.float32: 0, torch.float64: 1}
@@ -110,9 +112,8 @@ def potrf_(M):
     info = torch.empty((), dtype=torch.int32, device=dev)  # potrf sets it
     if n == 0:
         return M, info.zero_()
-    _check(lib.cusolverDnSetStream(
-        handle, torch.cuda.current_stream(dev).cuda_stream),
-        "cusolverDnSetStream")
+    _check(lib.cusolverDnSetStream(handle, build.stream_ptr(dev)),
+           "cusolverDnSetStream")
     key = (n, M.dtype, dev.index)
     if key not in _SIZES:
         on_dev, on_host = ctypes.c_size_t(), ctypes.c_size_t()

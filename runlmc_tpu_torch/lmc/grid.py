@@ -447,8 +447,10 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     non_indep = spec.non_indep_idxs(kidxs)
     pos_of = {q: i for i, q in enumerate(kidxs)}
     if non_indep:
+        # (D, R_tot), stored contiguous: K10 reads it as it lies, and a
+        # transposed view would be copied at every contraction
         A = torch.cat([spec.coreg_vec(raw_params, q) for q in non_indep],
-                      dim=0).T  # (D, R_tot)
+                      dim=0).T.contiguous()
         reps = [pos_of[q] for q in non_indep for _ in range(spec.ranks[q])]
         # rows picked one by one: the backward of an index tensor would
         # accumulate with atomics, in another order on every run

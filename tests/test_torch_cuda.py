@@ -361,6 +361,112 @@ def test_fourier_contract_backward(dev, dtype, rep):
         _close(a, b, dtype)
 
 
+def _generic(monkeypatch, module, name, value):
+    monkeypatch.setattr(module, name, lambda *args, **kwargs: value)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [1, 3, 4, 9])
+@pytest.mark.parametrize("rep, K", [("sum", 2), ("sum", 4), ("sum", 5),
+                                    ("slfm", 1), ("slfm", 2), ("slfm", 4),
+                                    ("slfm", 5), ("bt", 0)])
+def test_fourier_instances_match_the_generic_kernel(dev, dtype, D, rep, K,
+                                                    monkeypatch):
+    """K10's small instance (D <= 4, K <= 2) and the generic kernel (D =
+    9 or K > 2) at an odd F against the plain version; the instance's
+    outputs equal the generic kernel's to the bit, and relaunches are
+    bit-identical."""
+    vf, mat, sym, diag = _fourier_args(rep, dtype, dev, nb=6, D=D,
+                                       K=max(K, 1), F=129, seed=D + K)
+    inst = fourier.fourier_instance(rep, D, K)
+    assert (inst == fourier.GENERIC) == (D == 9 or K > 2)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = fourier.fourier_contract.launches[sfx]
+    got = fourier.fourier_contract(rep, vf, mat, sym, diag)
+    assert fourier.fourier_contract.launches[sfx] == before + 1
+    assert torch.equal(got, fourier.fourier_contract(rep, vf, mat, sym, diag))
+    want = fourier.fourier_contract_plain(rep, vf, mat, sym, diag)
+    _close(torch.view_as_real(got), torch.view_as_real(want), dtype)
+    _generic(monkeypatch, fourier, "fourier_instance", fourier.GENERIC)
+    assert torch.equal(got, fourier.fourier_contract(rep, vf, mat, sym, diag))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", [1, 2, 3, 5, 16, 17])
+def test_fourier_weather_widths_every_batch_count(dev, dtype, nb,
+                                                  monkeypatch):
+    """The small instance at the weather group's widths (D = 4, R = 2)
+    and an odd F, on the forward's call and the adjoint's (conjugated
+    symbol): the generic kernel's bits and the plain version's values."""
+    vf, mat, sym, diag = _fourier_args("slfm", dtype, dev, nb=nb, D=4, K=2,
+                                       F=4097, seed=nb)
+    args = ("slfm", vf, mat, sym, diag)
+    adj = ("slfm", vf) + fourier.adjoint_symbol("slfm", mat, sym, diag)
+    assert fourier.fourier_instance("slfm", 4, 2) == fourier.SMALL
+    got, got_adj = (fourier.fourier_contract(*a) for a in (args, adj))
+    _close(torch.view_as_real(got), torch.view_as_real(
+        fourier.fourier_contract_plain(*args)), dtype)
+    _close(torch.view_as_real(got_adj), torch.view_as_real(
+        fourier.fourier_contract_plain(*adj)), dtype)
+    _generic(monkeypatch, fourier, "fourier_instance", fourier.GENERIC)
+    assert torch.equal(fourier.fourier_contract(*args), got)
+    assert torch.equal(fourier.fourier_contract(*adj), got_adj)
+
+
+def _gather_problem(dtype, dev, dims, seed):
+    rng = np.random.RandomState(seed)
+    axes = [np.linspace(0, 1, 9) for _ in range(dims)]
+    Xs = [rng.uniform(-0.1, 1.1, (300, dims)), rng.uniform(0, 1, (77, dims))]
+    return multi_interpolant(Xs, axes).to(dtype, dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dims", [1, 2])
+@pytest.mark.parametrize("nb", [1, 15, 16, 17, 31, 32, 33, 65])
+def test_interp_gather_chunks_and_strides(dev, dtype, dims, nb,
+                                          monkeypatch):
+    """K9's gather at every chunk and chunk or tile boundary, its tap
+    instance (4 or 16 taps) and the generic one, on a row-major and a
+    transposed operand in both layouts (a thread a row; column tiles):
+    all the same bits, relaunches too, and the plain version's
+    values."""
+    W = _gather_problem(dtype, dev, dims, seed=nb)
+    g = torch.Generator().manual_seed(nb)
+    vt = torch.randn(W.ncols, nb, generator=g, dtype=dtype).to(dev).T
+    vr = vt.contiguous()
+    assert vt.is_contiguous() == (nb == 1)
+    got = interp.interp_gather(W.indices, W.weights, vr)
+    assert torch.equal(got, interp.interp_gather(W.indices, W.weights, vr))
+    _close(got, interp.interp_gather_plain(W.indices, W.weights, vr), dtype)
+    assert torch.equal(interp.interp_gather(W.indices, W.weights, vt), got)
+    for layout, v in ((interp.GATHER_ROWS, vr), (interp.GATHER_ROWS, vt),
+                      (interp.GATHER_COLS, vt)):
+        _generic(monkeypatch, interp, "gather_layout", layout)
+        for chunk in interp.GATHER_CHUNKS[layout]:
+            _generic(monkeypatch, interp, "gather_chunk", chunk)
+            for taps in (interp.gather_taps(W.indices.shape[1]), 0):
+                _generic(monkeypatch, interp, "gather_taps", taps)
+                assert torch.equal(
+                    interp.interp_gather(W.indices, W.weights, v), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_interp_gather_unaligned_taps_take_the_generic_instance(dev, dtype):
+    """Taps that do not start on 16 bytes (a view at an offset) are read
+    one by one: the same bits as the aligned ones."""
+    W = _gather_problem(dtype, dev, 1, seed=3)
+    n, taps = W.indices.shape
+    ibuf = torch.zeros(n * taps + 1, dtype=torch.int32, device=dev)
+    wbuf = torch.zeros(n * taps + 1, dtype=dtype, device=dev)
+    idx = ibuf[1:].view(n, taps)
+    w = wbuf[1:].view(n, taps)
+    idx.copy_(W.indices)
+    w.copy_(W.weights)
+    v = torch.randn(7, W.ncols, dtype=dtype, device=dev)
+    assert torch.equal(interp.interp_gather(idx, w, v),
+                       interp.interp_gather(W.indices, W.weights, v))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_minres_update(dev, dtype):
     g = torch.Generator().manual_seed(8)
