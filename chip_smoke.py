@@ -32,8 +32,8 @@ Phases:
    (float64 and float32, a seeded (3113, 3113) cotangent,
    then the mixed table), K13 (float64 and float32 at (15, 15768) and at
    the reduced copy's (15, 790), eight steps on a diagonal operator with
-   a row that breaks down), K7 and its backward at the weather
-   oracle's (15768, 15768) with the weather model's Q=6 table (the plain
+   a row that breaks down, relaunched bit-identical), K7 and its backward
+   at the weather oracle's (15768, 15768) with the weather model's Q=6 table (the plain
    versions a slab of rows at a time), and K5 (``trsm_lower``, its
    transposed variant and
    ``cho_solve``) at the shapes of its call sites (the weather model's
@@ -97,7 +97,8 @@ Phases:
    and the whole VJP against torch's Cholesky backward (the library
    yardstick); K8 on the weather fft group's first
    rows (Q=6, m=2504 embedded in 8192, float64 and float32) and its
-   float64 backward;
+   float64 backward (the cluster kernel equal to the bit to the one-CTA
+   kernel);
 4. reset the launch counters, ``predict`` the 150 held-out points, read
    the counters: every kernel of ``hopper.PREDICT_PATH`` must have launched;
    every mean and variance must be finite, the certified residual
@@ -236,7 +237,12 @@ for K1 and K7 forward, with a sha256 of each output (:func:`fwd_times`);
 
 for K10's forward and K9's gather, with a sha256 of each output, the
 wrapper's host µs per call and the card's launch floor
-(:func:`k10_k9_times`).
+(:func:`k10_k9_times`);
+
+    python3 chip_smoke.py --k13-k8-times [ROOT]
+
+for K13 and K8 (fft)'s backward, the same, and ``ski_log_det``'s wall
+on the weather model (:func:`k13_k8_times`).
 """
 
 import contextlib
@@ -556,8 +562,10 @@ def device_profile(fn, reps=1, ranges=False):
     return out + (split,)
 
 
-# K9's layer, which the step profiles require
+# K9's layer, which the step profiles require, and K8 (fft)'s backward,
+# which the weather step's requires
 K9_LAYER = "K9 and K4 W applies (hand, interp.cu)"
+K8_BWD_LAYER = "K8 fft first rows backward (hand, kern_rows_fft.cu)"
 # device kernels by the layer of the kernel table they belong to; the
 # library-routed part of K3 (the factorization) is told apart by its
 # cuSOLVER kernel names, the hand part around it by its own. Every
@@ -576,13 +584,16 @@ LAYERS = (
     ("K5 triangular solves (hand, trsm.cu)",
      lambda k: "k5_trsm_" in k),
     ("K7 backward", lambda k: "::k7_bwd_" in k),
-    ("K13", lambda k: k.startswith("lanczos_")),
+    ("K13", lambda k: "::lanczos_step_kernel<" in k),
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
     ("K10", lambda k: "::fourier_fwd_kernel<" in k
      or "::fourier_fwd_small_kernel<" in k),
     ("K12", lambda k: k == "minres_kernel"),
+    (K8_BWD_LAYER,
+     lambda k: "::rows_fft_bwd_kernel<" in k
+     or "::rows_fft_bwd_cluster_kernel<" in k),
     ("K8 fft first rows (hand, kern_rows_fft.cu)",
-     lambda k: "::rows_fft_kernel<" in k or "::rows_fft_bwd_kernel<" in k),
+     lambda k: "::rows_fft_kernel<" in k),
     ("K11 and operand FFTs (cuFFT)", lambda k: "fft" in k.lower()),
     ("K1 backward", lambda k: "::kuu_bwd_" in k),
     ("K1", lambda k: "::kuu_fold_kernel<" in k
@@ -1682,6 +1693,19 @@ def main():
             chk["bwd_bit_identical"] = bool(same_b)
             require(same_b, "kern_rows_fft_bwd relaunch is not "
                     "bit-identical")
+            # the cluster kernel against the one-CTA kernel: the same bits
+            chk["bwd_cluster"] = k8f.bwd_cluster(Q_, m_, dtype)
+            saved = k8f.bwd_cluster
+            try:
+                k8f.bwd_cluster = lambda Q, m, dtype: 0
+                one_cta = k8f.kern_rows_fft_bwd(kinds_, prm_, dists_, wsizes,
+                                                Gk)
+            finally:
+                k8f.bwd_cluster = saved
+            chk["bwd_equals_one_cta_kernel"] = bool(torch.equal(got,
+                                                                one_cta))
+            require(chk["bwd_equals_one_cta_kernel"], "kern_rows_fft_bwd's "
+                    "cluster kernel does not give the one-CTA kernel's bits")
             images = 2 ** len(wsizes)
             record("kern_rows_fft_bwd", dtype, "cuda",
                    "runlmc_tpu_torch/hopper/csrc/kern_rows_fft.cu",
@@ -1773,24 +1797,29 @@ def main():
             del dg, lv, lvp
             continue
         lw = lv * dg
-        ws, vps = lw.clone(), lvp.clone()
-        record("lanczos_step", dtype, "triton",
-               "runlmc_tpu_torch/hopper/triton_lanczos.py",
-               "runlmc_tpu/ops/slq.py:41",
-               lanczos.lanczos_step(lw.clone(), lvp.clone(), lv.clone(),
-                                    lbeta, lalive, leps)[:4],
+        vps = lvp.clone()  # the kernel writes v' into v_prev's storage
+        once = lanczos.lanczos_step(lw, lvp.clone(), lv, lbeta, lalive,
+                                    leps)
+        again = lanczos.lanczos_step(lw, lvp.clone(), lv, lbeta, lalive,
+                                     leps)
+        require(all(torch.equal(a, b) for a, b in zip(once, again)),
+                "lanczos_step relaunch is not bit-identical at (%d, %d)"
+                % (nslq, ln))
+        record("lanczos_step", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/lanczos.cu",
+               "runlmc_tpu/ops/slq.py:41", once[:4],
                lanczos.lanczos_step_plain(lw, lvp, lv, lbeta, lalive,
                                           leps)[:4],
                ltol,
-               lambda ws=ws, vps=vps, lv=lv, lbeta=lbeta, lalive=lalive,
-               leps=leps: lanczos.lanczos_step(ws, vps, lv, lbeta, lalive,
+               lambda lw=lw, vps=vps, lv=lv, lbeta=lbeta, lalive=lalive,
+               leps=leps: lanczos.lanczos_step(lw, vps, lv, lbeta, lalive,
                                                leps),
                lambda lw=lw, lvp=lvp, lv=lv, lbeta=lbeta, lalive=lalive,
                leps=leps: lanczos.lanczos_step_plain(lw, lvp, lv, lbeta,
                                                      lalive, leps),
                4 * nbytes(lv) + 5 * nbytes(lbeta), 9.0 * lv.numel(),
                path=path)
-        del dg, lv, lvp, lw, ws, vps
+        del dg, lv, lvp, lw, vps
 
     # K7 and its backward at the weather oracle's shape: the weather
     # model's own table (Q=6 kernels, D=4 outputs) over all its n points,
@@ -3684,7 +3713,7 @@ def main():
     wstep_layers = by_layer(wchunk_rows, per=wm.chunk_len)
     print("stochastic step device time by layer (per step):", flush=True)
     print_layers(wstep_layers)
-    require_layers(wstep_layers, ("K1", "K10", K9_LAYER),
+    require_layers(wstep_layers, ("K1", "K10", K9_LAYER, K8_BWD_LAYER),
                    "a weather stochastic step")
     print("stochastic step device time inside the Woodbury solve with C "
           "and the jittered Cholesky (per step):", flush=True)
@@ -3831,6 +3860,7 @@ def main():
              wexact_peak_gb), flush=True)
     print("SLQ log-det device time by layer:", flush=True)
     print_layers(slq_layers)
+    require_layers(slq_layers, ("K13",), "the weather SLQ log-det")
     print("exact value and gradient (n=%d) device time by layer:" % wn,
           flush=True)
     print_layers(wexact_layers)
@@ -5008,41 +5038,25 @@ K9_GATHER_SHAPES = (
 HOST_CALLS = 300
 
 
-def k10_k9_times(root):
-    """``--k10-k9-times [ROOT]``: K10's forward and K9's gather in the
-    package at ROOT (this checkout by default) at ``K10_SHAPES`` and
-    ``K9_GATHER_SHAPES`` on seeded inputs (the interpolants of seeded
-    sorted points on each output's grid): profiler device ms, CUDA
-    events, the events' device span with the calls queued
-    (:func:`queued_time`), a sha256 of the output's bytes, ``fill_`` of
-    a tensor of the output's size, and the wrapper's host µs per call
-    (``perf_counter`` over ``HOST_CALLS`` calls, no sync inside); then
-    ``fill_`` of one element, the card's launch floor, and parts of a
-    wrapper's host time. Where the package has the selectors, K10's
-    generic kernel, the gather's generic taps and every gather layout
-    and chunk are timed as well (queued, with their sha256). One
-    JSON line at the end; to compare two checkouts on one card, run it
-    for each in one call, in turns."""
+def timing_rows(rows):
+    """The helpers of the ``--*-times`` modes that append to ``rows``:
+    ``sha(fn)``, the sha256 of the bytes of ``fn()``'s tensors;
+    ``host_us(fn)``, the host µs per call over ``HOST_CALLS`` calls with
+    no sync inside; ``emit(row)``, which keeps a row and prints it; and
+    ``timed(fn, host=True, **row)``, which emits a row with ``fn``'s
+    sha256, profiler device ms, CUDA-event ms, queued ms
+    (:func:`queued_time`), kernels and, with ``host``, host µs."""
     import hashlib
 
-    import numpy as np
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
-    from runlmc_tpu_torch.hopper import build, fourier, interp
-    from runlmc_tpu_torch.ops.interpolation import multi_interpolant
-
-    build.build_all(["fourier", "interp"])
-    dev = torch.device("cuda")
-    rows = []
 
     def sha(fn):
         out = fn()
         torch.cuda.synchronize()
-        return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        h = hashlib.sha256()
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     def host_us(fn):
         fn()
@@ -5067,6 +5081,39 @@ def k10_k9_times(root):
         if host:
             row["host_us"] = host_us(fn)
         emit(row)
+
+    return sha, host_us, emit, timed
+
+
+def k10_k9_times(root):
+    """``--k10-k9-times [ROOT]``: K10's forward and K9's gather in the
+    package at ROOT (this checkout by default) at ``K10_SHAPES`` and
+    ``K9_GATHER_SHAPES`` on seeded inputs (the interpolants of seeded
+    sorted points on each output's grid): profiler device ms, CUDA
+    events, the events' device span with the calls queued
+    (:func:`queued_time`), a sha256 of the output's bytes, ``fill_`` of
+    a tensor of the output's size, and the wrapper's host µs per call
+    (``perf_counter`` over ``HOST_CALLS`` calls, no sync inside); then
+    ``fill_`` of one element, the card's launch floor, and parts of a
+    wrapper's host time. Where the package has the selectors, K10's
+    generic kernel, the gather's generic taps and every gather layout
+    and chunk are timed as well (queued, with their sha256). One
+    JSON line at the end; to compare two checkouts on one card, run it
+    for each in one call, in turns."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from runlmc_tpu_torch.hopper import build, fourier, interp
+    from runlmc_tpu_torch.ops.interpolation import multi_interpolant
+
+    build.build_all(["fourier", "interp"])
+    dev = torch.device("cuda")
+    rows = []
+    sha, host_us, emit, timed = timing_rows(rows)
 
     def variant(fn, **row):  # a selector's choice overridden
         emit(dict(row, sha256=sha(fn), queued_ms=queued_time(fn)))
@@ -5170,6 +5217,130 @@ def k10_k9_times(root):
     return 0
 
 
+# K13 at the SLQ paths' shapes: (rows, n, dtype) of the weather model's
+# SLQ log-det and of the float32 report path's reduced copy
+K13_SHAPES = ((15, 15768, "float64"), (15, 790, "float32"))
+SKI_LOG_DET_RUNS = 3
+
+
+def k13_k8_times(root):
+    """``--k13-k8-times [ROOT]``: K13 (the Lanczos step) and K8 (fft)'s
+    backward in the package at ROOT (this checkout by default). K13 at
+    ``K13_SHAPES`` on seeded state (a diagonal operator, unit rows, beta
+    and alive as mid-run), K8's backward at the weather model's fft
+    group (its table rows and distances, a seeded cotangent): profiler
+    device ms, CUDA events, queued ms, a sha256 of the outputs (K13's
+    from fresh copies of the state: v', alpha, beta, alive), ``fill_``
+    of the output's bytes and the wrapper's host µs per call (300
+    calls; K13 also as ``lanczos_tridiag`` calls it, into columns of
+    (B, k) outputs, where the package takes ``out=``); then ``fill_`` of
+    one element, the launch floor, and the wall of ``ski_log_det`` on
+    the weather model (``SKI_LOG_DET_RUNS`` runs, caches dropped). One
+    JSON line at the end; to compare two checkouts on one card, run it
+    for each in one call, in turns."""
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import runlmc_tpu_torch as T
+    from runlmc_tpu_torch.datasets import weather_synthetic
+    from runlmc_tpu_torch.hopper import build
+    from runlmc_tpu_torch.hopper import kern_rows_fft as k8f
+    from runlmc_tpu_torch.hopper import lanczos
+
+    build.build_all([n for n in ("lanczos", "kern_rows_fft")
+                     if n in build.source_names()])
+    dev = torch.device("cuda")
+    rows = []
+    sha, host_us, emit, timed = timing_rows(rows)
+    takes_out = "out" in inspect.signature(lanczos.lanczos_step).parameters
+    for B, n, dts in K13_SHAPES:
+        dtype = getattr(torch, dts)
+        g = torch.Generator(device=dev).manual_seed(SEED + B * n)
+        f = dict(dtype=dtype, device=dev)
+        d = torch.rand(n, generator=g, **f) + 0.5
+        v = torch.sign(torch.randn(B, n, generator=g, **f)) / float(n ** 0.5)
+        vp = torch.randn(B, n, generator=g, **f)
+        vp /= torch.linalg.vector_norm(vp, dim=1, keepdim=True)
+        w = v * d
+        beta = torch.rand(B, generator=g, **f) + 0.1
+        alive = torch.ones(B, dtype=torch.int32, device=dev)
+        eps = torch.full((1,), lanczos.breakdown_eps(dtype), **f)
+        shape = dict(name="lanczos_step", dtype=dts, shape=[B, n])
+        # the scratch copies are fresh at the first call, which the sha256
+        # hashes; later calls overwrite them (v' into vps, and in a
+        # package whose kernels update w in place, ws)
+        ws, vps = w.clone(), vp.clone()
+        run = (lambda ws=ws, vps=vps, v=v, beta=beta, alive=alive, eps=eps:
+               lanczos.lanczos_step(ws, vps, v, beta, alive, eps))
+        timed(run, form="new outputs", **shape)
+        if takes_out:
+            cols = torch.zeros((B, 41), **f)
+            acols = torch.empty((B, 40), **f)
+            alive_c = alive.clone()
+            outs = (acols[:, 7], cols[:, 8], alive_c)
+            run_out = (lambda vps=vps, v=v, eps=eps, cols=cols, outs=outs,
+                       alive_c=alive_c, ws=ws:
+                       lanczos.lanczos_step(ws, vps, v, cols[:, 7], alive_c,
+                                            eps, out=outs))
+            emit(dict(shape, form="out= columns", host_us=host_us(run_out),
+                      queued_ms=queued_time(run_out)))
+        fill = torch.empty((B, n), **f)
+        timed(lambda: fill.fill_(1.0), host=False,
+              name="fill_ (K13's output bytes)", dtype=dts, shape=[B, n])
+        del d, v, vp, w, ws, vps, fill
+    # the weather model's fft group: K8 (fft)'s backward on its table
+    wx, wy, _, _, _ = weather_synthetic(SEED)
+    wm = T.InterpolatedLLGP(wx, wy, functional_kernel=weather_spec(T, len(wx)),
+                            m=WEATHER_M, objective="stochastic", seed=SEED,
+                            device=dev)
+    gd = wm.grid_data[0]
+    kinds, prm = wm.spec.table_rows(wm.params, gd.plan.kidxs)
+    prm = prm.detach()
+    E = k8f.kern_rows_fft(kinds, prm, gd.dists, gd.plan.sizes)
+    gk = torch.Generator(device=dev).manual_seed(SEED + 8)
+    G = torch.randn(E.shape, generator=gk, dtype=E.dtype, device=dev)
+    run = (lambda: k8f.kern_rows_fft_bwd(kinds, prm, gd.dists,
+                                         gd.plan.sizes, G))
+    shape = dict(name="kern_rows_fft_bwd", dtype=str(E.dtype)[6:],
+                 shape=list(E.shape), Q=len(kinds), m=gd.dists.numel())
+    if hasattr(k8f, "bwd_cluster"):
+        shape["cluster"] = k8f.bwd_cluster(len(kinds), gd.dists.numel(),
+                                           E.dtype)
+    timed(run, **shape)
+    if hasattr(k8f, "bwd_cluster"):
+        saved = k8f.bwd_cluster
+        try:
+            k8f.bwd_cluster = lambda Q, m, dtype: 0
+            emit(dict(shape, cluster=0, kernel="one CTA a q",
+                      sha256=sha(run), queued_ms=queued_time(run)))
+        finally:
+            k8f.bwd_cluster = saved
+    fill = torch.empty((len(kinds), 3), dtype=E.dtype, device=dev)
+    timed(lambda: fill.fill_(1.0), host=False,
+          name="fill_ (K8 bwd's output bytes)", shape=[len(kinds), 3])
+    one = torch.empty(1, device=dev)
+    for _ in range(2):
+        timed(lambda: one.fill_(1.0), name="fill_ (one element)")
+    walls = []
+    for _ in range(SKI_LOG_DET_RUNS):
+        wm._cache.pop("slq_logdet", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logdet = wm.ski_log_det()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    emit(dict(name="ski_log_det (weather, SLQ: 40 steps, %d probes)"
+              % max(wm.n_probes, 15), wall_s=walls, value=logdet))
+    print(json.dumps({"k13_k8_times": rows, "root": os.path.abspath(root),
+                      "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-bwd-times"]:
         sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
@@ -5179,4 +5350,6 @@ if __name__ == "__main__":
         sys.exit(fwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     if sys.argv[1:2] == ["--k10-k9-times"]:
         sys.exit(k10_k9_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
+    if sys.argv[1:2] == ["--k13-k8-times"]:
+        sys.exit(k13_k8_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     sys.exit(main())

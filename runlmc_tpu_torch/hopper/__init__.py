@@ -14,7 +14,7 @@ PyTorch version beside it.
   K10 fourier.fourier_contract    CUDA  csrc/fourier.cu
   K10 backward  fourier.fourier_contract_bwd  CUDA  csrc/fourier.cu
   K12 minres.minres_update        Triton  triton_minres.py
-  K13 lanczos.lanczos_step        Triton  triton_lanczos.py
+  K13 lanczos.lanczos_step        CUDA  csrc/lanczos.cu
   K5  trsm.trsm_lower (trsm.cho_solve, its backward: trsm.ChoSolve)
                                   CUDA  csrc/trsm.cu
   K2  capacitance.capacitance     CUDA  csrc/capacitance.cu

@@ -27,18 +27,41 @@
 //
 // Design: the forward is one thread per embedded element (a grid-stride
 // loop), which evaluates k(r) where its position has a source. The
-// backward is one CTA per kernel q: threads stride over the first-row
-// points in order, fold each point's images in a fixed order, keep three
-// running sums, and the CTA reduces them by a fixed shuffle tree and a
-// fixed pass over its warps: no atomics, a second launch is
-// bit-identical.
+// backward keeps the order of its sums fixed: thread t of 256 walks the
+// first-row points o = t, t + 256, ... in turn with three running sums
+// (acc += w * k), then a fixed xor-shuffle tree in each warp and a fixed
+// pass over the warps: no atomics, a second launch is bit-identical.
+// Where a kernel q's terms fit in the shared memory of a thread-block
+// cluster (the wrapper's bwd_cluster: C = 8 CTAs a q at the weather
+// group), the cluster kernel spreads that work and keeps its order: CTA r
+// takes the chains of warps [8 r / C, 8 (r + 1) / C), computes all their
+// points' terms at once (the images' sum w in the (a, b, c) order and
+// kern_grads' k, dk/dgamma, dk/dperiod; 512 threads, one point each at
+// the weather group) into its own shared memory, runs those chains and
+// their warps' shuffle trees, and stores each warp's three sums into
+// rank 0's shared memory with st.async (cluster.cuh); rank 0 adds the 8
+// warps' sums in order. So dprm has the one-CTA kernel's bits, and only
+// 24 values cross between CTAs. Larger q's (bwd_cluster 0) take the
+// one-CTA kernel.
 
+#include <cooperative_groups.h>
+
+#include "cluster.cuh"
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;
+// a CTA's dynamic shared memory without an opt-in, less 1 KB for its
+// static shared memory
+constexpr size_t kSmemLimit = 47 * 1024;
+// the cluster kernel's CTA threads (its points' terms; kThreads / C of
+// them then run the chains)
+constexpr int kClusterThreads = 512;
 
 // the first-row index of embedded position e on an axis (n, E), or -1
 __device__ __forceinline__ int src_of(int e, int n, int E) {
@@ -87,6 +110,28 @@ __device__ __forceinline__ int images_of(int s, int E, int* e) {
     return 1;
 }
 
+// the images' sum w of first-row point o in the (a, b, c) order, and
+// kern_grads there
+template <typename T>
+__device__ __forceinline__ void point_terms(int kind, const T* Gq,
+                                            const T* dists, int o, int n0,
+                                            int n1, int n2, int E0, int E1,
+                                            int E2, T gamma, T period, T& w,
+                                            T& k, T& dg, T& dp) {
+    const int s2 = o % n2;
+    const int s1 = (o / n2) % n1;
+    const int s0 = o / (n1 * n2);
+    int i0[2], i1[2], i2[2];
+    const int c0 = images_of(s0, E0, i0), c1 = images_of(s1, E1, i1),
+              c2 = images_of(s2, E2, i2);
+    w = T(0);
+    for (int a = 0; a < c0; ++a)
+        for (int b = 0; b < c1; ++b)
+            for (int c = 0; c < c2; ++c)
+                w += Gq[((int64_t)i0[a] * E1 + i1[b]) * E2 + i2[c]];
+    runlmc::kern_grads<T>(kind, dists[o], gamma, period, k, dg, dp);
+}
+
 template <typename T>
 __global__ void rows_fft_bwd_kernel(runlmc::KindTable kinds,
                                     const T* __restrict__ prm,
@@ -104,19 +149,9 @@ __global__ void rows_fft_bwd_kernel(runlmc::KindTable kinds,
     const int m = n0 * n1 * n2;
     T acc0 = T(0), acc1 = T(0), acc2 = T(0);
     for (int o = threadIdx.x; o < m; o += kThreads) {
-        const int s2 = o % n2;
-        const int s1 = (o / n2) % n1;
-        const int s0 = o / (n1 * n2);
-        int i0[2], i1[2], i2[2];
-        const int c0 = images_of(s0, E0, i0), c1 = images_of(s1, E1, i1),
-                  c2 = images_of(s2, E2, i2);
-        T w = T(0);
-        for (int a = 0; a < c0; ++a)
-            for (int b = 0; b < c1; ++b)
-                for (int c = 0; c < c2; ++c)
-                    w += Gq[((int64_t)i0[a] * E1 + i1[b]) * E2 + i2[c]];
-        T k, dg, dp;
-        runlmc::kern_grads<T>(kind, dists[o], gamma, period, k, dg, dp);
+        T w, k, dg, dp;
+        point_terms<T>(kind, Gq, dists, o, n0, n1, n2, E0, E1, E2, gamma,
+                       period, w, k, dg, dp);
         acc0 += w * k;
         acc1 += w * dg;
         acc2 += w * dp;
@@ -141,6 +176,101 @@ __global__ void rows_fft_bwd_kernel(runlmc::KindTable kinds,
             s1 += red[w][1];
             s2 += red[w][2];
         }
+        dprm[q * 3] = scale * s1;
+        dprm[q * 3 + 1] = scale * s2;
+        dprm[q * 3 + 2] = s0;
+    }
+}
+
+// the cluster kernel: a cluster of C CTAs per kernel q (grid (C, Q), C
+// in 1, 2, 4, 8), CTA r holding the chains t in [r T, (r + 1) T), T =
+// kThreads / C, of the one-CTA kernel: it computes their points' terms w,
+// k, dk/dgamma, dk/dperiod into its shared memory (four arrays of J x T,
+// point t + kThreads j at [j][t - r T], J = ceil(m / kThreads)), runs
+// the chains and their warps' shuffle trees, and stores each warp's three
+// sums into rank 0's red with st.async; rank 0 sums the warps in order
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+    rows_fft_bwd_cluster_kernel(runlmc::KindTable kinds,
+                                const T* __restrict__ prm,
+                                const T* __restrict__ dists,
+                                const T* __restrict__ G,
+                                T* __restrict__ dprm, int n0, int n1, int n2,
+                                int E0, int E1, int E2) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* terms = reinterpret_cast<T*>(smem_raw);
+    __shared__ T red[kWarps][3];
+    __shared__ uint64_t full;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int C = (int)cluster.num_blocks();
+    if (rank == 0 && threadIdx.x == 0) {
+        runlmc::mbar_init(&full, 1);
+        runlmc::fence_mbar_init();
+        runlmc::mbar_expect_tx(&full, kWarps * 3 * (int)sizeof(T));
+    }
+    runlmc::cluster_arrive_relaxed();
+    const int q = blockIdx.y;
+    const int kind = kinds.kind[q];
+    const T gamma = prm[q * 3], period = prm[q * 3 + 1];
+    const int64_t per_q = (int64_t)E0 * E1 * E2;
+    const T* Gq = G + (int64_t)q * per_q;
+    const int m = n0 * n1 * n2;
+    const int chains = kThreads / C;
+    const int t0 = rank * chains;
+    const int J = (m + kThreads - 1) / kThreads;
+    const int slots = J * chains;
+    for (int p = threadIdx.x; p < slots; p += kClusterThreads) {
+        const int j = p / chains;
+        const int o = t0 + (p - j * chains) + kThreads * j;
+        if (o < m) {
+            T w, k, dg, dp;
+            point_terms<T>(kind, Gq, dists, o, n0, n1, n2, E0, E1, E2, gamma,
+                           period, w, k, dg, dp);
+            terms[p] = w;
+            terms[slots + p] = k;
+            terms[2 * slots + p] = dg;
+            terms[3 * slots + p] = dp;
+        }
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < chains) {
+        // chain t = t0 + threadIdx.x: the one-CTA kernel's thread t
+        T acc0 = T(0), acc1 = T(0), acc2 = T(0);
+        const int t = t0 + threadIdx.x;
+        for (int j = 0, p = threadIdx.x; t + kThreads * j < m;
+             ++j, p += chains) {
+            const T w = terms[p];
+            acc0 += w * terms[slots + p];
+            acc1 += w * terms[2 * slots + p];
+            acc2 += w * terms[3 * slots + p];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            acc0 += __shfl_xor_sync(0xffffffffu, acc0, off);
+            acc1 += __shfl_xor_sync(0xffffffffu, acc1, off);
+            acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
+        }
+        // every CTA of the cluster has started, rank 0's mbarrier is set
+        runlmc::cluster_wait();
+        if ((threadIdx.x & 31) == 0) {
+            T* slot = red[t >> 5];
+            runlmc::st_async(slot, acc0, &full, 0);
+            runlmc::st_async(slot + 1, acc1, &full, 0);
+            runlmc::st_async(slot + 2, acc2, &full, 0);
+        }
+    } else {
+        runlmc::cluster_wait();
+    }
+    if (rank == 0 && threadIdx.x == 0) {
+        runlmc::mbar_wait(&full, 0);
+        T s0 = T(0), s1 = T(0), s2 = T(0);
+        for (int w = 0; w < kWarps; ++w) {
+            s0 += red[w][0];
+            s1 += red[w][1];
+            s2 += red[w][2];
+        }
+        const T scale = prm[q * 3 + 2];
         dprm[q * 3] = scale * s1;
         dprm[q * 3 + 1] = scale * s2;
         dprm[q * 3 + 2] = s0;
@@ -178,15 +308,41 @@ int forward(const int* kinds_host, const T* prm, const T* dists, T* out,
     return (int)cudaGetLastError();
 }
 
+// C = 0: the one-CTA kernel; C in 1, 2, 4, 8: the cluster kernel with
+// kThreads / C chains a CTA
 template <typename T>
 int backward(const int* kinds_host, const T* prm, const T* dists,
              const T* G, T* dprm, int Q, int n0, int n1, int n2, int E0,
-             int E1, int E2, void* stream) {
-    if (!sizes_ok(Q, n0, n1, n2, E0, E1, E2))
+             int E1, int E2, int C, void* stream) {
+    if (!sizes_ok(Q, n0, n1, n2, E0, E1, E2) ||
+        (C != 0 && C != 1 && C != 2 && C != 4 && C != 8))
         return (int)cudaErrorInvalidValue;
-    rows_fft_bwd_kernel<T><<<Q, kThreads, 0, (cudaStream_t)stream>>>(
-        table_of(kinds_host, Q), prm, dists, G, dprm, n0, n1, n2, E0, E1,
-        E2);
+    if (C == 0) {
+        rows_fft_bwd_kernel<T><<<Q, kThreads, 0, (cudaStream_t)stream>>>(
+            table_of(kinds_host, Q), prm, dists, G, dprm, n0, n1, n2, E0,
+            E1, E2);
+        return (int)cudaGetLastError();
+    }
+    const int m = n0 * n1 * n2;
+    const size_t smem = (size_t)4 * ((m + kThreads - 1) / kThreads) *
+                        (kThreads / C) * sizeof(T);
+    if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)C, (unsigned)Q, 1);
+    cfg.blockDim = dim3(kClusterThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, rows_fft_bwd_cluster_kernel<T>, table_of(kinds_host, Q), prm,
+        dists, G, dprm, n0, n1, n2, E0, E1, E2);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
@@ -202,10 +358,10 @@ int backward(const int* kinds_host, const T* prm, const T* dists,
     }                                                                         \
     extern "C" int kern_rows_fft_bwd_##SFX(                                   \
         const int* kinds, const T* prm, const T* dists, const T* G, T* dprm,  \
-        int Q, int n0, int n1, int n2, int E0, int E1, int E2,                \
+        int Q, int n0, int n1, int n2, int E0, int E1, int E2, int C,         \
         void* stream) {                                                       \
         return backward<T>(kinds, prm, dists, G, dprm, Q, n0, n1, n2, E0, E1, \
-                           E2, stream);                                       \
+                           E2, C, stream);                                    \
     }
 
 ROWS_FFT_ENTRIES(float, f32)

@@ -16,9 +16,12 @@ t_{n-1}..t_1]``. Replaces the fft branch of runlmc_tpu/lmc/grid.py:535
 :86 ``bttb_fft``) and XLA's autodiff of them. The CUDA kernels
 (``csrc/kern_rows_fft.cu``) are one launch each way; the plain versions
 (``kernels.stationary.eval_table`` and ``ops.bttb.cyclic_extend``, and
-autograd through them) run for CPU tensors. :class:`KernRowsFFT` joins
-the two as one autograd function, differentiable in ``prm``; the
-distances are data.
+autograd through them) run for CPU tensors. The backward runs a
+thread-block cluster of :func:`bwd_cluster` CTAs per kernel q, each
+running a share of the one-CTA kernel's summation chains, with the
+bits of the one-CTA kernel that larger q's keep (:func:`bwd_points`
+mirrors a CTA's points). :class:`KernRowsFFT` joins the two as one
+autograd function, differentiable in ``prm``; the distances are data.
 """
 
 import ctypes
@@ -31,6 +34,15 @@ from runlmc_tpu_torch.ops.bttb import cyclic_extend, extension_sizes
 
 # kernels one launch takes (kMaxTableQ in csrc/common.cuh)
 MAX_Q = 64
+# the backward's summation chains (threads of the one-CTA kernel), its
+# largest cluster and the dynamic shared memory a CTA of the cluster
+# kernel takes (the 48 KB a CTA has without an opt-in, less 1 KB for its
+# static shared memory; csrc/kern_rows_fft.cu), and the H100's
+# multiprocessors
+THREADS = 256
+MAX_CLUSTER = 8
+SMEM_LIMIT = 47 * 1024
+SMS = 132
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -96,6 +108,34 @@ def kern_rows_fft(kinds, prm, dists, sizes):
 kern_rows_fft.launches = build.counter()
 
 
+def bwd_cluster(Q, m, dtype):
+    """CTAs per kernel q of the backward's cluster kernel, 1, 2, 4 or 8:
+    the most that Q clusters fit on the card's SMs, no more than the
+    ``THREADS`` chains' points need (one CTA a ``THREADS`` points); 0
+    (the one-CTA kernel) where a CTA's terms, four values a point, would
+    not fit in its shared memory."""
+    C = min(MAX_CLUSTER, SMS // max(Q, 1), -(-m // THREADS))
+    C = 1 << (max(C, 1).bit_length() - 1)
+    itemsize = 8 if dtype == torch.float64 else 4
+    slots = -(-m // THREADS) * (THREADS // C)
+    return C if 4 * itemsize * slots <= SMEM_LIMIT else 0
+
+
+def bwd_points(m, C, rank):
+    """The first-row points of CTA ``rank`` of the cluster kernel with
+    ``C`` CTAs a q, in the order of its shared memory (slot p = j T +
+    (t - t0) holds point t + THREADS j of chain t, T = THREADS / C chains
+    from t0 = rank T); -1 where a chain has no j-th point."""
+    chains = THREADS // C
+    t0 = rank * chains
+    out = []
+    for j in range(-(-m // THREADS)):
+        for t in range(t0, t0 + chains):
+            o = t + THREADS * j
+            out.append(o if o < m else -1)
+    return out
+
+
 def kern_rows_fft_bwd_plain(kinds, prm, dists, sizes, G):
     """Plain version of the backward: autograd through
     :func:`kern_rows_fft_plain`."""
@@ -120,9 +160,10 @@ def kern_rows_fft_bwd(kinds, prm, dists, sizes, G):
     dprm = torch.empty_like(prm)
     sfx = build.suffix("kern_rows_fft_bwd", prm.dtype)
     fn = build.function("kern_rows_fft", "kern_rows_fft_bwd_" + sfx,
-                        [_P] * 5 + [_I32] * 7 + [_P])
+                        [_P] * 5 + [_I32] * 8 + [_P])
     build.check(fn(ctypes.cast(karr, _P), build.ptr(prm), build.ptr(dists),
                    build.ptr(G), build.ptr(dprm), Q, *axes,
+                   bwd_cluster(Q, dists.shape[0], prm.dtype),
                    build.stream_ptr()), "kern_rows_fft_bwd")
     kern_rows_fft_bwd.launches[sfx] += 1
     return dprm

@@ -37,16 +37,17 @@ def lanczos_tridiag(matvec, v0, k):
     eps = torch.full((1,), breakdown_eps(dtype), dtype=dtype, device=dev)
     v_prev = torch.zeros_like(v0)
     v = v0.clone()
-    beta = torch.zeros((B,), dtype=dtype, device=dev)
+    # step j writes column j of alphas and betas in place (beta_0 = 0
+    # comes first, the last step's beta is dropped) and updates alive
+    alphas = torch.empty((B, k), dtype=dtype, device=dev)
+    betas = torch.zeros((B, k + 1), dtype=dtype, device=dev)
     alive = torch.ones((B,), dtype=torch.int32, device=dev)
-    alphas, betas = [], []
-    for _ in range(k):
+    for j in range(k):
         w = matvec(v).contiguous()
-        v_prev, v, alpha, beta, alive = lanczos_step(w, v_prev, v, beta,
-                                                     alive, eps)
-        alphas.append(alpha)
-        betas.append(beta)
-    return torch.stack(alphas, dim=1), torch.stack(betas[:-1], dim=1)
+        v_prev, v = lanczos_step(w, v_prev, v, betas[:, j], alive, eps,
+                                 out=(alphas[:, j], betas[:, j + 1],
+                                      alive))[:2]
+    return alphas, betas[:, 1:k]
 
 
 def slq_logdet_from_probes(matvec, z, k=40):

@@ -28,6 +28,7 @@ from runlmc_tpu_torch.hopper import (
 )
 from runlmc_tpu_torch.lmc import likelihood as lk
 from runlmc_tpu_torch.lmc import woodbury as wbm
+from runlmc_tpu_torch.ops import slq
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
 
@@ -793,6 +794,72 @@ def test_lanczos_step(dev, dtype):
     assert int(alive[0]) == 0 and int(alive[4]) == 0 and int(alive[1]) == 1
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B, n", [(1, 5), (15, 790), (15, 15768),
+                                  (2, 40000), (3, 40001)])
+def test_lanczos_step_clusters_and_long_rows(dev, dtype, B, n):
+    """K13 with one CTA a row, full clusters of 8, and slices too long for
+    registers (re-read from global memory), with 16-byte and scalar
+    loads: each step against the plain version from the same state (row
+    0 breaks down at the first step), relaunches bit-identical, and the
+    form lanczos_tridiag calls (strided columns of (B, k) outputs, alive
+    in place) with the same bits."""
+    g = torch.Generator().manual_seed(n + B)
+    d = (torch.rand(n, generator=g, dtype=dtype) + 0.5).to(dev)
+    v = torch.sign(torch.randn(B, n, generator=g, dtype=dtype)).to(dev)
+    v = v / float(np.sqrt(n))
+    v[0] = 0.0
+    v[0, n // 2] = 1.0
+    eps = torch.full((1,), lanczos.breakdown_eps(dtype), dtype=dtype,
+                     device=dev)
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros(B, dtype=dtype, device=dev)
+    alive = torch.ones(B, dtype=torch.int32, device=dev)
+    alphas = torch.empty((B, 4), dtype=dtype, device=dev)
+    betas = torch.zeros((B, 5), dtype=dtype, device=dev)
+    alive_c = alive.clone()
+    for step in range(4):
+        w = v * d
+        want = lanczos.lanczos_step_plain(w, v_prev, v, beta, alive, eps)
+        got = lanczos.lanczos_step(w, v_prev.clone(), v, beta, alive, eps)
+        again = lanczos.lanczos_step(w, v_prev.clone(), v, beta, alive, eps)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for a, b in zip(got[:4], want[:4]):
+            _close(a, b, dtype)
+        assert torch.equal(got[4], want[4])
+        res = lanczos.lanczos_step(
+            w, v_prev.clone(), v, betas[:, step], alive_c, eps,
+            out=(alphas[:, step], betas[:, step + 1], alive_c))
+        assert torch.equal(res[1], got[1])
+        assert torch.equal(alphas[:, step], got[2])
+        assert torch.equal(betas[:, step + 1], got[3])
+        assert torch.equal(alive_c, got[4])
+        v_prev, v, _, beta, alive = got
+    assert int(alive[0]) == 0 and int(alive.sum()) == B - 1
+
+
+def test_lanczos_tridiag_matches_cpu(dev):
+    """Twelve steps on the card and on the CPU from the same rows of a
+    diagonal operator, one of them an eigenvector (it breaks down)."""
+    g = torch.Generator().manual_seed(12)
+    n = 3000
+    d = torch.rand(n, generator=g, dtype=torch.float64) + 0.5
+    v0 = torch.sign(torch.randn(4, n, generator=g, dtype=torch.float64))
+    v0 = v0 / float(np.sqrt(n))
+    v0[0] = 0.0
+    v0[0, 3] = 1.0
+    dd = d.to(dev)
+    hopper.reset_launches()
+    ga, gb = slq.lanczos_tridiag(lambda v: v * dd, v0.to(dev), 12)
+    assert hopper.launch_counts()["lanczos_step/f64"] == 12
+    ca, cb = slq.lanczos_tridiag(lambda v: v * d, v0, 12)
+    np.testing.assert_allclose(ga.cpu().numpy(), ca.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(gb.cpu().numpy(), cb.numpy(), rtol=1e-10,
+                               atol=1e-300)
+    assert torch.all(ga[0, 1:] == 1.0) and torch.all(gb[0] == 0.0)
+
+
 def test_slq_log_det_matches_cpu(dev):
     """The SLQ log-det of a small fft model on the card and on the CPU
     with the same fed probes; the Lanczos steps and the float64 Fourier
@@ -1410,6 +1477,41 @@ def test_kern_rows_fft(dev, dtype, sizes):
                                                       sizes, G), dtype)
     assert torch.equal(got, kern_rows_fft.kern_rows_fft_bwd(
         kinds, prm, dists, sizes, G))
+
+
+@pytest.mark.parametrize("dtype, sizes", [
+    (dt, sz) for dt in DTYPES for sz in ((2504,), (50, 40), (12, 10, 9))
+] + [(torch.float64, (94, 128)), (torch.float64, (95, 128))])
+def test_kern_rows_fft_bwd_cluster_has_the_one_cta_bits(dev, dtype, sizes,
+                                                        monkeypatch):
+    """K8 (fft)'s backward at the weather group's shape (Q = 6, m =
+    2504), 2-D and 3-D grids, the largest float64 grid whose terms fit in
+    8 CTAs and a larger one that does not: against the plain version,
+    relaunched bit-identical, and the cluster kernel at every cluster
+    size that fits with the one-CTA kernel's bits."""
+    m = int(np.prod(sizes))
+    Q = 6
+    kinds, prm, dists = _kuu_table(Q, m, dtype, dev, seed=m)
+    E = kern_rows_fft.kern_rows_fft(kinds, prm, dists, sizes)
+    G = torch.randn(E.shape, generator=torch.Generator().manual_seed(2),
+                    dtype=dtype).to(dev)
+    C = kern_rows_fft.bwd_cluster(Q, m, dtype)
+    want_c = min(8, -(-m // 256))
+    assert C == (0 if (dtype, sizes) == (torch.float64, (95, 128)) else
+                 1 << (want_c.bit_length() - 1))
+    got = kern_rows_fft.kern_rows_fft_bwd(kinds, prm, dists, sizes, G)
+    _close(got, kern_rows_fft.kern_rows_fft_bwd_plain(kinds, prm, dists,
+                                                      sizes, G), dtype)
+    assert torch.equal(got, kern_rows_fft.kern_rows_fft_bwd(
+        kinds, prm, dists, sizes, G))
+    for c in (0, 1, 2, 4, 8):
+        if c and 4 * G.element_size() * -(-m // 256) * (256 // c) > \
+                kern_rows_fft.SMEM_LIMIT:
+            continue
+        monkeypatch.setattr(kern_rows_fft, "bwd_cluster",
+                            lambda Q, m, dtype, c=c: c)
+        assert torch.equal(kern_rows_fft.kern_rows_fft_bwd(
+            kinds, prm, dists, sizes, G), got), c
 
 
 def test_kern_rows_fft_raises_on_what_it_cannot_take(dev):
