@@ -170,8 +170,11 @@ Phases:
    memory, and the rank-1 term in K7's backward loads against
    ``torch.addr`` before it;
 11. the certified solve's plain float64 MINRES rung on its own (16
-   right-hand sides): ``hopper.MINRES_PATH`` must have launched; then
-   one rung-1 rescue step (plain MINRES in ``_chunk``) must be finite;
+   right-hand sides): ``hopper.MINRES_PATH`` must have launched and the
+   residual end at or under the model tolerance; its first
+   ``KRYLOV_CYCLE``-iteration cycle profiled by layer, with a K12 row;
+   then one rung-1 rescue step (plain MINRES in ``_chunk``) must be
+   finite;
 12. one stochastic chunk of the same data on weather's headline dense
    grid (m=[500], Dm=2016): ``hopper.DENSE_STOCHASTIC_PATH`` launched;
 13. card vs CPU on the reduced problem of bench.py:146 (every 20th
@@ -242,7 +245,14 @@ wrapper's host µs per call and the card's launch floor
     python3 chip_smoke.py --k13-k8-times [ROOT]
 
 for K13 and K8 (fft)'s backward, the same, and ``ski_log_det``'s wall
-on the weather model (:func:`k13_k8_times`).
+on the weather model (:func:`k13_k8_times`); and
+
+    python3 chip_smoke.py --times NAME[,NAME] [ROOT]
+
+the timing rows of each named set (:func:`times`): ``K12`` for K12 at
+the MINRES rung's shape, in float32 and at one long row, K13's sha256
+and the rung itself on the weather model; ``K8F`` for K8 (fft)'s
+forward on the weather group. Later slices add names, not modes.
 """
 
 import contextlib
@@ -588,7 +598,7 @@ LAYERS = (
     ("K10 backward", lambda k: "fourier_bwd_kernel" in k),
     ("K10", lambda k: "::fourier_fwd_kernel<" in k
      or "::fourier_fwd_small_kernel<" in k),
-    ("K12", lambda k: k == "minres_kernel"),
+    ("K12", lambda k: "::minres_update_kernel<" in k),
     (K8_BWD_LAYER,
      lambda k: "::rows_fft_bwd_kernel<" in k
      or "::rows_fft_bwd_cluster_kernel<" in k),
@@ -795,13 +805,29 @@ def generic_kernels():
              interp.gather_chunk, interp.gather_layout)
     fourier.fourier_instance = lambda rep, D, K: fourier.GENERIC
     interp.gather_taps = lambda taps: 0
-    interp.gather_chunk = lambda n, nbatch, layout: 1
+    interp.gather_chunk = lambda *args, **kwargs: 1
     interp.gather_layout = lambda sb, sc, nbatch: interp.GATHER_ROWS
     try:
         yield
     finally:
         (fourier.fourier_instance, interp.gather_taps,
          interp.gather_chunk, interp.gather_layout) = saved
+
+
+def rung_cycle_layers(matvec, rhs, tol):
+    """The first cycle of the plain MINRES rung (``KRYLOV_CYCLE``
+    iterations of ``_minres_cycle`` on ``rhs`` from zero, as
+    ``batched_minres`` starts it), profiled once: {layer: {launches,
+    device_ms}} (:func:`by_layer`)."""
+    import torch
+
+    from runlmc_tpu_torch.models.interpolated_llgp import KRYLOV_CYCLE
+    from runlmc_tpu_torch.ops.solvers import _minres_cycle
+
+    tol_t = torch.full((1,), tol, dtype=rhs.dtype, device=rhs.device)
+    _, rows, _ = device_profile(
+        lambda: _minres_cycle(matvec, rhs, tol_t, KRYLOV_CYCLE))
+    return by_layer(rows)
 
 
 def require_layers(layers, names, what):
@@ -1697,7 +1723,7 @@ def main():
             chk["bwd_cluster"] = k8f.bwd_cluster(Q_, m_, dtype)
             saved = k8f.bwd_cluster
             try:
-                k8f.bwd_cluster = lambda Q, m, dtype: 0
+                k8f.bwd_cluster = lambda *args, **kwargs: 0
                 one_cta = k8f.kern_rows_fft_bwd(kinds_, prm_, dists_, wsizes,
                                                 Gk)
             finally:
@@ -1724,32 +1750,51 @@ def main():
         del E_, Ep
 
     # K12: one MINRES iteration's update of a (16, n) float64 state, as
-    # on the plain-MINRES rung of the weather model's certified solve
+    # on the plain-MINRES rung of the weather model's certified solve: a
+    # relaunch from the same state gives the same bits and the inactive
+    # rows (row 0 and a seeded fifth of the rest) keep theirs; timed on
+    # the same state with every row active and tol 0, so that every row
+    # moves its eleven arrays in each timed call
     wn = len(wm.data.y)
     mvecs = [randn(nrhs, wn) for _ in range(6)]
     mscal = [torch.rand(nrhs, generator=gen, dtype=torch.float64).to(dev)
              + 0.1 for _ in range(6)]
     mact = (torch.rand(nrhs, generator=gen) < 0.8).to(dev, torch.int32)
+    mact[0] = 0
     mtol = torch.full((1,), 1e-8, dtype=torch.float64, device=dev)
 
-    def mstate():
+    def mstate(act):
         return ([t.clone() for t in mvecs + mscal]
-                + [mact.clone(), torch.zeros_like(mact)])
+                + [act.clone(), torch.zeros_like(act)])
 
-    mk, mp_ = mstate(), mstate()
+    mk, mk2, mp_ = mstate(mact), mstate(mact), mstate(mact)
     minres.minres_update(*mk, mtol)
+    minres.minres_update(*mk2, mtol)
     minres.minres_update_plain(*mp_, mtol)
     torch.cuda.synchronize()
     require(torch.equal(mk[12], mp_[12]) and torch.equal(mk[13], mp_[13]),
             "minres_update masks disagree")
-    ms_k, ms_p = mstate(), mstate()
-    record("minres_update", torch.float64, "triton",
-           "runlmc_tpu_torch/hopper/triton_minres.py",
-           "runlmc_tpu/ops/solvers.py:96", mk[1:12], mp_[1:12], 1e-12,
-           lambda: minres.minres_update(*ms_k, mtol),
-           lambda: minres.minres_update_plain(*ms_p, mtol),
-           11 * nbytes(mvecs[0]), 19.0 * mvecs[0].numel())
-    del mvecs, mk, mp_, ms_k, ms_p
+    require(all(torch.equal(a, b) for a, b in zip(mk, mk2)),
+            "minres_update relaunch is not bit-identical")
+    idle_rows = mact == 0
+    require(all(torch.equal(a[idle_rows], b[idle_rows])
+                for a, b in zip(mk[:12], mvecs + mscal)),
+            "minres_update changed an inactive row")
+    mtol0 = torch.zeros_like(mtol)
+    mall = torch.ones_like(mact)
+    ms_k, ms_p = mstate(mall), mstate(mall)
+    record("minres_update", torch.float64, "cuda",
+           "runlmc_tpu_torch/hopper/csrc/minres.cu",
+           "runlmc_tpu/ops/solvers.py:103", mk[1:12], mp_[1:12], 1e-12,
+           lambda: minres.minres_update(*ms_k, mtol0),
+           lambda: minres.minres_update_plain(*ms_p, mtol0),
+           11 * nbytes(mvecs[0]), 19.0 * mvecs[0].numel(),
+           extra={"bit_identical_relaunch": True,
+                  "inactive_rows_kept": True,
+                  "cluster": lanczos.lanczos_cluster(nrhs, wn,
+                                                     torch.float64)})
+    require(bool(ms_k[12].all()), "a timed minres_update row stopped")
+    del mvecs, mk, mk2, mp_, ms_k, ms_p, mall
 
     # K13: the Lanczos steps of an SLQ log-det on (15, n) rows, on a
     # diagonal operator; row 0 starts on an eigenvector and breaks down at
@@ -3980,6 +4025,14 @@ def main():
     for name in hopper.MINRES_PATH:
         require(mr_launches[name] > 0,
                 "kernel %s never launched on the MINRES rung" % name)
+    require(mres_worst <= wm.tolerance, "MINRES rung residual %g > %g"
+            % (mres_worst, wm.tolerance))
+    # the rung's first cycle, profiled: K12 must show as its own layer
+    mres_layers = rung_cycle_layers(wK.matvec, wrhs, wm.tolerance)
+    print("MINRES rung, first %d-iteration cycle by layer:" % KRYLOV_CYCLE,
+          flush=True)
+    print_layers(mres_layers)
+    require_layers(mres_layers, ("K12",), "the MINRES rung's first cycle")
     t0 = time.time()
     rsc = wm._chunk(wx_now, wz, wz, wz, T.AdaDelta(), n_steps=1,
                     run_seed=SEED, rescue=True)
@@ -4639,6 +4692,7 @@ def main():
                         "launches": fp_launches,
                         "smse_synthetic": wsmse, "nlpd_synthetic": wnlpd},
             "minres_rung": {"s": mres_s, "iterations": mres_iters,
+                            "first_cycle_layers": mres_layers,
                             "residual": mres_worst,
                             "launches": mr_launches},
             "rescue_step": {"s": rescue_s, "iterations": float(rsc[5][0]),
@@ -5182,8 +5236,8 @@ def k10_k9_times(root):
                     interp.gather_layout = (lambda sb, sc, nbatch, lay=lay:
                                             lay)
                     for chunk in interp.GATHER_CHUNKS[lay]:
-                        interp.gather_chunk = (lambda n, nbatch, lay_,
-                                               chunk=chunk: chunk)
+                        interp.gather_chunk = (lambda *args, chunk=chunk,
+                                               **kwargs: chunk)
                         variant(run, chunk=chunk, layout=lname, **shape)
             finally:
                 (interp.gather_taps, interp.gather_chunk,
@@ -5223,6 +5277,25 @@ K13_SHAPES = ((15, 15768, "float64"), (15, 790, "float32"))
 SKI_LOG_DET_RUNS = 3
 
 
+def k13_state(lanczos, B, n, dts, dev):
+    """K13's seeded mid-run state at (B, n) in ``dts``: a diagonal
+    operator d, unit rows v, a unit v_prev, w = d v, beta, alive and
+    eps."""
+    import torch
+
+    dtype = getattr(torch, dts)
+    g = torch.Generator(device=dev).manual_seed(SEED + B * n)
+    f = dict(dtype=dtype, device=dev)
+    d = torch.rand(n, generator=g, **f) + 0.5
+    v = torch.sign(torch.randn(B, n, generator=g, **f)) / float(n ** 0.5)
+    vp = torch.randn(B, n, generator=g, **f)
+    vp /= torch.linalg.vector_norm(vp, dim=1, keepdim=True)
+    beta = torch.rand(B, generator=g, **f) + 0.1
+    alive = torch.ones(B, dtype=torch.int32, device=dev)
+    eps = torch.full((1,), lanczos.breakdown_eps(dtype), **f)
+    return d, v, vp, v * d, beta, alive, eps
+
+
 def k13_k8_times(root):
     """``--k13-k8-times [ROOT]``: K13 (the Lanczos step) and K8 (fft)'s
     backward in the package at ROOT (this checkout by default). K13 at
@@ -5246,8 +5319,6 @@ def k13_k8_times(root):
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(root))
-    import runlmc_tpu_torch as T
-    from runlmc_tpu_torch.datasets import weather_synthetic
     from runlmc_tpu_torch.hopper import build
     from runlmc_tpu_torch.hopper import kern_rows_fft as k8f
     from runlmc_tpu_torch.hopper import lanczos
@@ -5260,16 +5331,8 @@ def k13_k8_times(root):
     takes_out = "out" in inspect.signature(lanczos.lanczos_step).parameters
     for B, n, dts in K13_SHAPES:
         dtype = getattr(torch, dts)
-        g = torch.Generator(device=dev).manual_seed(SEED + B * n)
         f = dict(dtype=dtype, device=dev)
-        d = torch.rand(n, generator=g, **f) + 0.5
-        v = torch.sign(torch.randn(B, n, generator=g, **f)) / float(n ** 0.5)
-        vp = torch.randn(B, n, generator=g, **f)
-        vp /= torch.linalg.vector_norm(vp, dim=1, keepdim=True)
-        w = v * d
-        beta = torch.rand(B, generator=g, **f) + 0.1
-        alive = torch.ones(B, dtype=torch.int32, device=dev)
-        eps = torch.full((1,), lanczos.breakdown_eps(dtype), **f)
+        d, v, vp, w, beta, alive, eps = k13_state(lanczos, B, n, dts, dev)
         shape = dict(name="lanczos_step", dtype=dts, shape=[B, n])
         # the scratch copies are fresh at the first call, which the sha256
         # hashes; later calls overwrite them (v' into vps, and in a
@@ -5294,10 +5357,7 @@ def k13_k8_times(root):
               name="fill_ (K13's output bytes)", dtype=dts, shape=[B, n])
         del d, v, vp, w, ws, vps, fill
     # the weather model's fft group: K8 (fft)'s backward on its table
-    wx, wy, _, _, _ = weather_synthetic(SEED)
-    wm = T.InterpolatedLLGP(wx, wy, functional_kernel=weather_spec(T, len(wx)),
-                            m=WEATHER_M, objective="stochastic", seed=SEED,
-                            device=dev)
+    wm = _weather_model(dev, {})
     gd = wm.grid_data[0]
     kinds, prm = wm.spec.table_rows(wm.params, gd.plan.kidxs)
     prm = prm.detach()
@@ -5315,7 +5375,7 @@ def k13_k8_times(root):
     if hasattr(k8f, "bwd_cluster"):
         saved = k8f.bwd_cluster
         try:
-            k8f.bwd_cluster = lambda Q, m, dtype: 0
+            k8f.bwd_cluster = lambda *args, **kwargs: 0
             emit(dict(shape, cluster=0, kernel="one CTA a q",
                       sha256=sha(run), queued_ms=queued_time(run)))
         finally:
@@ -5341,7 +5401,178 @@ def k13_k8_times(root):
     return 0
 
 
+# K12 at the MINRES rung's (16, 15768) in float64 and in float32 (the
+# mixed-precision inner cycles' dtype), and at one long row (synth's n)
+K12_SHAPES = ((16, 15768, "float64"), (16, 15768, "float32"),
+              (1, 47480, "float64"))
+RUNG_RUNS = 3
+
+
+def k12_state(B, n, dts, dev):
+    """K12's seeded mid-run state at (B, n) in ``dts``, every row active
+    and tol 0, so that no row stops through the timed calls: w = d v for
+    a diagonal d, unit rows v, a unit v_prev orthogonal to v, d, d_prev
+    and x normal, the Givens scalars on the unit circle."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + B * n)
+    f = dict(generator=g, dtype=torch.float64)
+    diag = torch.rand(n, **f) + 0.5
+    v = torch.randn(B, n, **f)
+    v /= v.norm(dim=1, keepdim=True)
+    vp = torch.randn(B, n, **f)
+    vp -= (vp * v).sum(1, keepdim=True) * v
+    vp /= vp.norm(dim=1, keepdim=True)
+    d, dp, x = (torch.randn(B, n, **f) for _ in range(3))
+    th = 2 * torch.pi * torch.rand(2, B, **f)
+    scal = (0.1 + 0.4 * torch.rand(B, **f), th[0].cos(), th[0].sin(),
+            th[1].cos(), th[1].sin(), 0.5 + 1.5 * torch.rand(B, **f))
+    dtype = getattr(torch, dts)
+    st = [t.to(dev, dtype) for t in (v * diag, x, v, vp, d, dp) + scal]
+    return st + [torch.ones(B, dtype=torch.int32, device=dev),
+                 torch.zeros(B, dtype=torch.int32, device=dev),
+                 torch.zeros(1, dtype=dtype, device=dev)]
+
+
+def _weather_model(dev, ctx):
+    """The weather model at its initial parameters, built once for all
+    the names of one ``--times`` run."""
+    if "wm" not in ctx:
+        import runlmc_tpu_torch as T
+        from runlmc_tpu_torch.datasets import weather_synthetic
+
+        wx, wy, _, _, _ = weather_synthetic(SEED)
+        ctx["wm"] = T.InterpolatedLLGP(
+            wx, wy, functional_kernel=weather_spec(T, len(wx)), m=WEATHER_M,
+            objective="stochastic", seed=SEED, device=dev)
+    return ctx["wm"]
+
+
+def k12_rows(dev, helpers, ctx):
+    """``--times K12``: K12 at ``K12_SHAPES`` (:func:`k12_state`; the
+    sha256 of the state after the first call), ``fill_`` of the five
+    arrays it writes and of all eleven it moves; K13's sha256 at
+    ``K13_SHAPES`` (its reduction is K12's); then the plain MINRES rung
+    on the weather model at its initial parameters (16 right-hand sides,
+    the certified solve's ``RUNG_MAXITER`` and ``KRYLOV_CYCLE``): after
+    a warm-up run, ``RUNG_RUNS`` walls, iterations, residual, and its
+    first cycle's device ms by layer (:func:`rung_cycle_layers`)."""
+    import torch
+
+    from runlmc_tpu_torch import hopper
+    from runlmc_tpu_torch.hopper import lanczos, minres
+    from runlmc_tpu_torch.models.interpolated_llgp import (
+        KRYLOV_CYCLE,
+        RUNG_MAXITER,
+    )
+    from runlmc_tpu_torch.ops.solvers import batched_minres
+
+    sha, host_us, emit, timed = helpers
+    for B, n, dts in K12_SHAPES:
+        st = k12_state(B, n, dts, dev)
+        shape = dict(name="minres_update", dtype=dts, shape=[B, n])
+        if hasattr(minres, "lanczos_cluster"):
+            shape["cluster"] = minres.lanczos_cluster(B, n, st[2].dtype)
+        timed(lambda st=st: (minres.minres_update(*st), st[1:14])[1],
+              **shape)
+        for k in (5, 11):
+            fill = torch.empty((k, B, n), dtype=st[2].dtype, device=dev)
+            timed(lambda fill=fill: fill.fill_(1.0), host=False,
+                  name="fill_ (%d (B, n) arrays)" % k, dtype=dts,
+                  shape=[k, B, n])
+        del st, fill
+    for B, n, dts in K13_SHAPES:
+        d, v, vp, w, beta, alive, eps = k13_state(lanczos, B, n, dts, dev)
+        emit(dict(name="lanczos_step", dtype=dts, shape=[B, n],
+                  sha256=sha(lambda: lanczos.lanczos_step(
+                      w, vp, v, beta, alive, eps))))
+    wm = _weather_model(dev, ctx)
+    wrhs = torch.cat([wm.y[None], wm._probes(SEED, 0)], 0)
+    wK = wm._kski()
+    walls = []
+    for _ in range(RUNG_RUNS + 1):  # the first warms up, untimed
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        res = batched_minres(wK.matvec, wrhs, tol=wm.tolerance,
+                             maxiter=RUNG_MAXITER, cycle=KRYLOV_CYCLE,
+                             stall_ratio=0.999)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    emit(dict(name="MINRES rung (weather, initial parameters, %d rhs)"
+              % wrhs.shape[0], wall_s=walls[1:],
+              iterations=int(torch.max(res.iterations)),
+              residual=float(torch.max(res.error)), tolerance=wm.tolerance,
+              k12_launches=hopper.launch_counts()["minres_update/f64"],
+              first_cycle_layers=rung_cycle_layers(wK.matvec, wrhs,
+                                                   wm.tolerance)))
+
+
+def k8f_rows(dev, helpers, ctx):
+    """``--times K8F``: K8 (fft) forward on the weather model's fft group
+    (its table rows and distances, Q = 6, m = 2504 embedded in 8192), in
+    float64 and float32, with ``fill_`` of its output's bytes."""
+    import torch
+
+    from runlmc_tpu_torch.hopper import kern_rows_fft as k8f
+
+    sha, host_us, emit, timed = helpers
+    wm = _weather_model(dev, ctx)
+    gd = wm.grid_data[0]
+    kinds, prm = wm.spec.table_rows(wm.params, gd.plan.kidxs)
+    for dtype in (torch.float64, torch.float32):
+        p, dists = prm.detach().to(dtype), gd.dists.to(dtype)
+        E = k8f.kern_rows_fft(kinds, p, dists, gd.plan.sizes)
+        timed(lambda p=p, dists=dists: k8f.kern_rows_fft(
+                  kinds, p, dists, gd.plan.sizes),
+              name="kern_rows_fft", dtype=str(dtype)[6:],
+              shape=list(E.shape), Q=len(kinds), m=dists.numel())
+        fill = torch.empty_like(E)
+        timed(lambda fill=fill: fill.fill_(1.0), host=False,
+              name="fill_ (K8 (fft) forward's output bytes)",
+              dtype=str(dtype)[6:], shape=list(E.shape))
+
+
+TIMES = {"K12": k12_rows, "K8F": k8f_rows}
+
+
+def times(names, root):
+    """``--times NAME[,NAME] [ROOT]``: the timing rows of each named set
+    (``TIMES``: ``K12`` :func:`k12_rows`, ``K8F`` :func:`k8f_rows`) of
+    the package at ROOT (this checkout by default), through
+    :func:`timing_rows` (profiler device ms, CUDA events, queued ms,
+    sha256, host µs per call), then ``fill_`` of one element, the
+    card's launch floor. One JSON line at the end; to compare two
+    checkouts on one card, run it for each in one call, in turns."""
+    import torch
+
+    unknown = [n for n in names if n not in TIMES]
+    if unknown or not names:
+        print("chip_smoke: --times takes names from %s, got %s"
+              % (",".join(TIMES), ",".join(names)), file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    dev = torch.device("cuda")
+    rows = []
+    helpers = timing_rows(rows)
+    ctx = {}
+    for name in names:
+        TIMES[name](dev, helpers, ctx)
+    one = torch.empty(1, device=dev)
+    for _ in range(2):
+        helpers[3](lambda: one.fill_(1.0), name="fill_ (one element)")
+    print(json.dumps({"times": rows, "names": names,
+                      "root": os.path.abspath(root), "card": card_line()}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--times"]:
+        sys.exit(times(sys.argv[2].split(",") if len(sys.argv) > 2 else [],
+                       sys.argv[3] if len(sys.argv) > 3 else HERE))
     if sys.argv[1:2] == ["--k3-bwd-times"]:
         sys.exit(k3_bwd_times(sys.argv[2] if len(sys.argv) > 2 else HERE))
     if sys.argv[1:2] == ["--bwd-times"]:

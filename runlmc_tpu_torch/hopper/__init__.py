@@ -13,8 +13,9 @@ PyTorch version beside it.
   K9  interp.interp_gather / interp_scatter  CUDA  csrc/interp.cu
   K10 fourier.fourier_contract    CUDA  csrc/fourier.cu
   K10 backward  fourier.fourier_contract_bwd  CUDA  csrc/fourier.cu
-  K12 minres.minres_update        Triton  triton_minres.py
+  K12 minres.minres_update        CUDA  csrc/minres.cu
   K13 lanczos.lanczos_step        CUDA  csrc/lanczos.cu
+      (K12 and K13 share the cluster row reduction csrc/lanczos_core.cuh)
   K5  trsm.trsm_lower (trsm.cho_solve, its backward: trsm.ChoSolve)
                                   CUDA  csrc/trsm.cu
   K2  capacitance.capacitance     CUDA  csrc/capacitance.cu

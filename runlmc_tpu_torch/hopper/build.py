@@ -18,6 +18,7 @@ raises.
 """
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -130,6 +131,18 @@ def stream_ptr(device=None):
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+# an H100's multiprocessors: the selectors' default count (the wrappers
+# pass their card's, sm_count)
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Multiprocessors of the card of device index ``index`` (a CUDA
+    tensor's ``get_device()``), read once a device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(t):

@@ -22,6 +22,8 @@ __device__ __forceinline__ float dcos(float x) { return cosf(x); }
 __device__ __forceinline__ double dcos(double x) { return cos(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
 // a * b + c rounded once
 __device__ __forceinline__ float dfma(float a, float b, float c) {
     return __fmaf_rn(a, b, c);

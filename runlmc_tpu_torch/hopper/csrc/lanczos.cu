@@ -20,17 +20,14 @@
 // 2.3 us at 3.35 TB/s.
 //
 // Design: each row gets a thread-block cluster of C CTAs
-// (cudaLaunchKernelEx with a cluster dimension; C from the wrapper's
+// (lanczos_core.cuh, shared with K12's minres.cu: C from the wrapper's
 // lanczos_cluster, at most the portable 8), each CTA a contiguous slice
-// of the row's 16-byte vectors. Pass 1 loads w,
-// v_prev and v once, forms w1 and each warp's partial <w1, v> by a fixed
-// xor-shuffle tree. Lane r of each warp stores the warp's partial into
-// CTA r's shared memory with st.async, counted on CTA r's mbarrier
-// (cluster.cuh); each CTA waits for its C * 8 partials and sums them, in
-// (rank, warp) order, by a fixed tree, so every CTA holds the same alpha and a
-// relaunch is bit-identical, without atomics, a second launch or a
-// cluster barrier on the critical path (the one that proves the cluster
-// started is arrived at on entry and waited on after the loads). Pass 2
+// of the row's 16-byte vectors. Pass 1 loads w, v_prev and v once and
+// forms w1 and the partial <w1, v>; the cluster exchange (st.async into
+// each CTA's mbarrier-counted shared memory, summed in (rank, warp)
+// order by a fixed tree) gives every CTA the same alpha, and a relaunch
+// the same bits (the cluster barrier that proves the cluster started is
+// arrived at on entry and waited on after the loads). Pass 2
 // forms w2 from the registers and sums ||w2||^2 the same way; pass 3
 // writes v'. A slice of up to kHeld elements a thread stays in registers
 // between the passes; a longer one (long rows) reads w, v_prev and v
@@ -46,58 +43,14 @@
 
 #include <cooperative_groups.h>
 
-#include "cluster.cuh"
 #include "common.cuh"
+#include "lanczos_core.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCluster = 8;
-// elements of w1 and of v a thread keeps in registers between passes
-constexpr int kHeld = 8;
-
-// V elements loaded or stored as one vector
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-    T x[V];
-};
-
-// the xor-shuffle tree of x over a warp, the same in every lane
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
-
-// lane r of each warp: the warp's partial x (the same in every lane)
-// into slot [rank][warp] of CTA r's parts, counted on CTA r's mbarrier
-// full
-template <typename T>
-__device__ __forceinline__ void send_partial(T* parts, uint64_t* full, T x,
-                                             int rank, int C) {
-    const int lane = threadIdx.x & 31;
-    if (lane < C)
-        runlmc::st_async(parts + rank * kWarps + (threadIdx.x >> 5), x, full,
-                         lane);
-}
-
-// the sum of the C * kWarps partials once all have arrived, the same
-// bits in every thread of every CTA: lane l adds partials l and l + 32
-// in (rank, warp) order, then the xor-shuffle tree (C * kWarps <= 64)
-template <typename T>
-__device__ __forceinline__ T received_sum(T* parts, uint64_t* full, int C) {
-    runlmc::mbar_wait(full, 0);
-    const int lane = threadIdx.x & 31;
-    const int total = C * kWarps;
-    T x = lane < total ? parts[lane] : T(0);
-    if (lane + 32 < total) x += parts[lane + 32];
-    return warp_sum(x);
-}
+using namespace runlmc::rows;
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -113,18 +66,10 @@ __global__ void __launch_bounds__(kThreads)
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks();
     const int rank = (int)cluster.block_rank();
-    if (threadIdx.x == 0) {
-        runlmc::mbar_init(&full[0], 1);
-        runlmc::mbar_init(&full[1], 1);
-        runlmc::fence_mbar_init();
-        runlmc::mbar_expect_tx(&full[0], C * kWarps * (int)sizeof(T));
-        runlmc::mbar_expect_tx(&full[1], C * kWarps * (int)sizeof(T));
-    }
-    runlmc::cluster_arrive_relaxed();
+    exchange_init<T, 2>(full, C);
     const int row = blockIdx.y;
-    const int nvec = n / V;
-    const int lo = (int)((int64_t)nvec * rank / C);
-    const int hi = (int)((int64_t)nvec * (rank + 1) / C);
+    const Slice sl = row_slice(n / V, rank, C);
+    const int lo = sl.lo, hi = sl.hi;
     const int64_t base = (int64_t)row * n;
     const P* wr = reinterpret_cast<const P*>(w + base);
     P* vpr = reinterpret_cast<P*>(vp + base);
@@ -132,12 +77,12 @@ __global__ void __launch_bounds__(kThreads)
     const T beta = beta_in[(int64_t)row * ld_beta];
     const bool live = alive_in[row] != 0;
     const T epsv = eps[0];
-    const bool held = hi - lo <= kHeldVec * kThreads;
+    const bool in_regs = held<V>(sl);
 
     // pass 1: w1 = w - beta v_prev, the partial <w1, v>
     P w1[kHeldVec], vh[kHeldVec];
     T acc = T(0);
-    if (held) {
+    if (in_regs) {
 #pragma unroll
         for (int k = 0; k < kHeldVec; ++k) {
             const int i = lo + threadIdx.x + k * kThreads;
@@ -170,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // pass 2: w2 = w1 - alpha v, the partial ||w2||^2
     acc = T(0);
-    if (held) {
+    if (in_regs) {
 #pragma unroll
         for (int k = 0; k < kHeldVec; ++k) {
             const int i = lo + threadIdx.x + k * kThreads;
@@ -200,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool live_n = live && beta_n > epsv;
     // one division a thread, then products (within an ulp of w2 / beta')
     const T inv = T(1) / (beta_n > T(0) ? beta_n : T(1));
-    if (held) {
+    if (in_regs) {
 #pragma unroll
         for (int k = 0; k < kHeldVec; ++k) {
             const int i = lo + threadIdx.x + k * kThreads;
@@ -231,30 +176,6 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <typename T, int V>
-int launch(const T* w, T* vp, const T* v, const T* beta, int ld_beta,
-           const int* alive, T* alpha_out, int ld_alpha, T* beta_out,
-           int ld_bout, int* alive_out, const T* eps, int B, int n, int C,
-           void* stream) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)C, (unsigned)B, 1);
-    cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, lanczos_step_kernel<T, V>, w, vp, v, beta, ld_beta, alive,
-        alpha_out, ld_alpha, beta_out, ld_bout, alive_out, eps, n);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
-
 // vec: 1 for scalar loads, else 16-byte vectors (n a multiple of their
 // width, the rows 16-byte aligned: the wrapper checks)
 template <typename T>
@@ -263,16 +184,14 @@ int step(const T* w, T* vp, const T* v, const T* beta, int ld_beta,
          int ld_bout, int* alive_out, const T* eps, int B, int n, int C,
          int vec, void* stream) {
     constexpr int kVec = 16 / (int)sizeof(T);
-    if (B < 1 || B > 65535 || n < 1 || C < 1 || C > kMaxCluster ||
-        (vec != 1 && (vec != kVec || n % kVec != 0)))
-        return (int)cudaErrorInvalidValue;
+    if (bad_shape<T>(B, n, C, vec)) return (int)cudaErrorInvalidValue;
     if (vec == 1)
-        return launch<T, 1>(w, vp, v, beta, ld_beta, alive, alpha_out,
-                            ld_alpha, beta_out, ld_bout, alive_out, eps, B, n,
-                            C, stream);
-    return launch<T, kVec>(w, vp, v, beta, ld_beta, alive, alpha_out,
-                           ld_alpha, beta_out, ld_bout, alive_out, eps, B, n,
-                           C, stream);
+        return launch_rows(lanczos_step_kernel<T, 1>, C, B, stream, w, vp, v,
+                           beta, ld_beta, alive, alpha_out, ld_alpha,
+                           beta_out, ld_bout, alive_out, eps, n);
+    return launch_rows(lanczos_step_kernel<T, kVec>, C, B, stream, w, vp, v,
+                       beta, ld_beta, alive, alpha_out, ld_alpha, beta_out,
+                       ld_bout, alive_out, eps, n);
 }
 
 }  // namespace

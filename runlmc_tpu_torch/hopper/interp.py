@@ -63,9 +63,11 @@ SCATTER_THREAD = 0
 SCATTER_WARP = 1
 # a warp per column once the columns average this many entries and the
 # thread variant's ncols * nbatch threads fall short of the card's
-# resident threads (132 SMs x 2048)
+# resident threads (its SMs x 2048; by default an H100's 132 SMs, the
+# wrappers pass their card's: build.sm_count)
 WARP_MIN_MEAN = 16
-CARD_THREADS = 132 * 2048
+SMS = build.H100_SMS
+SM_THREADS = 2048
 WARP = 32
 
 
@@ -78,13 +80,11 @@ GATHER_COLS = 1
 GATHER_TILE = 32
 # gather: the CTA (csrc/interp.cu kGatherThreads), the tap counts with an
 # instance of their own, and each layout's chunks (batch rows a thread),
-# largest first; the largest chunk that leaves the grid at least
-# GATHER_FILL threads (a quarter of the card's resident threads) is
-# taken, else the smallest
+# largest first; the largest chunk that leaves the grid at least a
+# quarter of the card's resident threads is taken, else the smallest
 GATHER_THREADS = 256
 GATHER_TAPS = (4, 16)
 GATHER_CHUNKS = {GATHER_ROWS: (4, 2, 1), GATHER_COLS: (2,)}
-GATHER_FILL = CARD_THREADS // 4
 MAX_GRID_Y = 65535
 
 
@@ -96,14 +96,14 @@ def gather_taps(taps):
 
 
 @functools.lru_cache(maxsize=256)
-def gather_chunk(n, nbatch, layout):
+def gather_chunk(n, nbatch, layout, sms=SMS):
     """Batch rows per thread of the gather of ``n`` rows over ``nbatch``
-    batch rows in ``layout`` (every tap instance alike): a pure function
-    of the three, so kept per shape."""
+    batch rows in ``layout`` (every tap instance alike) on a card of
+    ``sms`` SMs: a pure function of the four, so kept per shape."""
     chunks = GATHER_CHUNKS[layout]
     for c in chunks[:-1]:
         (gx, gy), _, _ = gather_grid(n, nbatch, c, layout)
-        if gx * gy * GATHER_THREADS >= GATHER_FILL:
+        if 4 * gx * gy * GATHER_THREADS >= sms * SM_THREADS:
             return c
     return chunks[-1]
 
@@ -132,11 +132,12 @@ def gather_grid(n, nbatch, chunk, layout):
     return (gx, gy), (gx, rows, False), (gy, per, True)
 
 
-def scatter_variant(ncols, nnz, nbatch):
+def scatter_variant(ncols, nnz, nbatch, sms=SMS):
     """The scatter kernel's variant for a CSR of ``ncols`` columns and
-    ``nnz`` entries applied to ``nbatch`` batch rows: a pure function of
-    the three."""
-    if nnz >= WARP_MIN_MEAN * ncols and ncols * nbatch < CARD_THREADS:
+    ``nnz`` entries applied to ``nbatch`` batch rows on a card of ``sms``
+    SMs: a pure function of the four."""
+    if (nnz >= WARP_MIN_MEAN * ncols
+            and ncols * nbatch < sms * SM_THREADS):
         return SCATTER_WARP
     return SCATTER_THREAD
 
@@ -199,7 +200,9 @@ def interp_gather(idx, w, v):
         build.check(fn(idx.data_ptr(), w.data_ptr(), v2.data_ptr(),
                        out.data_ptr(), n, taps, nb, sb, sc,
                        gather_taps(taps) if aligned else 0,
-                       gather_chunk(n, nb, layout), layout,
+                       gather_chunk(n, nb, layout,
+                                    sms=build.sm_count(v.get_device())),
+                       layout,
                        build.stream_ptr()),
                     "interp_gather")
         interp_gather.launches[sfx] += 1
@@ -228,7 +231,8 @@ def interp_scatter(ptr, rows, wt, x):
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     if out.numel():
-        variant = scatter_variant(ncols, rows.shape[0], x2.shape[0])
+        variant = scatter_variant(ncols, rows.shape[0], x2.shape[0],
+                                  sms=build.sm_count(x.get_device()))
         build.check(fn(build.ptr(ptr), build.ptr(rows), build.ptr(wt),
                        build.ptr(x2), build.ptr(out), n, ncols, x2.shape[0],
                        variant, build.stream_ptr()), "interp_scatter")

@@ -37,12 +37,13 @@ MAX_Q = 64
 # the backward's summation chains (threads of the one-CTA kernel), its
 # largest cluster and the dynamic shared memory a CTA of the cluster
 # kernel takes (the 48 KB a CTA has without an opt-in, less 1 KB for its
-# static shared memory; csrc/kern_rows_fft.cu), and the H100's
-# multiprocessors
+# static shared memory; csrc/kern_rows_fft.cu), and the multiprocessors
+# that the clusters should fill, by default an H100's (the wrapper passes
+# its card's: build.sm_count)
 THREADS = 256
 MAX_CLUSTER = 8
 SMEM_LIMIT = 47 * 1024
-SMS = 132
+SMS = build.H100_SMS
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -108,13 +109,13 @@ def kern_rows_fft(kinds, prm, dists, sizes):
 kern_rows_fft.launches = build.counter()
 
 
-def bwd_cluster(Q, m, dtype):
+def bwd_cluster(Q, m, dtype, sms=SMS):
     """CTAs per kernel q of the backward's cluster kernel, 1, 2, 4 or 8:
-    the most that Q clusters fit on the card's SMs, no more than the
+    the most that Q clusters fit on the card's ``sms`` SMs, no more than the
     ``THREADS`` chains' points need (one CTA a ``THREADS`` points); 0
     (the one-CTA kernel) where a CTA's terms, four values a point, would
     not fit in its shared memory."""
-    C = min(MAX_CLUSTER, SMS // max(Q, 1), -(-m // THREADS))
+    C = min(MAX_CLUSTER, sms // max(Q, 1), -(-m // THREADS))
     C = 1 << (max(C, 1).bit_length() - 1)
     itemsize = 8 if dtype == torch.float64 else 4
     slots = -(-m // THREADS) * (THREADS // C)
@@ -163,7 +164,8 @@ def kern_rows_fft_bwd(kinds, prm, dists, sizes, G):
                         [_P] * 5 + [_I32] * 8 + [_P])
     build.check(fn(ctypes.cast(karr, _P), build.ptr(prm), build.ptr(dists),
                    build.ptr(G), build.ptr(dprm), Q, *axes,
-                   bwd_cluster(Q, dists.shape[0], prm.dtype),
+                   bwd_cluster(Q, dists.shape[0], prm.dtype,
+                               sms=build.sm_count(G.get_device())),
                    build.stream_ptr()), "kern_rows_fft_bwd")
     kern_rows_fft_bwd.launches[sfx] += 1
     return dprm

@@ -33,11 +33,12 @@ import torch
 
 from runlmc_tpu_torch.hopper import build
 
-# csrc/lanczos.cu: threads a CTA, the portable cluster limit
+# csrc/lanczos_core.cuh: threads a CTA, the portable cluster limit
 THREADS = 256
 MAX_CLUSTER = 8
-# the H100's multiprocessors, which B rows of C CTAs should fill
-SMS = 132
+# the multiprocessors that B rows of C CTAs should fill, by default an
+# H100's (the wrappers pass their card's: build.sm_count)
+SMS = build.H100_SMS
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = ([_P] * 4 + [_I32] + [_P] * 2 + [_I32] + [_P] + [_I32] + [_P] * 2
@@ -56,17 +57,19 @@ def vector_width(dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def lanczos_cluster(B, n, dtype):
-    """CTAs per row: enough for B rows to fill the card's SMs, at most
-    ``MAX_CLUSTER``, and no more than give each CTA one 16-byte vector a
-    thread (a shorter slice wastes a cluster barrier)."""
+def lanczos_cluster(B, n, dtype, sms=SMS):
+    """CTAs per row of K13 and K12: enough for B rows to fill the card's
+    ``sms`` multiprocessors, at most ``MAX_CLUSTER``, and no more than
+    give each CTA one 16-byte vector a thread (a shorter slice wastes a
+    cluster barrier)."""
     per_cta = THREADS * vector_width(dtype)
-    return max(1, min(MAX_CLUSTER, SMS // max(B, 1), -(-n // per_cta)))
+    return max(1, min(MAX_CLUSTER, sms // max(B, 1), -(-n // per_cta)))
 
 
 def lanczos_slice(n, vec, C, rank):
     """Element range ``[lo, hi)`` of a row that CTA ``rank`` of ``C``
-    takes, with loads ``vec`` elements wide (csrc/lanczos.cu)."""
+    takes, with loads ``vec`` elements wide (csrc/lanczos_core.cuh
+    row_slice)."""
     nvec = n // vec
     return nvec * rank // C * vec, nvec * (rank + 1) // C * vec
 
@@ -149,7 +152,8 @@ def lanczos_step(w, v_prev, v, beta, alive, eps, out=None):
                        alpha_out.data_ptr(), alpha_out.stride()[0],
                        beta_out.data_ptr(), beta_out.stride()[0],
                        alive_out.data_ptr(), eps.data_ptr(), B, n,
-                       lanczos_cluster(B, n, dtype), vec,
+                       lanczos_cluster(B, n, dtype,
+                                       sms=build.sm_count(index)), vec,
                        build.stream_ptr(v.device)), "lanczos_step")
         lanczos_step.launches[sfx] += 1
     return v, v_prev, alpha_out, beta_out, alive_out

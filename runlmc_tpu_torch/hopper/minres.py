@@ -1,38 +1,48 @@
-"""K12: the fused per-iteration update of masked, batched MINRES
-(Paige-Saunders Lanczos with a Givens QR), one Triton kernel.
+"""K12: one iteration of masked, batched MINRES (Paige-Saunders Lanczos
+with a Givens QR), one CUDA launch an iteration.
 
-Replaces the body of ``_minres_cycle`` at runlmc_tpu/ops/solvers.py:96-139,
+Replaces the body of ``_minres_cycle`` at runlmc_tpu/ops/solvers.py:103-142,
 which XLA runs as some thirty elementwise ops and row reductions over the
-(B, n) state. After ``w = A v`` (the operator; not this module) one
-program per right-hand side sweeps its row three times:
+(B, n) state. After ``w = A v`` (the operator; not this module) an
+iteration is ``w1 = w - beta v_prev``, ``alpha = <v, w1>``, ``w2 = w1 -
+alpha v``, ``beta' = ||w2||`` (K13's step, ``lanczos.py``), the row's
+Givens scalars with the ``safe_*`` guards of the JAX code, then, on
+active rows, ``v_prev = v``, ``v = w2 / beta'``, ``d_prev = d``, ``d =
+(v - delta2 d - eps d_prev) / gamma``, ``x += tau d``; the scalars
+``beta, c, s, c_prev, s_prev, phi_bar`` follow, ``active &= |phi_bar'|
+>= tol & gamma > 0`` and ``iters += active``.
 
-1. ``w -= beta v_prev`` (kept in ``w``) and ``alpha = <v, w>``;
-2. ``beta' = ||w - alpha v||``;
-3. the row's Givens scalars (with the ``safe_*`` guards of the JAX
-   code), then, on active rows, ``v_prev = v``, ``v = (w - alpha v) /
-   beta'``, ``d_prev = d``, ``d = (v - delta2 d - eps d_prev) / gamma``,
-   ``x += tau d``; the scalars ``beta, c, s, c_prev, s_prev, phi_bar``
-   follow, ``active &= |phi_bar'| >= tol & gamma > 0`` and ``iters +=
-   active``.
+The kernel (``csrc/minres.cu``) runs on K13's cluster row reduction
+(``csrc/lanczos_core.cuh``): a thread-block cluster of
+:func:`lanczos.lanczos_cluster` CTAs a row, each a slice
+(:func:`lanczos.lanczos_slice`) of the row's 16-byte vectors, which
+share their partial sums through distributed shared memory. One pass
+over memory: pass 1 loads w, v_prev and v, issues the loads of d, d_prev
+and x and stores v_prev = v and d_prev = d; two cluster exchanges give
+alpha and beta'; pass 3 writes x, v and d (an inactive row's cluster
+exits at once; a slice too long for registers re-reads w, v_prev and v
+and writes all five in pass 3). The row's sums take a fixed order, so a
+relaunch gives the same bits. Bound on the card: bytes, the eleven (B,
+n) arrays read (w, v_prev, v, d, d_prev, x) or written (x, v, v_prev, d,
+d_prev) once: 22.2 MB in float64 at the MINRES rung's B = 16, n = 15768,
+6.62 us at 3.35 TB/s.
 
-The row's dot products never leave the chip. ``w`` is scratch: the
-kernel overwrites it. ``active`` and ``iters`` are int32 (B,) tensors
-and ``tol`` a one-element tensor, so nothing is read back to the host.
-Bound on the card: bytes — the update reads w, v, v_prev, d, d_prev and
-x and writes x, v, v_prev, d and d_prev, eleven (B, n) arrays per
-iteration (22 MB in float64 at B = 16, n = 15789: 6.6 us at 3.35 TB/s);
-the kernel moves sixteen, since sweep 1 writes w and sweeps 2 and 3 read
-it and v again. :func:`minres_update_plain` is the plain PyTorch
-version, which the wrapper runs for CPU tensors.
+``x, v, v_prev, d, d_prev`` and the scalars are updated in place; ``w``
+is only read. ``active`` and ``iters`` are int32 (B,) tensors and ``tol``
+a one-element tensor, so nothing is read back to the host.
+:func:`minres_update_plain` is the plain PyTorch version, which the
+wrapper runs for CPU tensors.
 """
 
-import os
+import ctypes
 
 import torch
 
 from runlmc_tpu_torch.hopper import build
+from runlmc_tpu_torch.hopper.lanczos import lanczos_cluster, vector_width
 
-_BLOCK = 1024
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P] * 15 + [_I32] * 4 + [_P]
 
 
 def minres_update_plain(w, x, v, v_prev, d, d_prev, beta, c, s, c_prev,
@@ -74,44 +84,49 @@ def minres_update_plain(w, x, v, v_prev, d, d_prev, beta, c, s, c_prev,
     active.copy_(still.to(active.dtype))
 
 
-def _kernels():
-    # triton exists only where there is a card: import it at first
-    # launch, with its compile cache beside the CUDA builds
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          os.path.join(build.BUILD_DIR, "triton"))
-    from runlmc_tpu_torch.hopper import triton_minres
-
-    return triton_minres
-
-
 def minres_update(w, x, v, v_prev, d, d_prev, beta, c, s, c_prev, s_prev,
                   phi_bar, active, iters, tol):
     """One MINRES iteration after ``w = A v``: updates the state in
-    place (``w`` is overwritten); ``tol`` is a one-element tensor."""
+    place (``w`` is only read); ``tol`` is a one-element tensor."""
     if build.use_plain("minres_update", v):
         return minres_update_plain(w, x, v, v_prev, d, d_prev, beta, c, s,
                                    c_prev, s_prev, phi_bar, active, iters,
                                    tol)
-    floats = (w, x, v, v_prev, d, d_prev, beta, c, s, c_prev, s_prev,
-              phi_bar, tol)
     dtype = v.dtype
     sfx = build.suffix("minres_update", dtype)
     B, n = v.shape
-    for t in floats:
-        if t.dtype != dtype:
-            raise ValueError("minres_update: mixed float dtypes")
-    for t in floats[:6]:
-        if t.shape != (B, n):
-            raise ValueError("minres_update: vectors must be (B, n)")
-    for t in (active, iters):
-        if t.dtype != torch.int32:
-            raise ValueError("minres_update: active/iters must be int32")
-    build.require_cuda("minres_update", *floats, active, iters)
+    vecs = (w, x, v, v_prev, d, d_prev)
+    scal = (beta, c, s, c_prev, s_prev, phi_bar)
+    if any(t.dtype != dtype for t in vecs + scal + (tol,)):
+        raise ValueError("minres_update: mixed float dtypes")
+    if any(t.shape != (B, n) for t in vecs):
+        raise ValueError("minres_update: vectors must be (B, n)")
+    if (any(t.shape != (B,) for t in scal + (active, iters))
+            or tol.numel() != 1):
+        raise ValueError("minres_update: scalars, active and iters must be "
+                         "(B,), tol one element")
+    if active.dtype != torch.int32 or iters.dtype != torch.int32:
+        raise ValueError("minres_update: active/iters must be int32")
+    # the device by index (a CPU tensor gives -1): a cheaper test than
+    # comparing torch.device objects, at every iteration of a solve
+    index = v.get_device()
+    every = vecs + scal + (active, iters, tol)
+    if any(t.get_device() != index for t in every):
+        raise ValueError("minres_update: every tensor must be on %s"
+                         % v.device)
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError("minres_update: tensors must be contiguous")
     if B:
-        _kernels().minres_kernel[(B,)](
-            w, x, v, v_prev, d, d_prev, beta, c, s, c_prev, s_prev,
-            phi_bar, active, iters, tol, n, BLOCK=_BLOCK, num_warps=4,
-        )
+        vec = vector_width(dtype)
+        ptrs = [t.data_ptr() for t in vecs]
+        if n % vec or any(p % 16 for p in ptrs):
+            vec = 1
+        fn = build.function("minres", "minres_update_" + sfx, _ARGS)
+        build.check(fn(*ptrs, *(t.data_ptr() for t in scal),
+                       active.data_ptr(), iters.data_ptr(), tol.data_ptr(),
+                       B, n, lanczos_cluster(B, n, dtype,
+                                             sms=build.sm_count(index)),
+                       vec, build.stream_ptr(v.device)), "minres_update")
         minres_update.launches[sfx] += 1
 
 

@@ -5,6 +5,8 @@ with one, run without the JAX-configuring conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,7 @@ from runlmc_tpu_torch.lmc import woodbury as wbm
 from runlmc_tpu_torch.ops import slq
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.utils.carry import from_reference_params
+from torch_minres_states import minres_state
 
 DTYPES = [torch.float32, torch.float64]
 # float64 kernels sum the same few terms as their plain versions in
@@ -495,6 +498,115 @@ def test_minres_update(dev, dtype):
     for a, b in zip(k[1:12], q[1:12]):  # w is scratch
         _close(a, b, dtype)
     assert torch.equal(k[12], q[12]) and torch.equal(k[13], q[13])
+
+
+def _minres_state(B, n, dtype, dev, seed, offset=False):
+    """``minres_state`` (its inactive, beta' = 0 and gamma = 0 rows) on
+    the card; with ``offset`` the vectors start one element past a
+    16-byte boundary."""
+    st, diag = minres_state(B, n, dtype, seed)
+    return ([_placed(t, dev, offset) for t in st[:6]]
+            + [t.to(dev) for t in st[6:]]), diag.to(dev)
+
+
+def _placed(t, dev, offset):
+    """``t`` copied to the card, one element past a 16-byte boundary with
+    ``offset``."""
+    if not offset:
+        return t.to(dev, copy=True)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _copy_state(st, offset):
+    return [_placed(t, t.device, offset) if t.dim() == 2 else t.clone()
+            for t in st]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B, n, offset", [
+    (3, 300, False),     # one CTA a row
+    (16, 15768, False),  # the rung's shape: clusters of 8, held slices
+    (1, 47480, False),   # one long row: slices re-read from memory
+    (5, 40001, False),   # n odd: scalar loads, long slices
+    (4, 1000, True),     # an offset pointer: scalar loads, clusters of 2
+])
+def test_minres_update_clusters_and_long_rows(dev, dtype, B, n, offset):
+    """K12 against its plain version from the same state, three
+    iterations: one launch each, w only read, the inactive row left
+    bit-identical, masks and iteration counts the plain version's (with
+    the beta' = 0 and gamma = 0 rows), and a relaunch bit-identical."""
+    st, diag = _minres_state(B, n, dtype, dev, seed=B + n, offset=offset)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for _ in range(3):
+        got, again = _copy_state(st, offset), _copy_state(st, offset)
+        want = [t.clone() for t in st]
+        before = minres.minres_update.launches[sfx]
+        minres.minres_update(*got)
+        assert minres.minres_update.launches[sfx] == before + 1
+        minres.minres_update(*again)
+        minres.minres_update_plain(*want)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        assert torch.equal(got[0], st[0])
+        for a, b in zip(got[1:12], want[1:12]):
+            _close(a, b, dtype)
+        assert torch.equal(got[12], want[12])
+        assert torch.equal(got[13], want[13])
+        if B > 1:
+            for a, b in zip(got[:12], st[:12]):
+                assert torch.equal(a[0], b[0])
+        for t, u in zip(st, want):
+            t.copy_(u)
+        st[0].copy_(st[2] * diag)
+    assert int(st[13][-1]) == 3 and (B == 1 or int(st[13][0]) == 0)
+    if B > 3:
+        assert st[13][1:3].tolist() == [2, 1]
+
+
+# K13's outputs over four steps on _k13_digest's state, recorded from the
+# kernel before its reduction moved into csrc/lanczos_core.cuh
+K13_SHA256 = {
+    torch.float64:
+        "1bd85d4f11d05f44d027b9e68a1518bd805c5e69a2fe6d70b144ba2dddfa0e1a",
+    torch.float32:
+        "d6a6373ac452ba646f1cbca2146a198e8f8d843496dc820b8e15f663fa51f44f",
+}
+
+
+def _k13_digest(dtype, dev):
+    """sha256 of K13's outputs over four steps from a fixed seeded state:
+    the rung's SLQ shape (15, 15768) in float64, the float32 report
+    path's (15, 790) in float32; row 0 breaks down at the first step."""
+    B, n = (15, 15768) if dtype == torch.float64 else (15, 790)
+    g = torch.Generator().manual_seed(21)
+    d = (torch.rand(n, generator=g, dtype=dtype) + 0.5).to(dev)
+    v = torch.sign(torch.randn(B, n, generator=g, dtype=dtype)).to(dev)
+    v = v / float(np.sqrt(n))
+    v[0] = 0.0
+    v[0, n // 3] = 1.0
+    eps = torch.full((1,), lanczos.breakdown_eps(dtype), dtype=dtype,
+                     device=dev)
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros(B, dtype=dtype, device=dev)
+    alive = torch.ones(B, dtype=torch.int32, device=dev)
+    h = hashlib.sha256()
+    for _ in range(4):
+        out = lanczos.lanczos_step(v * d, v_prev, v, beta, alive, eps)
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        v_prev, v, _, beta, alive = out
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lanczos_step_keeps_its_recorded_bits(dev, dtype):
+    """K13 rebuilt on the shared row reduction gives the bits it gave
+    before the move (the code moved, the order of operations did not)."""
+    assert _k13_digest(dtype, dev) == K13_SHA256[dtype]
 
 
 def test_fft_stochastic_step_matches_cpu(dev):
@@ -1509,7 +1621,7 @@ def test_kern_rows_fft_bwd_cluster_has_the_one_cta_bits(dev, dtype, sizes,
                 kern_rows_fft.SMEM_LIMIT:
             continue
         monkeypatch.setattr(kern_rows_fft, "bwd_cluster",
-                            lambda Q, m, dtype, c=c: c)
+                            lambda Q, m, dtype, sms=None, c=c: c)
         assert torch.equal(kern_rows_fft.kern_rows_fft_bwd(
             kinds, prm, dists, sizes, G), got), c
 

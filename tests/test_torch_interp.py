@@ -167,6 +167,7 @@ def test_scatter_wrapper_launches_the_variant_of_its_shape(monkeypatch):
     monkeypatch.setattr(build, "require_cuda", lambda what, *ts: None)
     monkeypatch.setattr(build, "function", fake_function)
     monkeypatch.setattr(build, "stream_ptr", lambda: None)
+    monkeypatch.setattr(build, "sm_count", lambda index: build.H100_SMS)
     before = dict(tinterp.interp_scatter.launches)
     for nb in (1, 5):
         x = torch.as_tensor(rng.standard_normal((nb, W.shape[0])))

@@ -128,6 +128,7 @@ def _stub_card(monkeypatch, seen):
     monkeypatch.setattr(build, "require_cuda", lambda what, *ts: None)
     monkeypatch.setattr(build, "function", fake_function)
     monkeypatch.setattr(build, "stream_ptr", lambda device=None: None)
+    monkeypatch.setattr(build, "sm_count", lambda index: build.H100_SMS)
 
 
 def test_gather_wrapper_passes_its_selectors_and_the_strides(monkeypatch):
