@@ -215,6 +215,25 @@ Phases:
    ``PREDICT_RTOL`` of the card; an escalated copy of synth's reduced
    model stays escalated across save and restore and resumes in
    float64;
+17. the mesh layer (``runlmc_tpu_torch/parallel``): rank processes of
+   this script (:func:`mesh_worker`), started together, each loading the
+   libraries of phase 2: the weather model (m=2500, stochastic,
+   tolerance ``STOCH_TOL``) on 2 Gloo ranks sharing the card
+   (``default_mesh(2)``, the probe layout) and, where there is a card per
+   rank, on 2 NCCL ranks; fx2007 (exact, float32 factors, the data
+   layout) on 2 Gloo ranks and on 1 NCCL rank; the weather model on
+   ``probe_grid_mesh(1, 2)`` (the grid layout). Each rank's first-step
+   gradient against the single process's from the same start and probes
+   (``MESH_STOCH_RTOL``, ``MESH_EXACT_RTOL``), its certified residual,
+   the path's kernels launched (counts reset before, read after), the
+   grid layout's grid_matvec on seeded vectors equal to the single
+   process's to the bit, and after ``MESH_STEPS`` steps the ranks'
+   parameters bitwise equal; each rank's rows, local loop iterations,
+   walls and the collectives' device µs printed. Meanwhile, on this
+   process, K10 and its backward on each rank's Fourier range at the
+   weather shape, held against their plain versions and against the
+   full range's slice (the bits); any rank that fails or runs past
+   ``MESH_SPAWN_S`` fails the script;
 14. print each phase's seconds, the kernel table as one JSON line (each
    row's ``launches`` counted on its own path, named in ``path``), the
    card line again, and as the last line ``{"ok": true, "device":
@@ -252,7 +271,12 @@ on the weather model (:func:`k13_k8_times`); and
 the timing rows of each named set (:func:`times`): ``K12`` for K12 at
 the MINRES rung's shape, in float32 and at one long row, K13's sha256
 and the rung itself on the weather model; ``K8F`` for K8 (fft)'s
-forward on the weather group. Later slices add names, not modes.
+forward on the weather group; ``K10R`` for K10 and its backward at the
+full range and on each rank's Fourier range of two. Later slices add
+names, not modes.
+
+Phase 17 starts its ranks as ``python3 chip_smoke.py --mesh-worker
+CONFIG RANK WORLD STORE OUT`` (:func:`mesh_worker`).
 """
 
 import contextlib
@@ -1188,6 +1212,448 @@ def synth_spec(T, D):
         D=D, slfm_kernels=[T.RBF(name="slfm0"), T.RBF(name="slfm1")],
         indep_gp=[T.RBF(name="rbf%d" % i) for i in range(D)],
     )
+
+
+# ---------------------------------------------------------------- phase 17
+# The mesh layer (runlmc_tpu_torch/parallel): every rank is a process of
+# this script (``--mesh-worker CONFIG RANK WORLD STORE OUT``), all started
+# together once phase 2 has built every library (a worker loads them and
+# builds nothing); the ranks of a configuration meet at a FileStore.
+# CONFIG -> (ranks, backend, model, layout): 'probe' is default_mesh(ranks)
+# (the stochastic objective's solve rows, the exact objective's data
+# rows), 'grid' probe_grid_mesh(1, ranks) (the fft group's Fourier axis).
+# Gloo runs ranks that share one card; 'weather-nccl' runs only where
+# there is a card per rank.
+MESH_CONFIGS = {
+    "weather": (2, "gloo", "weather", "probe"),
+    "weather-nccl": (2, "nccl", "weather", "probe"),
+    "fx2007": (2, "gloo", "fx2007", "probe"),
+    "fx2007-nccl": (1, "nccl", "fx2007", "probe"),
+    "grid": (2, "gloo", "weather", "grid"),
+}
+# the weather configurations solve to STOCH_TOL: rows solved in another
+# batch then certify to the same absolute residual, so the first-step
+# gradient agrees with the single process within the stochastic bound
+# (PERF.md section 2); fx2007 keeps its float32 factors (TRAIN_RTOL)
+MESH_STOCH_RTOL = STOCH_RTOL
+MESH_EXACT_RTOL = TRAIN_RTOL
+# AdaDelta steps after the first gradient (the ranks' bits compared), a
+# spawn's time limit, the probe stream's run seed, the seeded grid_matvec
+# operands of the grid layout, and each rank's CPU threads (7 ranks on the
+# host's 8 cores)
+MESH_STEPS = 3
+MESH_SPAWN_S = 180
+MESH_RUN_SEED = 7
+MESH_VECS = 16
+MESH_VEC_SEED = 23
+MESH_THREADS = "2"
+# the kernel rows of the grid layout's path, and their launches
+MESH_GRID_PATH = "mesh (grid)"
+
+
+def mesh_model(T, which, dev, mesh=None):
+    """The phase's model, ``which`` 'weather' (m=2500, stochastic, solves
+    to STOCH_TOL) or 'fx2007' (exact, float32 factors), on ``mesh``."""
+    from runlmc_tpu_torch.datasets import fx2007_synthetic, weather_synthetic
+
+    if which == "weather":
+        x, y, _, _, _ = weather_synthetic(SEED)
+        return T.InterpolatedLLGP(
+            x, y, functional_kernel=weather_spec(T, len(x)), m=WEATHER_M,
+            objective="stochastic", tolerance=STOCH_TOL, seed=SEED,
+            mesh=mesh, device=dev)
+    x, y, _, _ = fx2007_synthetic(SEED)
+    spec = T.LMCKernelSpec.create(D=len(x), lmc_kernels=[T.RBF(name="rbf0")],
+                                  lmc_ranks=[2])
+    return T.InterpolatedLLGP(x, y, functional_kernel=spec, m=[234],
+                              objective="exact", tolerance=TOLERANCE,
+                              seed=SEED, mesh=mesh, device=dev)
+
+
+def mesh_first_grad(m, x):
+    """The first step's gradient at ``x`` (the stochastic one on the
+    probes of MESH_RUN_SEED's iteration 0), averaged over the mesh."""
+    if m.objective == "stochastic":
+        return m._stochastic_grad(x, m._probes(MESH_RUN_SEED, 0))
+    return m._exact_grad(x)
+
+
+def mesh_vectors(cols, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(MESH_VEC_SEED)
+    return torch.randn((MESH_VECS, cols), generator=gen, device=dev,
+                       dtype=torch.float64)
+
+
+def collective_us(prof):
+    """(device µs, calls) inside the collectives' profiler range."""
+    from runlmc_tpu_torch.parallel.collectives import RANGE
+
+    for evt in prof.key_averages():
+        if evt.key == RANGE:
+            dev_us = getattr(evt, "device_time_total", None)
+            if dev_us is None:
+                dev_us = evt.cuda_time_total
+            return float(dev_us), int(evt.count)
+    return 0.0, 0
+
+
+def mesh_worker(config, rank, world, store, out):
+    """``--mesh-worker``: one rank of phase 17. Starts the process group
+    (``parallel.initialize`` on the FileStore ``store``), builds the
+    configuration's model on its mesh, takes the first step's gradient
+    (launch counts reset before and read after), times it warm and
+    profiles it (the collectives' device time), for the grid layout
+    applies the group's grid_matvec to MESH_VECS seeded vectors, trains
+    MESH_STEPS steps, and writes ``OUT.rank<RANK>.json`` and ``.npz``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import runlmc_tpu_torch as T
+    import runlmc_tpu_torch.parallel as par
+    from runlmc_tpu_torch import hopper
+    from runlmc_tpu_torch.lmc import likelihood as lk
+    from runlmc_tpu_torch.parallel.mesh import shard_range
+
+    rank, world = int(rank), int(world)
+    _, backend, which, layout = MESH_CONFIGS[config]
+    dev = torch.device("cuda", rank % torch.cuda.device_count()
+                       if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    t0 = time.time()
+    require(par.initialize("file://" + store, world, rank, backend=backend,
+                           timeout=MESH_SPAWN_S), "no process group")
+    mesh = (par.probe_grid_mesh(1, world) if layout == "grid"
+            else par.default_mesh(world))
+    init_s = time.time() - t0
+    t0 = time.time()
+    m = mesh_model(T, which, dev, mesh)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    x0 = torch.as_tensor(m.param_array, dtype=m.dtype, device=dev)
+    solves = []
+    plain = lk.sharded_solve
+
+    def recording(*args, **kwargs):
+        res = plain(*args, **kwargs)
+        solves.append(res)
+        return res
+
+    lk.sharded_solve = recording
+    hopper.reset_launches()
+    g, aux = mesh_first_grad(m, x0)
+    torch.cuda.synchronize()
+    launches = hopper.launch_counts()
+    t0 = time.time()
+    mesh_first_grad(m, x0)
+    torch.cuda.synchronize()
+    grad_s = time.time() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        mesh_first_grad(m, x0)
+        torch.cuda.synchronize()
+    coll_us, coll_calls = collective_us(prof)
+    res = {"config": config, "rank": rank, "world": world,
+           "backend": backend, "device": str(dev), "layout": layout,
+           "init_s": init_s, "build_s": build_s, "grad_s": grad_s,
+           "collective_device_us": coll_us, "collective_calls": coll_calls,
+           "solve_error": float(aux.solve_error),
+           "solve_iters_mean": float(aux.solve_iters), "launches": launches}
+    arrays = {"grad": g.cpu().numpy()}
+    if which == "weather":
+        it = solves[0].iterations.cpu().numpy()
+        shards = mesh.shape["probe"]
+        per = -(-len(it) // shards)
+        lo = mesh.index("probe") * per
+        mine = it[lo:lo + per]
+        res["rows"] = [int(lo), int(lo + len(mine))]
+        res["loop_iterations"] = int(mine.max())
+        res["row_iterations"] = mine.tolist()
+    else:
+        res["rows"] = list(shard_range(len(m.data.y), world, rank))
+    if layout == "grid":
+        grp = m._kski().groups[0]
+        F = int(np.prod(grp.fourier_shape()))
+        res["fourier_range"] = list(shard_range(F, world, rank)) + [F]
+        mv = grp.grid_matvec(mesh_vectors(grp.interp.ncols, dev))
+        arrays["matvec"] = mv.cpu().numpy()
+        res["matvec_sha256"] = hashlib.sha256(
+            arrays["matvec"].tobytes()).hexdigest()
+    m.chunk_len = MESH_STEPS
+    torch.cuda.synchronize()
+    t0 = time.time()
+    info = m.optimize(T.AdaDelta(max_it=MESH_STEPS))
+    torch.cuda.synchronize()
+    res["steps_s"] = time.time() - t0
+    res["n_iter"] = int(info["n_iter"])
+    arrays["params"] = m.param_array
+    res["params_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(arrays["params"]).tobytes()).hexdigest()
+    np.savez("%s.rank%d.npz" % (out, rank), **arrays)
+    with open("%s.rank%d.json" % (out, rank), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_spawn(configs, tmp):
+    """Start every rank of ``configs`` (one process each, logs under
+    ``tmp``); returns ``[(config, rank, process, log)]``."""
+    env = dict(os.environ, OMP_NUM_THREADS=MESH_THREADS,
+               MKL_NUM_THREADS=MESH_THREADS)
+    # the ranks talk over the loopback device: the machine has no network
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    procs = []
+    for cfg in configs:
+        world = MESH_CONFIGS[cfg][0]
+        store = os.path.join(tmp, cfg + ".store")
+        for r in range(world):
+            log = open(os.path.join(tmp, "%s.rank%d.log" % (cfg, r)), "w")
+            p = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 cfg, str(r), str(world), store, os.path.join(tmp, cfg)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+            procs.append((cfg, r, p, log))
+    return procs
+
+
+def mesh_wait(procs, start, tmp):
+    """Wait for every rank, each within MESH_SPAWN_S of ``start``; any
+    rank that fails or runs out of time fails the phase (every rank is
+    killed and the tails of the logs under ``tmp`` printed)."""
+    bad = []
+    for cfg, r, p, log in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, start + MESH_SPAWN_S - time.time()))
+        except subprocess.TimeoutExpired:
+            rc = "timed out after %d s" % MESH_SPAWN_S
+        log.close()
+        if rc != 0:
+            bad.append((cfg, r, rc))
+    if bad:
+        mesh_kill(procs)
+        for cfg, r, rc in bad:
+            with open(os.path.join(tmp, "%s.rank%d.log" % (cfg, r))) as f:
+                tail = f.read()[-3000:]
+            print("mesh %s rank %d: %s\n%s" % (cfg, r, rc, tail), flush=True)
+        raise RuntimeError("chip_smoke: mesh ranks failed: %s" % (bad,))
+
+
+def mesh_kill(procs):
+    for _, _, p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def mesh_phase(T, dev, record, path_launches):
+    """Phase 17: spawn the ranks of MESH_CONFIGS, meanwhile take the
+    single-process references on this card (the weather model's
+    first-step gradient and grid_matvec, fx2007's first-step gradient)
+    and hold K10's range kernel and its backward at the weather shape
+    against their plain versions and against the slice of the full
+    range's output (the bits); then hold every rank against the
+    references. Returns the phase's results; the grid layout's launches
+    go to ``path_launches[MESH_GRID_PATH]``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from runlmc_tpu_torch import hopper
+    from runlmc_tpu_torch.hopper import fourier
+    from runlmc_tpu_torch.models.interpolated_llgp import (
+        EXACT_RESIDUAL_THRESHOLD,
+    )
+    from runlmc_tpu_torch.parallel.mesh import shard_range
+
+    card = card_line()
+    configs = [c for c in MESH_CONFIGS
+               if MESH_CONFIGS[c][1] != "nccl" or MESH_CONFIGS[c][0] == 1
+               or torch.cuda.device_count() >= MESH_CONFIGS[c][0]]
+    skipped = [c for c in MESH_CONFIGS if c not in configs]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    start = time.time()
+    procs = mesh_spawn(configs, tmp)
+    try:
+        ref = {}
+        t0 = time.time()
+        sw = mesh_model(T, "weather", dev)
+        xw = torch.as_tensor(sw.param_array, dtype=sw.dtype, device=dev)
+        ref["weather"] = mesh_first_grad(sw, xw)[0].cpu().numpy()
+        grp = sw._kski().groups[0]
+        mv = grp.grid_matvec(mesh_vectors(grp.interp.ncols, dev))
+        ref["matvec"] = mv.cpu().numpy()
+        sf = mesh_model(T, "fx2007", dev)
+        xf = torch.as_tensor(sf.param_array, dtype=sf.dtype, device=dev)
+        ref["fx2007"] = mesh_first_grad(sf, xf)[0].cpu().numpy()
+        ref_s = time.time() - t0
+        # K10 on rank 1's Fourier range of two, at the weather group
+        gen = torch.Generator(device="cpu").manual_seed(MESH_VEC_SEED)
+
+        def crandn(*shape, dtype):
+            return torch.randn(*shape, generator=gen, dtype=dtype).to(dev)
+
+        cplx = {torch.float64: torch.complex128,
+                torch.float32: torch.complex64}
+        # timed once the ranks are done: the profiler takes the card's
+        # counters for one process at a time
+        timings = []
+        k10 = {}
+        for dtype, gs in ((torch.float64, sw._kski().groups[0]),
+                          (torch.float32, sw._kski32().groups[0])):
+            D, F = gs.diag_That.shape
+            R = gs.That_rep.shape[0]
+            vf = crandn(MESH_VECS, D, F, dtype=cplx[dtype])
+            full = fourier.fourier_contract("slfm", vf, gs.A, gs.That_rep,
+                                            gs.diag_That)
+            for r in range(2):
+                f0, f1 = shard_range(F, 2, r)
+                cut = ("slfm", vf, gs.A, gs.That_rep[:, f0:f1].contiguous(),
+                       gs.diag_That[:, f0:f1].contiguous())
+                got = fourier.fourier_contract(*cut, f0=f0)
+                require(torch.equal(got, full[..., f0:f1]),
+                        "K10 on the range [%d, %d) is not the full range's "
+                        "slice to the bit" % (f0, f1))
+                with generic_kernels():
+                    require(torch.equal(
+                        fourier.fourier_contract(*cut, f0=f0), got),
+                        "K10's generic kernel on a range differs in bits")
+            k10[str(dtype)] = hashlib.sha256(
+                full.cpu().numpy().tobytes()).hexdigest()
+            want = fourier.fourier_contract_plain(*cut, f0=f0)
+            nf = f1 - f0
+            timings.append((
+                ("fourier_contract (range)", dtype, "cuda",
+                 "runlmc_tpu_torch/hopper/csrc/fourier.cu",
+                 "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(got),
+                 torch.view_as_real(want),
+                 1e-12 if dtype == torch.float64 else 1e-5,
+                 lambda cut=cut, f0=f0: fourier.fourier_contract(*cut, f0=f0),
+                 lambda cut=cut, f0=f0: fourier.fourier_contract_plain(
+                     *cut, f0=f0),
+                 nbytes(vf[..., f0:f1], got, gs.A, cut[3], cut[4]),
+                 (8.0 * D * R + 6.0 * R + 8.0 * D) * MESH_VECS * nf),
+                {"path": MESH_GRID_PATH,
+                 "extra": {"counter": "fourier_contract", "range": [f0, nf],
+                           "F": F, "instance": fourier.fourier_instance(
+                               "slfm", D, R)}}))
+            if dtype == torch.float64:
+                G = crandn(MESH_VECS, D, nf, dtype=cplx[dtype])
+                Gfull = torch.zeros_like(vf)
+                Gfull[..., f0:f1] = G
+                H = fourier.fourier_contract_bwd(G, vf, f0=f0)
+                require(torch.equal(
+                    H, fourier.fourier_contract_bwd(Gfull, vf)[..., f0:f1]),
+                    "K10's backward on a range is not the full range's "
+                    "slice to the bit")
+                vr = vf[..., f0:f1]
+                timings.append((
+                    ("fourier_contract_bwd (range)", dtype, "cuda",
+                     "runlmc_tpu_torch/hopper/csrc/fourier.cu",
+                     "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(H),
+                     torch.view_as_real(
+                         fourier.fourier_contract_bwd_plain(G, vf, f0)),
+                     1e-12,
+                     lambda G=G, vf=vf, f0=f0: fourier.fourier_contract_bwd(
+                         G, vf, f0=f0),
+                     lambda G=G, vf=vf, f0=f0:
+                         fourier.fourier_contract_bwd_plain(G, vf, f0),
+                     nbytes(G, vr, H), 8.0 * MESH_VECS * D * D * nf),
+                    {"library_fn": lambda G=G, vr=vr: torch.matmul(
+                        G.permute(2, 1, 0), vr.conj().permute(2, 0, 1)),
+                     "path": MESH_GRID_PATH,
+                     "extra": {"counter": "fourier_contract_bwd",
+                               "range": [f0, nf], "F": F}}))
+        del sw, sf
+        mesh_wait(procs, start, tmp)
+    finally:
+        mesh_kill(procs)
+    wall_s = time.time() - start
+    for args, kwargs in timings:
+        record(*args, **kwargs)
+    del timings
+    # every rank against the references
+    runs = {}
+    for cfg, r, _, _ in procs:
+        with open(os.path.join(tmp, "%s.rank%d.json" % (cfg, r))) as f:
+            res = json.load(f)
+        res.update(dict(np.load(os.path.join(tmp, "%s.rank%d.npz"
+                                             % (cfg, r)))))
+        runs.setdefault(cfg, []).append(res)
+    summary = {"card": card, "wall_s": wall_s, "reference_s": ref_s,
+               "not_run": skipped, "k10_full_sha256": k10, "configs": {}}
+    for cfg, ranks in runs.items():
+        _, backend, which, layout = MESH_CONFIGS[cfg]
+        want = ref[which]
+        rtol = MESH_STOCH_RTOL if which == "weather" else MESH_EXACT_RTOL
+        path = (hopper.STOCHASTIC_PATH if which == "weather"
+                else hopper.TRAIN_PATH)
+        out = []
+        for res in ranks:
+            err = float(np.max(np.abs(res["grad"] - want))
+                        / np.max(np.abs(want)))
+            print("mesh %-12s rank %d/%d (%s, %s, %s): rows %s, local loop "
+                  "iterations %s, init %.2f s, build %.2f s, first gradient "
+                  "%.3f s warm, %d steps %.3f s, collectives %.1f us device "
+                  "in %d calls, gradient rel err %.3e (tol %.0e), residual "
+                  "%.3e"
+                  % (cfg, res["rank"], res["world"], backend, res["device"],
+                     layout, res["rows"], res.get("loop_iterations", "-"),
+                     res["init_s"], res["build_s"], res["grad_s"],
+                     res["n_iter"], res["steps_s"],
+                     res["collective_device_us"], res["collective_calls"],
+                     err, rtol, res["solve_error"]), flush=True)
+            require(err <= rtol, "mesh %s rank %d: the first-step gradient "
+                    "disagrees with the single process" % (cfg, res["rank"]))
+            missing = [k for k in path if res["launches"][k] == 0]
+            require(not missing, "mesh %s rank %d never launched %s"
+                    % (cfg, res["rank"], missing))
+            if which == "fx2007":
+                require(res["solve_error"] < EXACT_RESIDUAL_THRESHOLD,
+                        "mesh %s: certified residual %.3e" % (
+                            cfg, res["solve_error"]))
+            if layout == "grid":
+                require(np.array_equal(res["matvec"], ref["matvec"]),
+                        "mesh %s rank %d: grid_matvec differs in bits from "
+                        "the single process" % (cfg, res["rank"]))
+                for k in ("fourier_contract/f64", "fourier_contract/f32",
+                          "fourier_contract_bwd/f64"):
+                    require(res["launches"][k] > 0, "mesh %s rank %d: no "
+                            "%s launch on its range" % (cfg, res["rank"], k))
+            require(res["n_iter"] == MESH_STEPS, "mesh %s: %d steps"
+                    % (cfg, res["n_iter"]))
+            out.append({k: v for k, v in res.items()
+                        if not isinstance(v, np.ndarray)}
+                       | {"grad_rel_err": err})
+        same = all(np.array_equal(r["params"], ranks[0]["params"])
+                   for r in ranks)
+        print("mesh %s: after %d steps the %d ranks' parameters are %s "
+              "(sha256 %s)" % (cfg, MESH_STEPS, len(ranks),
+                               "bitwise equal" if same else "DIFFERENT",
+                               ranks[0]["params_sha256"][:16]), flush=True)
+        require(same, "mesh %s: the ranks' parameters differ" % cfg)
+        summary["configs"][cfg] = out
+    grid0 = [r for r in runs["grid"] if r["rank"] == 0][0]
+    path_launches[MESH_GRID_PATH] = grid0["launches"]
+    print("mesh: grid_matvec of the grid layout sha256 %s, the single "
+          "process's %s" % (grid0["matvec_sha256"][:16], hashlib.sha256(
+              ref["matvec"].tobytes()).hexdigest()[:16]), flush=True)
+    for c in skipped:
+        print("mesh %s: not run (%d card(s); it takes a card a rank)"
+              % (c, torch.cuda.device_count()), flush=True)
+    print("mesh: phase wall %.1f s (references %.1f s), on %s; the walls "
+          "of ranks that share one card measure contention, not scaling"
+          % (wall_s, ref_s, card), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return summary
 
 
 def main():
@@ -4590,16 +5056,22 @@ def main():
         shutil.rmtree(ck_dir, ignore_errors=True)
     phase_done("16 checkpoint and resume")
 
+    # ------------------------------------------------------------ phase 17
+    path_launches = {}
+    mesh_res = mesh_phase(T, dev, record, path_launches)
+    phase_done("17 mesh")
+
     # ------------------------------------------------------------ phase 14
-    path_launches = {
+    path_launches.update({
         "report (fx2007)": rep_launches, "slq (weather)": slq_launches,
         "weather oracle": wexact_launches, "float32 report": f32_launches,
         "train (stochastic, fft)": st_launches, "train": train_launches,
         "train (model precision)": mp_launches, "predict": launches,
         "loo_zsq (float32)": loo32_launches, "synth": sy_launches,
-    }
+    })
     for row in rows:
-        key = "%s/%s" % (row["name"], row["dtype"].replace("float", "f"))
+        key = "%s/%s" % (row.get("counter", row["name"]),
+                         row["dtype"].replace("float", "f"))
         row["train_launches"] = train_launches[key]
         row["stochastic_launches"] = st_launches[key]
         row["predict_fft_launches"] = fp_launches[key]
@@ -4778,7 +5250,7 @@ def main():
         "k3_flag_indefinite": k3_flag, "k3_memory": k3_memory,
         "train_ladder": train_ladder,
         "stochastic_ladder": stoch_ladder, "checkpoint": ckpt_res,
-        "phase_s": phase_s,
+        "mesh": mesh_res, "phase_s": phase_s,
     }
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5533,7 +6005,49 @@ def k8f_rows(dev, helpers, ctx):
               dtype=str(dtype)[6:], shape=list(E.shape))
 
 
-TIMES = {"K12": k12_rows, "K8F": k8f_rows}
+def k10r_rows(dev, helpers, ctx):
+    """``--times K10R``: K10 forward (float64, float32) and its backward
+    (float64) on the weather model's 'slfm' symbols over 16 seeded
+    operand spectra, at the full range and at each rank's Fourier range
+    of two (phase 17's grid layout), with ``fill_`` of each output's
+    bytes. A package without the range (a parent's archive) times the
+    full range only."""
+    import inspect
+
+    import torch
+
+    from runlmc_tpu_torch.hopper import fourier
+
+    sha, host_us, emit, timed = helpers
+    wm = _weather_model(dev, ctx)
+    ranged = "f0" in inspect.signature(fourier.fourier_contract).parameters
+    gen = torch.Generator(device="cpu").manual_seed(MESH_VEC_SEED)
+    for dtype, gs in ((torch.float64, wm._kski().groups[0]),
+                      (torch.float32, wm._kski32().groups[0])):
+        D, F = gs.diag_That.shape
+        ct = torch.complex128 if dtype == torch.float64 else torch.complex64
+        vf = torch.randn(MESH_VECS, D, F, generator=gen, dtype=ct).to(dev)
+        G = torch.randn(MESH_VECS, D, F, generator=gen, dtype=ct).to(dev)
+        ranges = [(0, F)] + ([(0, (F + 1) // 2), ((F + 1) // 2, F)]
+                             if ranged else [])
+        for f0, f1 in ranges:
+            sym = gs.That_rep[:, f0:f1].contiguous()
+            diag = gs.diag_That[:, f0:f1].contiguous()
+            kw = {"f0": f0} if ranged else {}
+            args = ("slfm", vf, gs.A, sym, diag)
+            shape = dict(dtype=str(dtype)[6:], range=[f0, f1 - f0], F=F)
+            timed(lambda args=args, kw=kw: fourier.fourier_contract(
+                *args, **kw), name="fourier_contract", **shape)
+            out = torch.empty((MESH_VECS, D, f1 - f0), dtype=ct, device=dev)
+            timed(lambda out=out: out.fill_(1.0), host=False,
+                  name="fill_ (K10's output bytes)", **shape)
+            if dtype == torch.float64:
+                Gr = G[..., f0:f1].contiguous()
+                timed(lambda Gr=Gr, kw=kw: fourier.fourier_contract_bwd(
+                    Gr, vf, **kw), name="fourier_contract_bwd", **shape)
+
+
+TIMES = {"K12": k12_rows, "K8F": k8f_rows, "K10R": k10r_rows}
 
 
 def times(names, root):
@@ -5570,6 +6084,8 @@ def times(names, root):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(*sys.argv[2:7]))
     if sys.argv[1:2] == ["--times"]:
         sys.exit(times(sys.argv[2].split(",") if len(sys.argv) > 2 else [],
                        sys.argv[3] if len(sys.argv) > 3 else HERE))

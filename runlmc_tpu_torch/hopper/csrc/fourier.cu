@@ -52,6 +52,17 @@
 // threads take neighbouring frequencies, so every read and write of a
 // warp is coalesced. The backward runs one thread per (d, e, f) and
 // loops over b in a fixed order: deterministic, no atomics.
+//
+// A Fourier range. Both kernels take a range of frequencies [f0, f0 + F)
+// of an operand whose rows are ldv frequencies long: they read v in
+// place (v[b, e, f0 + f] at (b D + e) ldv + f0 + f), the symbol and diag
+// of the range only (F wide), and write an F-wide result. A rank of a
+// grid-sharded mesh contracts its own range this way, with no copy of
+// the operand's strided slice (lmc/grid.py). Each (b, f) and (d, e, f)
+// is computed by the same operations in the same order whatever the
+// range, so a range's output is that slice of the full range's to the
+// bit, and the full range (f0 = 0, ldv = F) is the kernels' earlier
+// launch.
 
 #include "common.cuh"
 
@@ -94,7 +105,7 @@ __global__ void fourier_fwd_kernel(int rep, const C* __restrict__ v,
                                    const T* __restrict__ mat,
                                    const C* __restrict__ sym,
                                    const C* __restrict__ diag, int nb,
-                                   int D, int K, int F) {
+                                   int D, int K, int F, int f0, int ldv) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* smat = reinterpret_cast<T*>(smem_raw);
     const int nmat = rep == 0 ? K * D * D : (rep == 2 ? D * K : 0);
@@ -103,8 +114,9 @@ __global__ void fourier_fwd_kernel(int rep, const C* __restrict__ v,
     const int f = blockIdx.x * blockDim.x + threadIdx.x;
     if (f >= F) return;
     const int64_t dF = (int64_t)D * F;
+    const int64_t dV = (int64_t)D * ldv;
     for (int b = blockIdx.y; b < nb; b += gridDim.y) {
-        const C* vb = v + (int64_t)b * dF + f;
+        const C* vb = v + (int64_t)b * dV + f0 + f;
         C* gb = g + (int64_t)b * dF + f;
         for (int d = 0; d < D; ++d) {
             C acc = cmake(T(0), T(0));
@@ -113,25 +125,25 @@ __global__ void fourier_fwd_kernel(int rep, const C* __restrict__ v,
                     const T* Bqd = smat + ((int64_t)q * D + d) * D;
                     C s = cmake(T(0), T(0));
                     for (int e = 0; e < D; ++e) {
-                        s = cadd(s, cscale(vb[(int64_t)e * F], Bqd[e]));
+                        s = cadd(s, cscale(vb[(int64_t)e * ldv], Bqd[e]));
                     }
                     acc = cadd(acc, cmul(sym[(int64_t)q * F + f], s));
                 }
             } else if (rep == 1) {
                 const C* Sd = sym + (int64_t)d * dF + f;
                 for (int e = 0; e < D; ++e) {
-                    acc = cadd(acc, cmul(Sd[(int64_t)e * F], vb[(int64_t)e * F]));
+                    acc = cadd(acc, cmul(Sd[(int64_t)e * F], vb[(int64_t)e * ldv]));
                 }
             } else {
                 for (int r = 0; r < K; ++r) {
                     C p = cmake(T(0), T(0));
                     for (int e = 0; e < D; ++e) {
-                        p = cadd(p, cscale(vb[(int64_t)e * F], smat[e * K + r]));
+                        p = cadd(p, cscale(vb[(int64_t)e * ldv], smat[e * K + r]));
                     }
                     p = cmul(p, sym[(int64_t)r * F + f]);
                     acc = cadd(acc, cscale(p, smat[d * K + r]));
                 }
-                acc = cadd(acc, cmul(diag[(int64_t)d * F + f], vb[(int64_t)d * F]));
+                acc = cadd(acc, cmul(diag[(int64_t)d * F + f], vb[(int64_t)d * ldv]));
             }
             gb[(int64_t)d * F] = acc;
         }
@@ -146,10 +158,11 @@ fourier_fwd_small_kernel(const C* __restrict__ v, C* __restrict__ g,
                          const T* __restrict__ mat,
                          const C* __restrict__ sym,
                          const C* __restrict__ diag, int nb, int D, int K,
-                         int F) {
+                         int F, int f0, int ldv) {
     const int f = blockIdx.x * blockDim.x + threadIdx.x;
     if (f >= F) return;
     const int64_t dF = (int64_t)D * F;
+    const int64_t dV = (int64_t)D * ldv;
     const C zero = cmake(T(0), T(0));
     // the symbol values of this f: T[r,f] and K[d,f] ('slfm'), T[q,f]
     // ('sum'), S[d,e,f] at s[d DM + e] ('bt')
@@ -174,7 +187,7 @@ fourier_fwd_small_kernel(const C* __restrict__ v, C* __restrict__ g,
         C x[DM];
 #pragma unroll
         for (int e = 0; e < DM; ++e) {
-            x[e] = e < D ? v[b * dF + (int64_t)e * F + f] : zero;
+            x[e] = e < D ? v[b * dV + (int64_t)e * ldv + f0 + f] : zero;
         }
         C* gb = g + b * dF + f;
         C p[KM];
@@ -226,17 +239,19 @@ fourier_fwd_small_kernel(const C* __restrict__ v, C* __restrict__ g,
 template <typename T, typename C>
 __global__ void fourier_bwd_kernel(const C* __restrict__ G,
                                    const C* __restrict__ v,
-                                   C* __restrict__ H, int nb, int D, int F) {
+                                   C* __restrict__ H, int nb, int D, int F,
+                                   int f0, int ldv) {
     const int f = blockIdx.x * blockDim.x + threadIdx.x;
     if (f >= F) return;
     const int de = blockIdx.y;  // d * D + e
     const int d = de / D;
     const int e = de - d * D;
     const int64_t dF = (int64_t)D * F;
+    const int64_t dV = (int64_t)D * ldv;
     C acc = cmake(T(0), T(0));
     for (int b = 0; b < nb; ++b) {
         acc = cadd(acc, cmulc(G[(int64_t)b * dF + (int64_t)d * F + f],
-                              v[(int64_t)b * dF + (int64_t)e * F + f]));
+                              v[(int64_t)b * dV + (int64_t)e * ldv + f0 + f]));
     }
     H[(int64_t)de * F + f] = acc;
 }
@@ -247,31 +262,36 @@ constexpr int kSmall = 1;
 
 template <typename T, typename C, int REP, int DM, int KM>
 int launch_small(const C* v, C* g, const T* mat, const C* sym,
-                 const C* diag, int nb, int D, int K, int F,
-                 cudaStream_t stream) {
+                 const C* diag, int nb, int D, int K, int F, int f0,
+                 int ldv, cudaStream_t stream) {
     if (D > DM || K > KM) return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)((F + kThreads - 1) / kThreads),
               (unsigned)runlmc::grid_y(nb));
     fourier_fwd_small_kernel<T, C, REP, DM, KM>
-        <<<grid, kThreads, 0, stream>>>(v, g, mat, sym, diag, nb, D, K, F);
+        <<<grid, kThreads, 0, stream>>>(v, g, mat, sym, diag, nb, D, K, F,
+                                        f0, ldv);
     return (int)cudaGetLastError();
 }
 
 template <typename T, typename C>
 int launch_fwd(int rep, int instance, const C* v, C* g,
                const T* mat, const C* sym, const C* diag, int nb, int D,
-               int K, int F, void* stream) {
+               int K, int F, int f0, int ldv, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    if (f0 < 0 || ldv < f0 + F) return (int)cudaErrorInvalidValue;
     if (instance == kSmall) {
         if (rep == 0)
             return launch_small<T, C, 0, 4, 2>(v, g, mat, sym, diag,
-                                               nb, D, K, F, st);
+                                               nb, D, K, F, f0, ldv,
+                                               st);
         if (rep == 1)
             return launch_small<T, C, 1, 4, 1>(v, g, mat, sym, diag,
-                                               nb, D, 0, F, st);
+                                               nb, D, 0, F, f0, ldv,
+                                               st);
         if (rep == 2)
             return launch_small<T, C, 2, 4, 2>(v, g, mat, sym, diag,
-                                               nb, D, K, F, st);
+                                               nb, D, K, F, f0, ldv,
+                                               st);
         return (int)cudaErrorInvalidValue;
     }
     if (instance != kGeneric) return (int)cudaErrorInvalidValue;
@@ -280,16 +300,17 @@ int launch_fwd(int rep, int instance, const C* v, C* g,
     dim3 grid((unsigned)((F + kThreads - 1) / kThreads),
               (unsigned)runlmc::grid_y(nb));
     fourier_fwd_kernel<T, C><<<grid, kThreads, smem, st>>>(
-        rep, v, g, mat, sym, diag, nb, D, K, F);
+        rep, v, g, mat, sym, diag, nb, D, K, F, f0, ldv);
     return (int)cudaGetLastError();
 }
 
 template <typename T, typename C>
 int launch_bwd(const C* G, const C* v, C* H, int nb, int D, int F,
-               void* stream) {
+               int f0, int ldv, void* stream) {
+    if (f0 < 0 || ldv < f0 + F) return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)((F + kThreads - 1) / kThreads), (unsigned)(D * D));
     fourier_bwd_kernel<T, C><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        G, v, H, nb, D, F);
+        G, v, H, nb, D, F, f0, ldv);
     return (int)cudaGetLastError();
 }
 
@@ -298,25 +319,29 @@ int launch_bwd(const C* G, const C* v, C* H, int nb, int D, int F,
 extern "C" int fourier_fwd_f32(int rep, int instance, const float2* v,
                                float2* g, const float* mat,
                                const float2* sym, const float2* diag, int nb,
-                               int D, int K, int F, void* stream) {
+                               int D, int K, int F, int f0, int ldv,
+                               void* stream) {
     return launch_fwd<float, float2>(rep, instance, v, g, mat, sym, diag, nb,
-                                     D, K, F, stream);
+                                     D, K, F, f0, ldv, stream);
 }
 
 extern "C" int fourier_fwd_f64(int rep, int instance, const double2* v,
                                double2* g, const double* mat,
                                const double2* sym, const double2* diag,
-                               int nb, int D, int K, int F, void* stream) {
+                               int nb, int D, int K, int F, int f0, int ldv,
+                               void* stream) {
     return launch_fwd<double, double2>(rep, instance, v, g, mat, sym, diag,
-                                       nb, D, K, F, stream);
+                                       nb, D, K, F, f0, ldv, stream);
 }
 
 extern "C" int fourier_bwd_f32(const float2* G, const float2* v, float2* H,
-                               int nb, int D, int F, void* stream) {
-    return launch_bwd<float, float2>(G, v, H, nb, D, F, stream);
+                               int nb, int D, int F, int f0, int ldv,
+                               void* stream) {
+    return launch_bwd<float, float2>(G, v, H, nb, D, F, f0, ldv, stream);
 }
 
 extern "C" int fourier_bwd_f64(const double2* G, const double2* v, double2* H,
-                               int nb, int D, int F, void* stream) {
-    return launch_bwd<double, double2>(G, v, H, nb, D, F, stream);
+                               int nb, int D, int F, int f0, int ldv,
+                               void* stream) {
+    return launch_bwd<double, double2>(G, v, H, nb, D, F, f0, ldv, stream);
 }

@@ -25,6 +25,20 @@ takes the real part. The operand's cotangent is the forward with the
 conjugated, transposed symbol. :class:`FourierContract` joins the two
 as one autograd function.
 
+A Fourier range: both kernels take ``f0`` and read the operand
+``vf`` (B, D, F) in place from frequency ``f0`` on, over the ``nf``
+frequencies of the symbol they are given (the symbol and diag of the
+range, ``nf`` wide), and write an ``nf``-wide result: the contraction of
+one rank of a grid-sharded mesh (lmc/grid.py). The contraction is
+pointwise in f, so a range's output is that slice of the full range's
+to the bit; the full range (``f0 = 0``, ``nf = F``) is the default. The
+plain versions of a range contract the whole width with the range's
+symbol placed at [f0, f0 + nf) and zeros elsewhere, then keep the
+range: torch's elementwise complex products round differently in the
+vector body and the scalar tail of a loop on the CPU, so only the same
+shapes give every frequency the operations it gets in the full
+contraction.
+
 The forward launches an instance specialised on small shapes where it
 fits (:func:`fourier_instance`, from (rep, D, K) alone: the operand and
 the symbol of a (b, f) in registers) and the generic kernel otherwise.
@@ -51,8 +65,33 @@ _SMEM_LIMIT = 48 * 1024
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
-def fourier_contract_plain(rep, vf, mat, sym, diag=None):
-    """Plain version: the einsums of the XLA code."""
+def _range(what, vf, nf, f0):
+    """The operand's frequencies [f0, f0 + nf), checked."""
+    F = vf.shape[-1]
+    if not 0 <= f0 <= F - nf:
+        raise ValueError("%s: the range [%d, %d) is outside the operand's "
+                         "%d frequencies" % (what, f0, f0 + nf, F))
+    return vf[..., f0:f0 + nf]
+
+
+def _embed(t, f0, F):
+    """``t`` at [f0, f0 + nf) of its last axis, zero elsewhere, F wide."""
+    if t is None or t.shape[-1] == F:
+        return t
+    full = t.new_zeros(t.shape[:-1] + (F,))
+    full[..., f0:f0 + t.shape[-1]] = t
+    return full
+
+
+def fourier_contract_plain(rep, vf, mat, sym, diag=None, f0=0):
+    """Plain version: the einsums of the XLA code, on the operand's
+    frequencies from ``f0`` over the symbol's (the whole width, then the
+    range)."""
+    F, nf = vf.shape[-1], sym.shape[-1]
+    _range("fourier_contract", vf, nf, f0)
+    if nf != F:
+        return fourier_contract_plain(rep, vf, mat, _embed(sym, f0, F),
+                                      _embed(diag, f0, F))[..., f0:f0 + nf]
     if rep == "sum":
         return torch.einsum("qde,qf,bef->bdf", mat.to(vf.dtype), sym, vf)
     if rep == "bt":
@@ -79,15 +118,18 @@ def _real_suffix(what, t):
     return build.suffix(what, _REAL[t.dtype])
 
 
-def fourier_contract(rep, vf, mat, sym, diag=None):
-    """g (B, D, F) from ``vf`` (B, D, F) and the symbol of ``rep``; the
-    CUDA kernel for CUDA tensors."""
+def fourier_contract(rep, vf, mat, sym, diag=None, f0=0):
+    """g (B, D, nf) from ``vf`` (B, D, F) and the symbol of ``rep`` over
+    its ``nf`` frequencies (``sym.shape[-1]``), the operand read from
+    frequency ``f0``; the CUDA kernel for CUDA tensors."""
     if build.use_plain("fourier_contract", vf):
-        return fourier_contract_plain(rep, vf, mat, sym, diag)
+        return fourier_contract_plain(rep, vf, mat, sym, diag, f0)
     if rep not in REPS:
         raise ValueError("unknown representation %r" % (rep,))
     sfx = _real_suffix("fourier_contract", vf)
-    nb, D, F = vf.shape
+    nb, D, ldv = vf.shape
+    F = sym.shape[-1]
+    _range("fourier_contract", vf, F, f0)
     if rep == "sum":
         K = mat.shape[0]
         ok = mat.shape == (K, D, D) and sym.shape == (K, F)
@@ -119,7 +161,7 @@ def fourier_contract(rep, vf, mat, sym, diag=None):
     mat = tensors[2] if rep != "bt" else None
     diag = tensors[3] if rep == "slfm" else None
     build.require_cuda("fourier_contract", *tensors)
-    g = torch.empty_like(vf)
+    g = torch.empty((nb, D, F), dtype=vf.dtype, device=vf.device)
     fn = build.function("fourier", "fourier_fwd_" + sfx, _FWD_ARGS)
     if nb:
         build.check(fn(REPS[rep], fourier_instance(rep, D, K),
@@ -127,30 +169,37 @@ def fourier_contract(rep, vf, mat, sym, diag=None):
                        g.data_ptr(), None if mat is None else mat.data_ptr(),
                        sym.data_ptr(),
                        None if diag is None else diag.data_ptr(),
-                       nb, D, K, F, build.stream_ptr()), "fourier_contract")
+                       nb, D, K, F, f0, ldv, build.stream_ptr()),
+                    "fourier_contract")
         fourier_contract.launches[sfx] += 1
     return g
 
 
-_FWD_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_FWD_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_void_p])
 fourier_contract.launches = build.counter()
 
 
-def fourier_contract_bwd_plain(G, vf):
-    return torch.einsum("bdf,bef->def", G, vf.conj())
+def fourier_contract_bwd_plain(G, vf, f0=0):
+    F, nf = vf.shape[-1], G.shape[-1]
+    _range("fourier_contract_bwd", vf, nf, f0)
+    H = torch.einsum("bdf,bef->def", _embed(G, f0, F), vf.conj())
+    return H if nf == F else H[..., f0:f0 + nf]
 
 
-def fourier_contract_bwd(G, vf):
-    """H (D, D, F) = sum_b G[b,d,f] conj(vf[b,e,f]); the CUDA kernel for
-    CUDA tensors."""
+def fourier_contract_bwd(G, vf, f0=0):
+    """H (D, D, nf) = sum_b G[b,d,f] conj(vf[b,e,f0+f]) for the cotangent
+    G (B, D, nf) of a range's output and the whole operand ``vf``
+    (B, D, F); the CUDA kernel for CUDA tensors."""
     if build.use_plain("fourier_contract_bwd", G):
-        return fourier_contract_bwd_plain(G, vf)
+        return fourier_contract_bwd_plain(G, vf, f0)
     sfx = _real_suffix("fourier_contract_bwd", G)
     nb, D, F = G.shape
-    if vf.shape != G.shape or vf.dtype != G.dtype:
+    ldv = vf.shape[-1]
+    if vf.shape[:2] != G.shape[:2] or vf.dtype != G.dtype:
         raise ValueError("fourier_contract_bwd: cotangent %s and operand %s "
                          "disagree" % (tuple(G.shape), tuple(vf.shape)))
+    _range("fourier_contract_bwd", vf, F, f0)
     if D * D > 65535:
         raise ValueError("fourier_contract_bwd: D = %d exceeds the kernel's "
                          "grid" % D)
@@ -159,10 +208,10 @@ def fourier_contract_bwd(G, vf):
     H = torch.empty((D, D, F), dtype=G.dtype, device=G.device)
     fn = build.function(
         "fourier", "fourier_bwd_" + sfx,
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    build.check(fn(build.ptr(G), build.ptr(vf), build.ptr(H), nb, D, F,
-                   build.stream_ptr()), "fourier_contract_bwd")
+    build.check(fn(build.ptr(G), build.ptr(vf), build.ptr(H), nb, D, F, f0,
+                   ldv, build.stream_ptr()), "fourier_contract_bwd")
     fourier_contract_bwd.launches[sfx] += 1
     return H
 
@@ -199,33 +248,39 @@ def adjoint_symbol(rep, mat, sym, diag):
 class FourierContract(torch.autograd.Function):
     """K10 with its hand-written backward: forward
     :func:`fourier_contract`, backward :func:`fourier_contract_bwd` and
-    the einsums of :func:`symbol_grads`."""
+    the einsums of :func:`symbol_grads`. On a range (``f0``, the
+    symbol's width) the operand's cotangent is zero outside it."""
 
     @staticmethod
-    def forward(ctx, rep, vf, mat, sym, diag):
-        ctx.rep = rep
+    def forward(ctx, rep, vf, mat, sym, diag, f0):
+        ctx.rep, ctx.f0 = rep, f0
         ctx.save_for_backward(vf, mat, sym, diag)
-        return fourier_contract(rep, vf, mat, sym, diag)
+        return fourier_contract(rep, vf, mat, sym, diag, f0)
 
     @staticmethod
     def backward(ctx, G):
         vf, mat, sym, diag = ctx.saved_tensors
-        rep = ctx.rep
+        rep, f0 = ctx.rep, ctx.f0
         need = ctx.needs_input_grad
         dv = dmat = dsym = ddiag = None
-        if any(need[2:]):
-            H = fourier_contract_bwd(G.contiguous(), vf)
+        if any(need[2:5]):
+            H = fourier_contract_bwd(G.contiguous(), vf, f0)
             dmat, dsym, ddiag = symbol_grads(rep, H, mat, sym)
         if need[1]:
             dv = fourier_contract(rep, G.contiguous(),
                                   *adjoint_symbol(rep, mat, sym, diag))
+            nf, F = G.shape[-1], vf.shape[-1]
+            if nf != F:
+                full = dv.new_zeros(dv.shape[:-1] + (F,))
+                full[..., f0:f0 + nf] = dv
+                dv = full
         return (None, dv,
                 dmat if need[2] else None,
                 dsym if need[3] else None,
-                ddiag if need[4] else None)
+                ddiag if need[4] else None, None)
 
 
-def contract(rep, vf, mat, sym, diag=None):
+def contract(rep, vf, mat, sym, diag=None, f0=0):
     """Differentiable K10 (``mat`` None for 'bt', ``diag`` only for
-    'slfm')."""
-    return FourierContract.apply(rep, vf, mat, sym, diag)
+    'slfm'), on the symbol's frequencies from the operand's ``f0``."""
+    return FourierContract.apply(rep, vf, mat, sym, diag, f0)

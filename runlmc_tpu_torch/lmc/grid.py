@@ -27,6 +27,14 @@ reads. An fft group also carries a dense-mode twin (``GridData.coarse``)
 whose float32 Woodbury factorization preconditions its solves: the exact
 fine geometry when D*m fits under ``PRECOND_MAX_GRID``, else a
 proportionally coarsened grid.
+
+On a mesh with a 'grid' axis (``GridPlan.grid_shard``, set by the model
+on fft groups) each rank keeps its range of the Fourier axis of the
+symbol (cut after the symbol's cuFFT), K10 contracts that range of the
+whole operand spectrum, and a gather along the last axis rebuilds the
+whole result before the inverse FFT; a dense group's K_UU keeps its
+rows, and its products are gathered the same way (parity: grid.py:127-
+148, 388, 408, 546, 559).
 """
 
 import dataclasses
@@ -47,6 +55,8 @@ from runlmc_tpu_torch.ops.interpolation import (
     interp_output_blocks,
     multi_interpolant,
 )
+from runlmc_tpu_torch.parallel.collectives import gather_last, shared
+from runlmc_tpu_torch.parallel.mesh import shard_range, shard_sizes
 from runlmc_tpu_torch.utils.np_utils import cartesian_product
 
 # The caps of runlmc_tpu/lmc/grid.py:67-88, kept at the same values for
@@ -63,13 +73,61 @@ W_BLOCKS_MAX_ELEMS = 50_000_000
 @dataclasses.dataclass(frozen=True)
 class GridPlan:
     """Static per-active-dim-group plan: which kernels, which
-    representation, grid sizes, and the mode ('dense' or 'fft')."""
+    representation, grid sizes, and the mode ('dense' or 'fft').
+
+    ``grid_shard``: optional ``(Mesh, axis_name)`` — shards the
+    grid-sized axis of this group's matvecs over the named mesh axis:
+    the Fourier axis of the symbol in 'fft' mode (each rank contracts its
+    range, :func:`_shard_last`), the K_UU row axis in 'dense' mode
+    (:func:`_shard_rows`)."""
 
     active_dim: Tuple[int, ...]
     kidxs: Tuple[int, ...]
     rep: str
     sizes: Tuple[int, ...]
     mode: str = "dense"
+    grid_shard: Any = None
+
+
+def _grid_range(n, grid_shard):
+    """(lo, hi, sizes): this rank's slice of ``n`` entries on the grid
+    axis and every rank's slice size."""
+    mesh, axis = grid_shard
+    parts = mesh.shape[axis]
+    lo, hi = shard_range(n, parts, mesh.index(axis))
+    return lo, hi, shard_sizes(n, parts)
+
+
+def _shard_last(x, grid_shard):
+    """This rank's range of the LAST axis of ``x`` over the grid mesh
+    axis (a view; ``x`` is replicated, so its gradient is the mean of
+    the ranks', :func:`collectives.shared`)."""
+    if grid_shard is None or x is None:
+        return x
+    lo, hi, _ = _grid_range(x.shape[-1], grid_shard)
+    return _shared_on(x, grid_shard)[..., lo:hi]
+
+
+def _shard_rows(x, grid_shard):
+    """This rank's range of the FIRST axis of ``x`` over the grid mesh
+    axis (a view, as :func:`_shard_last`)."""
+    if grid_shard is None or x is None:
+        return x
+    lo, hi, _ = _grid_range(x.shape[0], grid_shard)
+    return _shared_on(x, grid_shard)[lo:hi]
+
+
+def _shared_on(x, grid_shard):
+    mesh, axis = grid_shard
+    return shared(x, mesh.group(axis))
+
+
+def _gather_grid(x, n, grid_shard):
+    """The whole last axis (``n`` entries) from every rank's range."""
+    if grid_shard is None:
+        return x
+    mesh, axis = grid_shard
+    return gather_last(x, mesh.group(axis), _grid_range(n, grid_shard)[2])
 
 
 def choose_rep(spec: LMCKernelSpec, active_dim) -> str:
@@ -365,6 +423,9 @@ class GroupState:
     sizes: Tuple[int, ...] = ()
     rep: str = "sum"
     mode: str = "dense"
+    # ``GridPlan.grid_shard``: the symbol below holds this rank's range
+    # of the F frequencies, a dense K_UU its range of the D*m rows
+    grid_shard: Any = None
     KUU_dense: Any = None  # (D*m, D*m)
     B: Any = None
     That: Any = None
@@ -387,9 +448,14 @@ class GroupState:
         return dataclasses.replace(self, **changes)
 
     def grid_matvec(self, u):
-        """K_UU u for this group: u (..., D*m) -> (..., D*m)."""
+        """K_UU u for this group: u (..., D*m) -> (..., D*m). With
+        ``grid_shard`` the operand's FFT stays whole on every rank, K10
+        contracts this rank's Fourier range of it, and the gather
+        rebuilds the whole spectrum for the inverse FFT (a dense group:
+        this rank's rows of the product, gathered)."""
         if self.mode == "dense":
-            return u @ self.KUU_dense.T
+            return _gather_grid(u @ self.KUU_dense.T, u.shape[-1],
+                                self.grid_shard)
         sizes = self.sizes
         m, d = int(np.prod(sizes)), self.D
         batch = u.shape[:-1]
@@ -397,12 +463,18 @@ class GroupState:
         F = int(np.prod(fsh))
         vhat = bttb.operand_fft(u.reshape(batch + (d, m)), sizes)
         vf = vhat.reshape(-1, d, F)
+        f0 = 0
+        if self.grid_shard is not None:
+            f0 = _grid_range(F, self.grid_shard)[0]
+            vf = _shared_on(vf, self.grid_shard)
         if self.rep == "sum":
-            g = contract("sum", vf, self.B, self.That)
+            g = contract("sum", vf, self.B, self.That, f0=f0)
         elif self.rep == "bt":
-            g = contract("bt", vf, None, self.BThat)
+            g = contract("bt", vf, None, self.BThat, f0=f0)
         else:
-            g = contract("slfm", vf, self.A, self.That_rep, self.diag_That)
+            g = contract("slfm", vf, self.A, self.That_rep, self.diag_That,
+                         f0=f0)
+        g = _gather_grid(g, F, self.grid_shard)
         out = bttb.operand_ifft(g.reshape(batch + (d,) + fsh), sizes)
         return out.reshape(batch + (d * m,))
 
@@ -422,28 +494,47 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
     fft mode writes k(r) on the first rows, circulantly embedded, through
     kernel K8 (``hopper/kern_rows_fft.py``, with its backward to the same
     table rows) and precomputes the Fourier symbol of its representation
-    (K11), which kernel K10 and its backward contract."""
+    (K11), which kernel K10 and its backward contract. With
+    ``plan.grid_shard`` the group keeps this rank's range of the symbol's
+    frequencies (a dense group its rows of K_UU)."""
     plan = gd.plan
     kidxs = plan.kidxs
     base = dict(interp=gd.interp, sizes=plan.sizes, rep=plan.rep,
-                mode=plan.mode)
+                mode=plan.mode, grid_shard=plan.grid_shard)
     if plan.mode == "dense":
         kinds, prm = spec.table_rows(raw_params, kidxs)
         B = spec.coreg_mats(raw_params, kidxs)
         return GroupState(
-            KUU_dense=KUUDense.apply(kinds, prm, gd.dists, B, plan.sizes),
+            KUU_dense=_shard_rows(
+                KUUDense.apply(kinds, prm, gd.dists, B, plan.sizes),
+                plan.grid_shard),
             **base)
+    state = _fft_symbol(spec, raw_params, gd)
+    if plan.grid_shard is not None:
+        # this rank's range of each symbol, stored contiguous (K10 reads
+        # them as they lie), cut after the whole width is formed: the
+        # products that form them round alike at every width only on
+        # the same shapes, and then the range's contraction is the
+        # single rank's to the bit
+        state = {k: (_shard_last(v, plan.grid_shard).contiguous()
+                     if k in ("That", "BThat", "That_rep", "diag_That")
+                     else v) for k, v in state.items()}
+    return GroupState(**state, **base)
+
+
+def _fft_symbol(spec, raw_params, gd):
+    """The Fourier symbol of an fft group in its representation, over
+    all F frequencies, as GroupState fields."""
+    plan = gd.plan
+    kidxs = plan.kidxs
     kinds, prm = spec.table_rows(raw_params, kidxs)
     ext = KernRowsFFT.apply(kinds, prm, gd.dists, plan.sizes)
     that = bttb.extension_fft(ext, len(plan.sizes)).reshape(len(kidxs), -1)
     if plan.rep == "sum":
-        return GroupState(B=spec.coreg_mats(raw_params, kidxs), That=that,
-                          **base)
+        return dict(B=spec.coreg_mats(raw_params, kidxs), That=that)
     if plan.rep == "bt":
         B = spec.coreg_mats(raw_params, kidxs)
-        return GroupState(
-            BThat=torch.einsum("qde,qf->def", B.to(that.dtype), that),
-            **base)
+        return dict(BThat=torch.einsum("qde,qf->def", B.to(that.dtype), that))
     non_indep = spec.non_indep_idxs(kidxs)
     pos_of = {q: i for i, q in enumerate(kidxs)}
     if non_indep:
@@ -460,10 +551,9 @@ def build_group_state(spec: LMCKernelSpec, raw_params, gd: GridData):
         That_rep = torch.zeros((1, that.shape[1]), dtype=that.dtype,
                                device=that.device)
     kappa = torch.stack([spec.coreg_diag(raw_params, q) for q in kidxs])
-    return GroupState(
-        A=A, That_rep=That_rep,
-        diag_That=torch.einsum("qd,qf->df", kappa.to(that.dtype), that),
-        **base)
+    return dict(A=A, That_rep=That_rep,
+                diag_That=torch.einsum("qd,qf->df", kappa.to(that.dtype),
+                                       that))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,9 +21,15 @@
 
   has the stochastic MLL gradient as its gradient. Autograd runs
   through the model-dtype operator: kernel K10's backward on fft
-  grids, K1's on dense ones.
+  grids, K1's on dense ones;
+- the two mesh layouts of the objectives (parity: likelihood.py:141-221):
+  the probe layout (:func:`sharded_solve`, each rank solving its rows of
+  the solve batch with no collective inside its loop) and the data
+  layout of the exact objective (``exact_ski_mll(data_shard=)``, each
+  rank holding its rows of the data).
 """
 
+import collections
 import math
 from typing import NamedTuple
 
@@ -36,7 +42,14 @@ from runlmc_tpu_torch.hopper.trsm import cho_solve
 from runlmc_tpu_torch.lmc.grid import build_kski
 from runlmc_tpu_torch.lmc.kernel_spec import LMCKernelSpec
 from runlmc_tpu_torch.lmc.woodbury import build_device_woodbury, woodbury_pcg
-from runlmc_tpu_torch.ops.solvers import batched_cg, batched_minres
+from runlmc_tpu_torch.ops.interpolation import Interp
+from runlmc_tpu_torch.ops.solvers import SolveResult, batched_cg, batched_minres
+from runlmc_tpu_torch.parallel.collectives import (
+    gather_rows,
+    group_sum,
+    shared,
+)
+from runlmc_tpu_torch.parallel.mesh import shard_range, shard_sizes
 from runlmc_tpu_torch.utils.carry import cast_params, unravel_params
 
 
@@ -188,6 +201,40 @@ def log_prior_term(prior_specs, raw_params):
     return total
 
 
+def _shard_data_rows(x, data_shard, axis=-1):
+    """This rank's rows of one axis (the data axis, default last) of
+    ``x`` over the mesh's data-parallel axis (a view); ``x`` itself
+    without a ``data_shard``."""
+    if data_shard is None:
+        return x
+    mesh, name = data_shard
+    lo, hi = shard_range(x.shape[axis], mesh.shape[name], mesh.index(name))
+    return x.narrow(axis, lo, hi - lo)
+
+
+# row-local interpolants of the data layout, by (interpolant, rows): the
+# interpolant is kept with its cut so that its id stays its own
+_ROW_INTERPS = collections.OrderedDict()
+_ROW_INTERPS_MAX = 16
+
+
+def _row_interp(interp, lo, hi):
+    """The interpolant of data rows [lo, hi) (its transposed CSR built
+    once on the host), placed as ``interp`` is."""
+    key = (id(interp), lo, hi)
+    hit = _ROW_INTERPS.get(key)
+    if hit is None:
+        idx = interp.indices.cpu().numpy()[lo:hi]
+        w = interp.weights.cpu().numpy()[lo:hi]
+        cut = Interp.from_taps(idx, w, interp.ncols).to(
+            interp.weights.dtype, interp.weights.device)
+        hit = _ROW_INTERPS[key] = (interp, cut)
+        while len(_ROW_INTERPS) > _ROW_INTERPS_MAX:
+            _ROW_INTERPS.popitem(last=False)
+    _ROW_INTERPS.move_to_end(key)
+    return hit[1]
+
+
 class ExactAux(NamedTuple):
     alpha: torch.Tensor  # (n,) K~^-1 y
     solve_error: torch.Tensor  # relative residual of the factorized solve
@@ -197,29 +244,57 @@ class ExactAux(NamedTuple):
 
 def exact_ski_mll(spec: LMCKernelSpec, raw_params, grid_data, lens, y,
                   jitter=(1e-6, 1e-4, 1e-2), c_jitter=(0.0, 1e-6, 1e-3),
-                  equilibrate=None):
+                  data_shard=None, equilibrate=None):
     """The exact marginal log-likelihood of the dense-grid SKI model
     K~ = sum_g W_g (K_UU_g + delta_g I) W_g^T + diag(eps), through the
     Woodbury factorization. Differentiable: with ``raw_params`` leaves
     that require grad, ``torch.autograd.grad(mll, ...)`` is the exact
     gradient of K~'s MLL through the Cholesky factors and K1's backward
     kernel. Returns ``(mll, ExactAux)``; the aux is detached, as the JAX
-    package stops its gradient (likelihood.py:293-303)."""
+    package stops its gradient (likelihood.py:293-303).
+
+    ``data_shard``: optional ``(Mesh, axis_name)`` — each rank holds its
+    rows of the data (y, the noise vector, the interpolants' rows) on the
+    named axis; V^T x, the quadratic form, the noise's log-determinant
+    and the residual's norms are group sums, the capacitance (from the
+    host grams) and its factors stay replicated, and ``aux.alpha`` is
+    gathered to full length. Every rank returns the same value; the
+    gradient is each rank's share of it, times the axis's size (the
+    collectives' sum-style backward): the mean over the mesh is the
+    gradient (``parallel.collectives.mesh_mean``)."""
     K = build_kski(spec, raw_params, grid_data, lens)
+    groups, noise_n, y_l, group = K.groups, K.noise_n, y, None
+    if data_shard is not None:
+        mesh, name = data_shard
+        group = mesh.group(name)
+        n_all = y.shape[0]
+        lo, hi = shard_range(n_all, mesh.shape[name], mesh.index(name))
+        groups = tuple(g.replace(interp=_row_interp(g.interp, lo, hi))
+                       for g in groups)
+        noise_n = _shard_data_rows(shared(noise_n, group), data_shard)
+        y_l = _shard_data_rows(y, data_shard)
     wb = build_device_woodbury(
-        K.groups, spec.noise(raw_params), K.noise_n,
+        groups, spec.noise(raw_params), noise_n,
         grid_data,
         jitter=jitter, c_jitter=c_jitter, equilibrate=equilibrate,
+        group=group,
     )
-    alpha = wb.solve(y)
-    quad = torch.dot(y, alpha)
+    alpha = wb.solve(y_l)
+    quad = group_sum(torch.dot(y_l, alpha), group)
     n = y.shape[0]
     mll = -0.5 * (wb.logdet + quad + n * math.log(2 * math.pi))
     with torch.no_grad():
         alpha_d = alpha.detach()
-        resid = wb.matvec(alpha_d) - y
-        err = torch.linalg.norm(resid) / torch.clamp(torch.linalg.norm(y),
-                                                     min=1e-30)
+        resid = wb.matvec(alpha_d) - y_l
+        if data_shard is None:
+            err = torch.linalg.norm(resid) / torch.clamp(
+                torch.linalg.norm(y), min=1e-30)
+        else:
+            err = torch.sqrt(group_sum(torch.dot(resid, resid), group)) \
+                / torch.clamp(torch.sqrt(group_sum(torch.dot(y_l, y_l),
+                                                   group)), min=1e-30)
+            alpha_d = gather_rows(
+                alpha_d, group, shard_sizes(n_all, mesh.shape[name]))
     return mll, ExactAux(alpha=alpha_d, solve_error=err, quad=quad.detach(),
                          solve_iters=torch.zeros((), dtype=torch.float32,
                                                  device=y.device))
@@ -283,9 +358,45 @@ def stochastic_surrogate_from_solves(spec, raw_params, grid_data, lens,
     return quad_term - 0.5 * trace_term
 
 
+def sharded_solve(solver_call, rhs, rhs_sharding):
+    """Run a batched solver with the RHS batch sharded over a mesh axis
+    (parity: likelihood.py:141-198).
+
+    Each rank runs its own COMPLETE solver loop on its rows of the
+    batch: the rows are independent systems of the same operator, so
+    there is no collective inside the loop and the ranks' iteration
+    counts diverge freely (the loop's host reads are of its own rows).
+    The batch is zero-padded to a multiple of the axis's size (a zero
+    row converges at once), each rank's ``x``, ``iterations``, ``error``
+    and ``converged`` are gathered, and the result is sliced back to the
+    batch. Nothing here is differentiated: the solves are detached.
+
+    ``rhs_sharding``: ``(Mesh, axis_name)``, or ``None`` to run the
+    solver on the whole batch. On a mesh with a 'grid' axis too, the
+    ranks of one line of the grid axis hold the same rows, so their
+    loops, and the grid collectives inside the operator, run in step."""
+    if rhs_sharding is None:
+        return solver_call(rhs)
+    mesh, axis = rhs_sharding
+    n_shards = mesh.shape[axis]
+    group = mesh.group(axis)
+    B = rhs.shape[0]
+    pad = (-B) % n_shards
+    if pad:
+        rhs = torch.cat([rhs, rhs.new_zeros((pad,) + rhs.shape[1:])], dim=0)
+    per = rhs.shape[0] // n_shards
+    i = mesh.index(axis)
+    res = solver_call(rhs[i * per:(i + 1) * per])
+    sizes = (per,) * n_shards
+    x, iters, err, conv = (gather_rows(t, group, sizes) for t in res)
+    return SolveResult(x=x[:B], iterations=iters[:B], error=err[:B],
+                       converged=conv[:B])
+
+
 def stochastic_mll_surrogate(spec, raw_params, grid_data, lens, y, probes,
                              tol=1e-4, maxiter=None, method="minres",
-                             grid_data32=None, inner_data32=None, cycle=None,
+                             grid_data32=None, rhs_sharding=None,
+                             inner_data32=None, cycle=None,
                              stall_ratio=None):
     """Scalar whose autograd gradient is the stochastic MLL gradient, and
     its :class:`StochasticAux` (parity: likelihood.py:386-506).
@@ -296,9 +407,11 @@ def stochastic_mll_surrogate(spec, raw_params, grid_data, lens, y, probes,
     Woodbury-preconditioned CG with inner float32 cycles through
     ``inner_data32`` (the fine float32 operator; default the
     ``grid_data32`` one) and model-dtype true-residual refinement;
-    otherwise plain batched MINRES or CG (``method``). The JAX
-    package's ``rhs_sharding`` (multi-device) and ``diff_data`` (its
-    TPU float32 gradient twin) are not ported."""
+    otherwise plain batched MINRES or CG (``method``). ``rhs_sharding``
+    (``(Mesh, axis_name)``) shards the solve's rows over the mesh
+    (:func:`sharded_solve`); every rank then holds all the solutions and
+    computes the same surrogate. The JAX package's ``diff_data`` (its TPU
+    float32 gradient twin) is not ported."""
     with torch.no_grad():
         solve_params = _detached(raw_params)
         K_ng = build_kski(spec, solve_params, grid_data, lens)
@@ -312,19 +425,24 @@ def stochastic_mll_surrogate(spec, raw_params, grid_data, lens, y, probes,
             )
             inner_mv = (K32.matvec if inner_data32 is None else
                         build_kski(spec, params32, inner_data32, lens).matvec)
-            res = woodbury_pcg(
-                K_ng.matvec, wb, rhs, tol=tol, maxiter=maxiter,
-                inner_matvec=inner_mv,
-                cycle=10 if cycle is None else cycle,
-                stall_ratio=0.99 if stall_ratio is None else stall_ratio,
-            )
+
+            def solver_call(b):
+                return woodbury_pcg(
+                    K_ng.matvec, wb, b, tol=tol, maxiter=maxiter,
+                    inner_matvec=inner_mv,
+                    cycle=10 if cycle is None else cycle,
+                    stall_ratio=0.99 if stall_ratio is None else stall_ratio,
+                )
         else:
             solver = batched_minres if method == "minres" else batched_cg
-            res = solver(
-                K_ng.matvec, rhs, tol=tol, maxiter=maxiter,
-                cycle=100 if cycle is None else cycle,
-                stall_ratio=0.99 if stall_ratio is None else stall_ratio,
-            )
+
+            def solver_call(b):
+                return solver(
+                    K_ng.matvec, b, tol=tol, maxiter=maxiter,
+                    cycle=100 if cycle is None else cycle,
+                    stall_ratio=0.99 if stall_ratio is None else stall_ratio,
+                )
+        res = sharded_solve(solver_call, rhs, rhs_sharding)
     alpha, zs = res.x[0], res.x[1:]
     surrogate = stochastic_surrogate_from_solves(
         spec, raw_params, grid_data, lens, alpha, zs, probes)

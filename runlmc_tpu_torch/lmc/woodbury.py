@@ -27,9 +27,16 @@ differentiable by torch autograd, which the exact training objective
 (likelihood.exact_ski_mll) runs through. The float32 factor
 preconditions the prediction solves (:func:`woodbury_pcg`); the
 model-dtype factor is the escalation rung.
+
+The data layout of a mesh (parity: woodbury.py:113-191 under the JAX
+package's data sharding): a rank's factor holds its rows of the data
+(``noise_n`` and the interpolants cut to them) and the process group
+of the data axis (``group``); V^T x and the noise's log-determinant are
+group sums, V t and the solve stay row-local, and the capacitance and
+both Cholesky factors, built from the host grams, stay replicated.
 """
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
@@ -43,6 +50,7 @@ from runlmc_tpu_torch.hopper.chol_vjp import cholesky_ex
 from runlmc_tpu_torch.hopper.trsm import cho_solve, trsm_lower
 from runlmc_tpu_torch.lmc.grid import gram_nest
 from runlmc_tpu_torch.ops.solvers import batched_cg
+from runlmc_tpu_torch.parallel.collectives import group_sum, shared
 
 # Default of chol_jittered's Jacobi equilibration (parity:
 # woodbury.py:57). ``equilibrate=None`` anywhere below means this value;
@@ -115,17 +123,19 @@ class DeviceWoodbury(NamedTuple):
 
     Fs: Tuple  # per-group (Dm_g, Dm_g) lower Cholesky of K_UU_g
     L_C: torch.Tensor  # (k, k) lower Cholesky of C, k = sum_g Dm_g
-    noise_n: torch.Tensor  # (n,) per-data-point noise
+    noise_n: torch.Tensor  # (n,) per-data-point noise (a rank's rows)
     interps: Tuple  # per-group interpolant W_g (n, Dm_g), applied by K9
     logdet: torch.Tensor  # scalar: log det of the factorized K
+    group: Any = None  # the data axis's process group of a rank's rows
 
     @property
     def dtype(self):
         return self.L_C.dtype
 
     def _vt(self, x):
-        """V^T x: (..., n) -> (..., k)."""
-        parts = [W.rmatvec(x) @ f for W, f in zip(self.interps, self.Fs)]
+        """V^T x: (..., n) -> (..., k), W^T x summed over the data axis."""
+        parts = [group_sum(W.rmatvec(x), self.group) @ f
+                 for W, f in zip(self.interps, self.Fs)]
         return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
     def _v(self, t):
@@ -133,7 +143,8 @@ class DeviceWoodbury(NamedTuple):
         out, off = 0.0, 0
         for W, f in zip(self.interps, self.Fs):
             kg = f.shape[1]
-            out = out + W.matvec(t[..., off:off + kg] @ f.T)
+            out = out + W.matvec(shared(t[..., off:off + kg] @ f.T,
+                                        self.group))
             off += kg
         return out
 
@@ -155,7 +166,7 @@ class DeviceWoodbury(NamedTuple):
 
 def build_device_woodbury(
     groups, noise_eps, noise_n, grids, jitter=(1e-6, 1e-4, 1e-2, 1e-1),
-    c_jitter=(0.0, 1e-6, 1e-3, 1e-1), equilibrate=None,
+    c_jitter=(0.0, 1e-6, 1e-3, 1e-1), equilibrate=None, group=None,
 ):
     """Factor the SKI covariance (parity: woodbury.py:208-310).
 
@@ -171,6 +182,8 @@ def build_device_woodbury(
         (:func:`chol_jittered`); ``None`` means ``EQUILIBRATE_DEFAULT``.
         The model flips it when a float32 factorization breaches and the
         flipped one certifies (parity: woodbury.py:232-246).
+    :param group: the data axis's process group when ``noise_n`` and the
+        groups' interpolants hold this rank's rows of the data.
     """
     dtype = noise_n.dtype
     Fs = tuple(chol_jittered(g.KUU_dense, scales=jitter,
@@ -181,12 +194,11 @@ def build_device_woodbury(
     # and cross_block)
     C = capacitance_matrix(gram_nest(grids), inv_eps, Fs)
     L_C = chol_jittered(C, scales=c_jitter, equilibrate=equilibrate)
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L_C))) + torch.sum(
-        torch.log(noise_n)
-    )
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L_C))) + group_sum(
+        torch.sum(torch.log(noise_n)), group)
     return DeviceWoodbury(
         Fs=Fs, L_C=L_C, noise_n=noise_n,
-        interps=tuple(g.interp for g in groups), logdet=logdet,
+        interps=tuple(g.interp for g in groups), logdet=logdet, group=group,
     )
 
 

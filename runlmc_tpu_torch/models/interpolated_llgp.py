@@ -31,11 +31,22 @@ K_*X and the exact dense kernel, and its backward the exact gradient;
 K6 fuses the CG updates, K12 the MINRES updates of the solves and K13
 the Lanczos steps of the SLQ log-det; K9 interpolates the predictive
 mean.
+
+With a ``mesh`` (runlmc_tpu_torch/parallel) every rank runs the same
+calls on its own device: the first non-'grid' axis shards the
+stochastic objective's solve batch (``lk.sharded_solve``) and the exact
+objective's data rows, a 'grid' axis the Fourier axis of fft groups;
+each step's flat gradient is averaged over the mesh, so that every rank
+holds the same bits and takes the same host decisions. Prediction, the
+reports and checkpoints run replicated on every rank, as in the JAX
+package.
 """
 
 import logging
 import math
 import time
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -58,6 +69,8 @@ from runlmc_tpu_torch.models.optimization import EVAL_NORM, AdaDelta
 from runlmc_tpu_torch.ops.interpolation import multi_interpolant
 from runlmc_tpu_torch.ops.slq import slq_logdet_from_probes
 from runlmc_tpu_torch.ops.solvers import batched_minres
+from runlmc_tpu_torch.parallel.collectives import mesh_mean
+from runlmc_tpu_torch.parallel.mesh import Mesh
 from runlmc_tpu_torch.params import IDENTITY, POSITIVE
 from runlmc_tpu_torch.priors import check_domain
 from runlmc_tpu_torch.utils.carry import (
@@ -185,8 +198,15 @@ class InterpolatedLLGP(MultiGP):
     :param metrics: record per-step diagnostics in ``self.metrics``
         (:class:`Metrics`), including each step's gradient error against
         the exact dense gradient; training then runs step by step
-    :param device: ``None`` = the CUDA device (raises without one); pass
-        ``"cpu"`` to run the kernels' plain PyTorch versions
+    :param mesh: optional :class:`runlmc_tpu_torch.parallel.Mesh`, the
+        same on every rank: its first non-'grid' axis shards the
+        (1 + trace_iterations)-row solve batch of the stochastic
+        objective and the data rows of the exact one, a 'grid' axis the
+        Fourier axis of fft-mode groups (parity:
+        interpolated_llgp.py:214-276)
+    :param device: ``None`` = the CUDA device (the mesh's device with a
+        mesh on a card; raises without one); pass ``"cpu"`` to run the
+        kernels' plain PyTorch versions
     """
 
     VALIDATION_GUARD_MAX_IT = VALIDATION_GUARD_MAX_IT
@@ -222,11 +242,12 @@ class InterpolatedLLGP(MultiGP):
         max_procs=None,  # accepted and ignored, as in the JAX package
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: sharded solves are not ported yet (ROADMAP.md, "
-                "queue 1 item 4); the port runs on one device")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError("mesh: expected a runlmc_tpu_torch.parallel "
+                             "Mesh, got %r" % (mesh,))
         del max_procs
+        if device is None and mesh is not None and mesh.device.type == "cuda":
+            device = mesh.device
         self.device = resolve_device(device)
         super().__init__(Xs, Ys, normalize=normalize, name=name)
         if functional_kernel is None:
@@ -261,6 +282,18 @@ class InterpolatedLLGP(MultiGP):
         self.solver = solver
         # optimizer steps per device chunk (interpolated_llgp.py:207-213)
         self.chunk_len = 10
+        # The 'grid' axis (if any) shards fft groups' Fourier axis; the
+        # first non-grid axis shards the solve batch and, for the exact
+        # objective, the data rows (interpolated_llgp.py:214-243). A mesh
+        # whose only axis is 'grid' gets neither.
+        self.mesh = mesh
+        self._rhs_sharding = self._data_shard = None
+        if mesh is not None:
+            batch_axis = next(
+                (a for a in mesh.axis_names if a != "grid"), None)
+            if batch_axis is not None:
+                self._rhs_sharding = (mesh, batch_axis)
+                self._data_shard = (mesh, batch_axis)
 
         dev = self.device
         self.data = lk.flatten_data(self.Xs, self.Ys)
@@ -270,6 +303,16 @@ class InterpolatedLLGP(MultiGP):
         grid_data, self.grid_axes = make_grids(
             self.spec, self.Xs, lo, hi, m, mode=grid_mode
         )
+        if mesh is not None and "grid" in mesh.axis_names:
+            # fft groups' Fourier axis over 'grid' (dense groups stay
+            # replicated; interpolated_llgp.py:266-276): the fine
+            # operators of both dtypes, not the dense preconditioner twin
+            grid_data = [
+                gd.replace(plan=dataclasses.replace(
+                    gd.plan, grid_shard=(mesh, "grid")))
+                if gd.plan.mode == "fft" else gd
+                for gd in grid_data
+            ]
         self.grid_data = tuple(gd.to(self.dtype, dev) for gd in grid_data)
         # float32 twins: ``precond_data32`` feeds the Woodbury
         # preconditioner factor, ``inner_data32`` the inner operator of
@@ -724,10 +767,11 @@ class InterpolatedLLGP(MultiGP):
             mll, aux = lk.exact_ski_mll(
                 self.spec, params, gd, self.data.lens, self.y.to(cdtype),
                 jitter=jitter, c_jitter=c_jitter,
+                data_shard=self._data_shard,
                 equilibrate=self._equilibrate,
             )
             (g,) = torch.autograd.grad(-(mll + self._log_prior(params)), xc)
-        return g.to(x_flat.dtype), aux
+        return mesh_mean(g, self.mesh).to(x_flat.dtype), aux
 
     def _probes(self, run_seed, it):
         """The (n_probes, n) Rademacher probes of global iteration ``it``
@@ -765,9 +809,10 @@ class InterpolatedLLGP(MultiGP):
             params = unravel_params(xc, self.params)
             s, aux = lk.stochastic_mll_surrogate(
                 self.spec, params, self.grid_data, self.data.lens, self.y,
-                probes, tol=self.tolerance, method=self.solver, **opts)
+                probes, tol=self.tolerance, method=self.solver,
+                rhs_sharding=self._rhs_sharding, **opts)
             (g,) = torch.autograd.grad(-(s + self._log_prior(params)), xc)
-        return g, aux
+        return mesh_mean(g, self.mesh), aux
 
     def _grad_from_solves(self, x_flat, probes, alpha, zs):
         """Gradient of the negative surrogate from given solutions (parity:
@@ -781,7 +826,7 @@ class InterpolatedLLGP(MultiGP):
                 self.spec, params, self.grid_data, self.data.lens, alpha,
                 zs, probes)
             (g,) = torch.autograd.grad(-(s + self._log_prior(params)), xc)
-        return g
+        return mesh_mean(g, self.mesh)
 
     def stochastic_grad(self):
         """One stochastic-gradient evaluation of the minimized objective

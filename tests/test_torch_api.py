@@ -1,6 +1,7 @@
 """The port's public API against the JAX package's: the parameter names
 of the public signatures (``MultiGP.save``/``restore`` included),
-``mesh``/``max_procs``, ``warm_rescue``'s key and ``MultiGP.optimize``."""
+``mesh`` (a ``runlmc_tpu_torch.parallel`` Mesh, anything else refused)
+and ``max_procs``, ``warm_rescue``'s key and ``MultiGP.optimize``."""
 
 import inspect
 
@@ -64,13 +65,20 @@ def _data():
 
 
 def test_mesh_raises_and_max_procs_is_accepted():
+    """A mesh that is not the port's ``parallel.Mesh`` raises; the port's
+    own mesh is taken (one rank here: no process group)."""
+    import runlmc_tpu_torch.parallel as par
+
     Xs, Ys, spec = _data()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="runlmc_tpu_torch.parallel Mesh"):
         T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[8],
                            mesh=object(), device="cpu")
     m = T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[8],
                            mesh=None, max_procs=4, device="cpu")
     assert m.n_params > 0
+    mm = T.InterpolatedLLGP(Xs, Ys, functional_kernel=spec, m=[8],
+                            mesh=par.default_mesh(), device="cpu")
+    assert mm.mesh.size == 1 and mm._rhs_sharding[1] == "probe"
 
 
 def test_multigp_optimize_raises():
@@ -105,19 +113,11 @@ def test_warm_rescue_rejects_other_keys():
 # ---- every public name of the JAX package, module by module
 
 # Names of the JAX package the port leaves out on purpose, each with its
-# reason: the TPU workarounds (ROADMAP "Not to port") and the multi-GPU
-# names still queued (ROADMAP queue 1, multi-GPU).
+# reason: the TPU workarounds (ROADMAP "Not to port").
 _TILED = "the 'tiled' grid mode, a TPU workaround (no f64 FFT there)"
-_MESH = "sharding over a device mesh: multi-GPU, still queued"
 _WBLOCKS = ("dense W blocks, the TPU's MXU route of the W applies; every "
             "W apply of the port is kernel K9")
 EXEMPT = {
-    "runlmc_tpu.parallel": _MESH,
-    "runlmc_tpu.parallel.launcher": _MESH,
-    "runlmc_tpu.parallel.mesh": _MESH,
-    "runlmc_tpu.lmc.likelihood.sharded_solve": _MESH,
-    "runlmc_tpu.lmc.grid.GridPlan.grid_shard": _MESH,
-    "runlmc_tpu.lmc.grid.GroupState.grid_shard": _MESH,
     "runlmc_tpu.lmc.grid.GroupState.grid_tops": _TILED,
     "runlmc_tpu.ops.bttb.bttb_tiled_kuu_matvec": _TILED,
     "runlmc_tpu.ops.bttb.jax_slice": _TILED + " (its slicing helper)",

@@ -396,6 +396,41 @@ def test_fourier_instances_match_the_generic_kernel(dev, dtype, D, rep, K,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [3, 9])
+@pytest.mark.parametrize("rep, K", [("sum", 2), ("sum", 5), ("slfm", 2),
+                                    ("slfm", 5), ("bt", 0)])
+def test_fourier_range_is_the_slice_of_the_full_range(dev, dtype, D, rep, K,
+                                                      monkeypatch):
+    """K10 and its backward on Fourier ranges of an odd F (a grid mesh
+    rank's contraction), the small instance and the generic kernel: the
+    operand read in place from f0, each range's output the full range's
+    slice to the bit, and its plain version's values."""
+    vf, mat, sym, diag = _fourier_args(rep, dtype, dev, nb=6, D=D,
+                                       K=max(K, 1), F=129, seed=D + K + 40)
+    G = _fourier_args("bt", dtype, dev, nb=6, D=D, F=129, seed=D + K)[0]
+    full = fourier.fourier_contract(rep, vf, mat, sym, diag)
+    Hfull = fourier.fourier_contract_bwd(G, vf)
+    for f0, f1 in ((0, 65), (65, 129), (17, 18), (0, 129)):
+        def cut(t):
+            return None if t is None else t[..., f0:f1].contiguous()
+
+        args = (rep, vf, mat, cut(sym), cut(diag))
+        got = fourier.fourier_contract(*args, f0=f0)
+        assert got.shape == (6, D, f1 - f0)
+        assert torch.equal(got, full[..., f0:f1])
+        _close(torch.view_as_real(got), torch.view_as_real(
+            fourier.fourier_contract_plain(*args, f0=f0)), dtype)
+        Gr = G[..., f0:f1].contiguous()
+        H = fourier.fourier_contract_bwd(Gr, vf, f0=f0)
+        assert torch.equal(H, Hfull[..., f0:f1])
+        _close(torch.view_as_real(H), torch.view_as_real(
+            fourier.fourier_contract_bwd_plain(Gr, vf, f0)), dtype)
+        with monkeypatch.context() as mp:
+            _generic(mp, fourier, "fourier_instance", fourier.GENERIC)
+            assert torch.equal(fourier.fourier_contract(*args, f0=f0), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb", [1, 2, 3, 5, 16, 17])
 def test_fourier_weather_widths_every_batch_count(dev, dtype, nb,
                                                   monkeypatch):
