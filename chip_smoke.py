@@ -1299,6 +1299,101 @@ def collective_us(prof):
     return 0.0, 0
 
 
+# FourierContract.backward's parts, each the range of the function it
+# calls (``k10_bwd_ranges``): the H kernel, symbol_grads' einsums and the
+# adjoint forward; what else runs inside the backward (a Fourier range's
+# zero-filled operand cotangent, its copy) is the rest
+K10_BWD_PARTS = (("H kernel", "fourier_contract_bwd"),
+                 ("symbol_grads einsums", "symbol_grads"),
+                 ("adjoint forward", "fourier_contract"))
+K10_BWD_REST = "operand cotangent (zero fill, copy) and the rest"
+K10_PART = "K10 part: "
+K10_WINDOW = "K10 backward window"
+
+
+@contextlib.contextmanager
+def k10_bwd_ranges():
+    """FourierContract.backward inside a ``record_function`` range
+    ``K10_WINDOW`` and the functions it calls each inside a range
+    ``K10_PART + part``, every range opened and closed on an idle device
+    (a ``torch.cuda.synchronize`` before it and at its end), so that a
+    kernel runs inside the host span of the range that launched it; for
+    a profile read by :func:`k10_bwd_split`."""
+    import torch
+    from torch.profiler import record_function
+
+    from runlmc_tpu_torch.hopper import fourier
+
+    saved = {attr: getattr(fourier, attr) for _, attr in K10_BWD_PARTS}
+    saved_bwd = fourier.FourierContract.__dict__["backward"]
+
+    def ranged(name, f):
+        def inner(*args, **kwargs):
+            torch.cuda.synchronize()
+            with record_function(name):
+                out = f(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        if hasattr(f, "launches"):  # a wrapper counts on its own name
+            inner.launches = f.launches
+        return inner
+
+    for part, attr in K10_BWD_PARTS:
+        setattr(fourier, attr, ranged(K10_PART + part, saved[attr]))
+    fourier.FourierContract.backward = staticmethod(
+        ranged(K10_WINDOW, saved_bwd.__func__))
+    try:
+        yield
+    finally:
+        for attr, f in saved.items():
+            setattr(fourier, attr, f)
+        fourier.FourierContract.backward = saved_bwd
+
+
+def k10_bwd_split(prof, per=1):
+    """Device µs per step (``per`` steps profiled) of the device work
+    that ran inside FourierContract.backward under
+    :func:`k10_bwd_ranges`: in all, by part (the ``K10_BWD_PARTS`` range
+    whose host span holds the kernel's start; the rest of the window
+    outside them) and by kernel name, with the backward's calls (the
+    package's range ``fourier.BWD_RANGE`` where it has one)."""
+    from torch.autograd import DeviceType
+
+    from runlmc_tpu_torch.hopper import fourier
+
+    events = prof.events()
+
+    def spans(name):
+        return [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+
+    rng = getattr(fourier, "BWD_RANGE", None)
+    windows = spans(K10_WINDOW)
+    inner = [(part, span) for part, _ in K10_BWD_PARTS
+             for span in spans(K10_PART + part)]
+    ranges = {rng, K10_WINDOW} | {K10_PART + p for p, _ in K10_BWD_PARTS}
+    parts = {part: 0.0 for part, _ in K10_BWD_PARTS}
+    parts[K10_BWD_REST] = 0.0
+    kernels = {}
+    for e in events:
+        # the ranges' own device-side spans are not work
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
+            continue
+        t = e.time_range.start
+        if not any(a <= t <= b for a, b in windows):
+            continue
+        part = next((p for p, (a, b) in inner if a <= t <= b), K10_BWD_REST)
+        us = e.time_range.end - e.time_range.start
+        parts[part] += us
+        kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + us
+    calls = len(spans(rng)) or len(windows)
+    return {"calls": calls / per,
+            "device_us": sum(parts.values()) / per,
+            "parts_us": {k: v / per for k, v in parts.items()},
+            "kernels_us": {k: v / per for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1])}}
+
+
 def mesh_worker(config, rank, world, store, out):
     """``--mesh-worker``: one rank of phase 17. Starts the process group
     (``parallel.initialize`` on the FileStore ``store``), builds the
@@ -1354,7 +1449,7 @@ def mesh_worker(config, rank, world, store, out):
     grad_s = time.time() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with k10_bwd_ranges(), torch.profiler.profile(activities=acts) as prof:
         mesh_first_grad(m, x0)
         torch.cuda.synchronize()
     coll_us, coll_calls = collective_us(prof)
@@ -1362,6 +1457,7 @@ def mesh_worker(config, rank, world, store, out):
            "backend": backend, "device": str(dev), "layout": layout,
            "init_s": init_s, "build_s": build_s, "grad_s": grad_s,
            "collective_device_us": coll_us, "collective_calls": coll_calls,
+           "k10_bwd": k10_bwd_split(prof),
            "solve_error": float(aux.solve_error),
            "solve_iters_mean": float(aux.solve_iters), "launches": launches}
     arrays = {"grad": g.cpu().numpy()}
@@ -1507,6 +1603,7 @@ def mesh_phase(T, dev, record, path_launches):
         # counters for one process at a time
         timings = []
         k10 = {}
+        gen32 = torch.Generator(device="cpu").manual_seed(MESH_VEC_SEED + 1)
         for dtype, gs in ((torch.float64, sw._kski().groups[0]),
                           (torch.float32, sw._kski32().groups[0])):
             D, F = gs.diag_That.shape
@@ -1545,8 +1642,16 @@ def mesh_phase(T, dev, record, path_launches):
                  "extra": {"counter": "fourier_contract", "range": [f0, nf],
                            "F": F, "instance": fourier.fourier_instance(
                                "slfm", D, R)}}))
-            if dtype == torch.float64:
-                G = crandn(MESH_VECS, D, nf, dtype=cplx[dtype])
+            # the backward on both ranges (rank 1's first: its inputs are
+            # drawn as before); float32's (no path runs it) from a
+            # generator of its own, so that float64's inputs stay the same
+            for r in (1, 0):
+                f0, f1 = shard_range(F, 2, r)
+                nf = f1 - f0
+                G = (crandn(MESH_VECS, D, nf, dtype=cplx[dtype])
+                     if dtype == torch.float64 else
+                     torch.randn(MESH_VECS, D, nf, generator=gen32,
+                                 dtype=cplx[dtype]).to(dev))
                 Gfull = torch.zeros_like(vf)
                 Gfull[..., f0:f1] = G
                 H = fourier.fourier_contract_bwd(G, vf, f0=f0)
@@ -1554,6 +1659,9 @@ def mesh_phase(T, dev, record, path_launches):
                     H, fourier.fourier_contract_bwd(Gfull, vf)[..., f0:f1]),
                     "K10's backward on a range is not the full range's "
                     "slice to the bit")
+                require(torch.equal(H, fourier.fourier_contract_bwd(
+                    G, vf, f0=f0)), "K10's backward on a range: a relaunch "
+                    "is not bit-identical")
                 vr = vf[..., f0:f1]
                 timings.append((
                     ("fourier_contract_bwd (range)", dtype, "cuda",
@@ -1561,7 +1669,7 @@ def mesh_phase(T, dev, record, path_launches):
                      "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(H),
                      torch.view_as_real(
                          fourier.fourier_contract_bwd_plain(G, vf, f0)),
-                     1e-12,
+                     1e-12 if dtype == torch.float64 else 1e-5,
                      lambda G=G, vf=vf, f0=f0: fourier.fourier_contract_bwd(
                          G, vf, f0=f0),
                      lambda G=G, vf=vf, f0=f0:
@@ -1569,7 +1677,8 @@ def mesh_phase(T, dev, record, path_launches):
                      nbytes(G, vr, H), 8.0 * MESH_VECS * D * D * nf),
                     {"library_fn": lambda G=G, vr=vr: torch.matmul(
                         G.permute(2, 1, 0), vr.conj().permute(2, 0, 1)),
-                     "path": MESH_GRID_PATH,
+                     "path": (MESH_GRID_PATH if dtype == torch.float64
+                              else OFF_PATH),
                      "extra": {"counter": "fourier_contract_bwd",
                                "range": [f0, nf], "F": F}}))
         del sw, sf
@@ -1628,6 +1737,12 @@ def mesh_phase(T, dev, record, path_launches):
                           "fourier_contract_bwd/f64"):
                     require(res["launches"][k] > 0, "mesh %s rank %d: no "
                             "%s launch on its range" % (cfg, res["rank"], k))
+                print("mesh %s rank %d: K10 backward %.2f us device in %.0f "
+                      "call(s) a step, by part %s" % (
+                          cfg, res["rank"], res["k10_bwd"]["device_us"],
+                          res["k10_bwd"]["calls"],
+                          json.dumps(res["k10_bwd"]["parts_us"])),
+                      flush=True)
             require(res["n_iter"] == MESH_STEPS, "mesh %s: %d steps"
                     % (cfg, res["n_iter"]))
             out.append({k: v for k, v in res.items()
@@ -2110,29 +2225,48 @@ def main():
             require(err <= (1e-12 if dtype == torch.float64 else 1e-5),
                     "fourier_contract %s disagrees" % rep)
     # K10 backward at float64: the surrogate's gradient; the library
-    # route is one batched complex GEMM over the frequencies
-    gs = wgs[torch.float64]
-    Dw, Fw = gs.diag_That.shape
-    vf = randn(nrhs, Dw, Fw, dtype=torch.complex128)
-    Gc = randn(nrhs, Dw, Fw, dtype=torch.complex128)
-    got = fourier.fourier_contract_bwd(Gc, vf)
-    want = fourier.fourier_contract_bwd_plain(Gc, vf)
-    Gp, vp = Gc.permute(2, 1, 0), vf.conj().permute(2, 0, 1)
+    # route is one batched complex GEMM over the frequencies. Float32
+    # (no path runs it) on inputs of a generator of its own, relaunched
+    # bit-identical like float64
+    gen32 = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    for dtype in (torch.float64, torch.float32):
+        gs = wgs[dtype]
+        Dw, Fw = gs.diag_That.shape
+        if dtype == torch.float64:
+            vf = randn(nrhs, Dw, Fw, dtype=torch.complex128)
+            Gc = randn(nrhs, Dw, Fw, dtype=torch.complex128)
+        else:
+            vf, Gc = (torch.randn(nrhs, Dw, Fw, generator=gen32,
+                                  dtype=torch.complex64).to(dev)
+                      for _ in range(2))
+        got = fourier.fourier_contract_bwd(Gc, vf)
+        require(torch.equal(got, fourier.fourier_contract_bwd(Gc, vf)),
+                "fourier_contract_bwd %s relaunch is not bit-identical"
+                % dtype)
+        want = fourier.fourier_contract_bwd_plain(Gc, vf)
+        Gp, vp = Gc.permute(2, 1, 0), vf.conj().permute(2, 0, 1)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
 
-    def library_bwd():
-        return torch.matmul(Gp, vp)
+        def library_bwd(Gp=Gp, vp=vp):
+            return torch.matmul(Gp, vp)
 
-    require(errors(torch.view_as_real(library_bwd().permute(1, 2, 0)),
-                   torch.view_as_real(want))[1] <= 1e-12,
-            "the batched-GEMM route disagrees with the plain K10 backward")
-    record("fourier_contract_bwd", torch.float64, "cuda",
-           "runlmc_tpu_torch/hopper/csrc/fourier.cu",
-           "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(got),
-           torch.view_as_real(want), 1e-12,
-           lambda: fourier.fourier_contract_bwd(Gc, vf),
-           lambda: fourier.fourier_contract_bwd_plain(Gc, vf),
-           nbytes(Gc, vf, got), 8.0 * nrhs * Dw * Dw * Fw,
-           library_fn=library_bwd)
+        require(errors(torch.view_as_real(library_bwd().permute(1, 2, 0)),
+                       torch.view_as_real(want))[1] <= tol,
+                "the batched-GEMM route disagrees with the plain K10 "
+                "backward")
+        record("fourier_contract_bwd", dtype, "cuda",
+               "runlmc_tpu_torch/hopper/csrc/fourier.cu",
+               "runlmc_tpu/lmc/grid.py:398", torch.view_as_real(got),
+               torch.view_as_real(want), tol,
+               lambda Gc=Gc, vf=vf: fourier.fourier_contract_bwd(Gc, vf),
+               lambda Gc=Gc, vf=vf: fourier.fourier_contract_bwd_plain(
+                   Gc, vf),
+               nbytes(Gc, vf, got), 8.0 * nrhs * Dw * Dw * Fw,
+               library_fn=library_bwd,
+               path=None if dtype == torch.float64 else OFF_PATH,
+               extra={"tile_chunk": list(fourier.bwd_tile(
+                   nrhs, Dw, Fw, Gc.dtype,
+                   sms=build.sm_count(Gc.get_device())))})
     del vf, Gc, got, want, Gp, vp
 
     # K8 on the fft group's first rows at the weather shape (Q=6 kernels,
@@ -6006,12 +6140,17 @@ def k8f_rows(dev, helpers, ctx):
 
 
 def k10r_rows(dev, helpers, ctx):
-    """``--times K10R``: K10 forward (float64, float32) and its backward
-    (float64) on the weather model's 'slfm' symbols over 16 seeded
-    operand spectra, at the full range and at each rank's Fourier range
+    """``--times K10R``: K10 forward and its backward (float64, float32)
+    on the weather model's 'slfm' symbols over 16 seeded operand spectra
+    and cotangents, at the full range and at each rank's Fourier range
     of two (phase 17's grid layout), with ``fill_`` of each output's
-    bytes. A package without the range (a parent's archive) times the
-    full range only."""
+    bytes and each output's sha256 (compare two archives' in one call).
+    Where the package has the backward's selector (``bwd_tile``), the
+    backward at each of ``K10_BWD_SWEEP_TILES`` and
+    ``K10_BWD_SWEEP_ROWS`` is timed as well (queued, with its sha256).
+    A package without the range (a parent's archive) times the full
+    range only, and the float32 backward only where it has the
+    range."""
     import inspect
 
     import torch
@@ -6021,6 +6160,7 @@ def k10r_rows(dev, helpers, ctx):
     sha, host_us, emit, timed = helpers
     wm = _weather_model(dev, ctx)
     ranged = "f0" in inspect.signature(fourier.fourier_contract).parameters
+    tiles = hasattr(fourier, "bwd_tile")
     gen = torch.Generator(device="cpu").manual_seed(MESH_VEC_SEED)
     for dtype, gs in ((torch.float64, wm._kski().groups[0]),
                       (torch.float32, wm._kski32().groups[0])):
@@ -6041,18 +6181,98 @@ def k10r_rows(dev, helpers, ctx):
             out = torch.empty((MESH_VECS, D, f1 - f0), dtype=ct, device=dev)
             timed(lambda out=out: out.fill_(1.0), host=False,
                   name="fill_ (K10's output bytes)", **shape)
-            if dtype == torch.float64:
-                Gr = G[..., f0:f1].contiguous()
-                timed(lambda Gr=Gr, kw=kw: fourier.fourier_contract_bwd(
-                    Gr, vf, **kw), name="fourier_contract_bwd", **shape)
+            if dtype == torch.float32 and not ranged:
+                continue
+            Gr = G[..., f0:f1].contiguous()
+
+            def bwd(Gr=Gr, kw=kw):
+                return fourier.fourier_contract_bwd(Gr, vf, **kw)
+
+            row = dict(shape)
+            if tiles:
+                row["tile_chunk"] = list(fourier.bwd_tile(
+                    MESH_VECS, D, f1 - f0, ct,
+                    sms=torch.cuda.get_device_properties(
+                        dev).multi_processor_count))
+            timed(bwd, name="fourier_contract_bwd", **row)
+            Hout = torch.empty((D, D, f1 - f0), dtype=ct, device=dev)
+            timed(lambda Hout=Hout: Hout.fill_(1.0), host=False,
+                  name="fill_ (K10 backward's output bytes)", **shape)
+            for t in (K10_BWD_SWEEP_TILES if tiles else ()):
+                for rows in K10_BWD_SWEEP_ROWS:
+                    with k10_bwd_tile(t, rows):
+                        emit(dict(name="fourier_contract_bwd (tile %d, %d "
+                                  "rows)" % (t, rows), sha256=sha(bwd),
+                                  queued_ms=queued_time(bwd), **shape))
 
 
-TIMES = {"K12": k12_rows, "K8F": k8f_rows, "K10R": k10r_rows}
+@contextlib.contextmanager
+def k10_bwd_tile(tile, rows):
+    """K10's backward selector held at ``tile`` frequencies a CTA and
+    ``rows`` batch rows a chunk (at most the batch)."""
+    from runlmc_tpu_torch.hopper import fourier
+
+    saved = fourier.bwd_tile
+    fourier.bwd_tile = (lambda nb, D, F, dtype, sms=None:
+                        (tile, max(1, min(rows, nb))))
+    try:
+        yield
+    finally:
+        fourier.bwd_tile = saved
+
+
+def k10b_rows(dev, helpers, ctx):
+    """``--times K10B``: the device µs of FourierContract.backward per
+    weather stochastic step (``K10B_STEPS`` steps' gradients at the
+    initial parameters, profiled) and per grid-layout step (each rank of
+    phase 17's 'grid' configuration, spawned from this checkout), in all
+    and by part (:func:`k10_bwd_split`): the H kernel, symbol_grads'
+    einsums, the adjoint forward, the range's zero-filled operand
+    cotangent."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sha, host_us, emit, timed = helpers
+    wm = _weather_model(dev, ctx)
+    x0 = torch.as_tensor(wm.param_array, dtype=wm.dtype, device=dev)
+    probes = wm._probes(SEED, 0)
+    wm._stochastic_grad(x0, probes)
+    torch.cuda.synchronize()
+    with k10_bwd_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        for _ in range(K10B_STEPS):
+            wm._stochastic_grad(x0, probes)
+        torch.cuda.synchronize()
+    emit(dict(name="K10 backward per weather stochastic step",
+              steps=K10B_STEPS, **k10_bwd_split(prof, K10B_STEPS)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_k10b_")
+    procs = mesh_spawn(["grid"], tmp)
+    try:
+        mesh_wait(procs, time.time(), tmp)
+    finally:
+        mesh_kill(procs)
+    for r in range(MESH_CONFIGS["grid"][0]):
+        with open(os.path.join(tmp, "grid.rank%d.json" % r)) as f:
+            res = json.load(f)
+        emit(dict(name="K10 backward per grid-layout step", rank=r,
+                  fourier_range=res["fourier_range"], **res["k10_bwd"]))
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+TIMES = {"K12": k12_rows, "K8F": k8f_rows, "K10R": k10r_rows,
+         "K10B": k10b_rows}
+# weather stochastic steps profiled by ``--times K10B``; the tile widths
+# and batch rows a chunk at which ``--times K10R`` also times K10's
+# backward
+K10B_STEPS = 3
+K10_BWD_SWEEP_TILES = (16, 8, 4)
+K10_BWD_SWEEP_ROWS = (16, 8, 4)
 
 
 def times(names, root):
     """``--times NAME[,NAME] [ROOT]``: the timing rows of each named set
-    (``TIMES``: ``K12`` :func:`k12_rows`, ``K8F`` :func:`k8f_rows`) of
+    (``TIMES``: ``K12`` :func:`k12_rows`, ``K8F`` :func:`k8f_rows`,
+    ``K10R`` :func:`k10r_rows`, ``K10B`` :func:`k10b_rows`) of
     the package at ROOT (this checkout by default), through
     :func:`timing_rows` (profiler device ms, CUDA events, queued ms,
     sha256, host µs per call), then ``fill_`` of one element, the

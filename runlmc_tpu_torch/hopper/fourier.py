@@ -42,7 +42,12 @@ contraction.
 The forward launches an instance specialised on small shapes where it
 fits (:func:`fourier_instance`, from (rep, D, K) alone: the operand and
 the symbol of a (b, f) in registers) and the generic kernel otherwise.
-The instance gives the generic kernel's bits.
+The instance gives the generic kernel's bits. The backward stages a
+tile of frequencies of G and the operand in shared memory, in chunks of
+batch rows through a ring of buffers, and forms all D^2 outputs of the
+tile from there; :func:`bwd_tile` picks the tile and the chunk from the
+shape and the card's SM count. Each output sums b from zero in
+ascending order, so its bits do not depend on the tile or the chunk.
 :func:`fourier_contract_plain` and :func:`fourier_contract_bwd_plain`
 are the plain PyTorch versions, which the wrappers run for CPU tensors.
 """
@@ -50,6 +55,7 @@ are the plain PyTorch versions, which the wrappers run for CPU tensors.
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from runlmc_tpu_torch.hopper import build
 
@@ -62,6 +68,19 @@ SMALL = 1
 SMALL_MAX_D = 4
 SMALL_MAX_K = 2
 _SMEM_LIMIT = 48 * 1024
+# the backward (csrc/fourier.cu kBwdThreads, kBwdSums, kBwdStages):
+# threads a CTA, running sums a thread, buffers in its ring; the tile
+# widths it takes, widest first; the bytes of a chunk's stage (its batch
+# rows of G and of the operand); the card's opt-in shared memory a CTA
+BWD_THREADS = 128
+BWD_SUMS = 8
+BWD_STAGES = 4
+BWD_TILES = (32, 16, 8, 4, 2, 1)
+BWD_STAGE_BYTES = 8 * 1024
+BWD_SMEM_OPTIN = 232448
+SMS = build.H100_SMS
+# the profiler range of FourierContract's backward
+BWD_RANGE = "fourier.FourierContract.backward"
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
@@ -187,6 +206,30 @@ def fourier_contract_bwd_plain(G, vf, f0=0):
     return H if nf == F else H[..., f0:f0 + nf]
 
 
+def bwd_tile(nb, D, F, dtype, sms=SMS):
+    """(tile, chunk) of the backward at ``nb`` batch rows, D outputs and
+    F frequencies in ``dtype`` (complex64 or complex128) on a card of
+    ``sms`` SMs: the widest of ``BWD_TILES`` whose D^2 outputs a CTA's
+    ``BWD_SUMS`` running sums a thread hold (the narrowest past that)
+    and that gives every SM a CTA (else the narrowest such), and the
+    batch rows whose G and operand rows fill ``BWD_STAGE_BYTES`` (at
+    least one, at most ``nb``); a pure function of the five."""
+    item = 16 if dtype == torch.complex128 else 8
+    fits = [t for t in BWD_TILES if D * D * t <= BWD_SUMS * BWD_THREADS]
+    fits = fits or [BWD_TILES[-1]]
+    tile = next((t for t in fits if -(-F // t) >= sms), fits[-1])
+    return tile, max(1, min(nb, BWD_STAGE_BYTES // (2 * D * tile * item)))
+
+
+def bwd_smem(nb, D, tile, chunk, dtype):
+    """Shared-memory bytes a CTA of the backward takes (csrc/fourier.cu
+    launch_bwd_sums): a buffer of ``chunk`` rows a chunk of ``nb``, at
+    most ``BWD_STAGES``."""
+    item = 16 if dtype == torch.complex128 else 8
+    nst = min(max(-(-nb // chunk), 1), BWD_STAGES)
+    return nst * 2 * chunk * D * tile * item
+
+
 def fourier_contract_bwd(G, vf, f0=0):
     """H (D, D, nf) = sum_b G[b,d,f] conj(vf[b,e,f0+f]) for the cotangent
     G (B, D, nf) of a range's output and the whole operand ``vf``
@@ -200,18 +243,21 @@ def fourier_contract_bwd(G, vf, f0=0):
         raise ValueError("fourier_contract_bwd: cotangent %s and operand %s "
                          "disagree" % (tuple(G.shape), tuple(vf.shape)))
     _range("fourier_contract_bwd", vf, F, f0)
-    if D * D > 65535:
+    tile, chunk = bwd_tile(nb, D, F, G.dtype,
+                           sms=build.sm_count(G.get_device()))
+    if bwd_smem(nb, D, tile, chunk, G.dtype) > BWD_SMEM_OPTIN:
         raise ValueError("fourier_contract_bwd: D = %d exceeds the kernel's "
-                         "grid" % D)
+                         "shared memory" % D)
     G, vf = G.resolve_conj().contiguous(), vf.resolve_conj().contiguous()
     build.require_cuda("fourier_contract_bwd", G, vf)
     H = torch.empty((D, D, F), dtype=G.dtype, device=G.device)
     fn = build.function(
         "fourier", "fourier_bwd_" + sfx,
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     build.check(fn(build.ptr(G), build.ptr(vf), build.ptr(H), nb, D, F, f0,
-                   ldv, build.stream_ptr()), "fourier_contract_bwd")
+                   ldv, tile, chunk, build.stream_ptr()),
+                "fourier_contract_bwd")
     fourier_contract_bwd.launches[sfx] += 1
     return H
 
@@ -248,8 +294,9 @@ def adjoint_symbol(rep, mat, sym, diag):
 class FourierContract(torch.autograd.Function):
     """K10 with its hand-written backward: forward
     :func:`fourier_contract`, backward :func:`fourier_contract_bwd` and
-    the einsums of :func:`symbol_grads`. On a range (``f0``, the
-    symbol's width) the operand's cotangent is zero outside it."""
+    the einsums of :func:`symbol_grads`, under the profiler range
+    ``BWD_RANGE``. On a range (``f0``, the symbol's width) the operand's
+    cotangent is zero outside it."""
 
     @staticmethod
     def forward(ctx, rep, vf, mat, sym, diag, f0):
@@ -259,25 +306,22 @@ class FourierContract(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, G):
-        vf, mat, sym, diag = ctx.saved_tensors
-        rep, f0 = ctx.rep, ctx.f0
-        need = ctx.needs_input_grad
-        dv = dmat = dsym = ddiag = None
-        if any(need[2:5]):
-            H = fourier_contract_bwd(G.contiguous(), vf, f0)
-            dmat, dsym, ddiag = symbol_grads(rep, H, mat, sym)
-        if need[1]:
-            dv = fourier_contract(rep, G.contiguous(),
-                                  *adjoint_symbol(rep, mat, sym, diag))
-            nf, F = G.shape[-1], vf.shape[-1]
-            if nf != F:
-                full = dv.new_zeros(dv.shape[:-1] + (F,))
-                full[..., f0:f0 + nf] = dv
-                dv = full
-        return (None, dv,
-                dmat if need[2] else None,
-                dsym if need[3] else None,
-                ddiag if need[4] else None, None)
+        with record_function(BWD_RANGE):
+            vf, mat, sym, diag = ctx.saved_tensors
+            rep, f0 = ctx.rep, ctx.f0
+            need = ctx.needs_input_grad
+            dv = dmat = dsym = ddiag = None
+            if any(need[2:5]):
+                H = fourier_contract_bwd(G.contiguous(), vf, f0)
+                dmat, dsym, ddiag = symbol_grads(rep, H, mat, sym)
+            if need[1]:
+                dv = _embed(fourier_contract(
+                    rep, G.contiguous(), *adjoint_symbol(rep, mat, sym, diag)),
+                    f0, vf.shape[-1])
+            return (None, dv,
+                    dmat if need[2] else None,
+                    dsym if need[3] else None,
+                    ddiag if need[4] else None, None)
 
 
 def contract(rep, vf, mat, sym, diag=None, f0=0):

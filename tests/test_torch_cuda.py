@@ -396,18 +396,20 @@ def test_fourier_instances_match_the_generic_kernel(dev, dtype, D, rep, K,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", [6, 17, 128])
 @pytest.mark.parametrize("D", [3, 9])
 @pytest.mark.parametrize("rep, K", [("sum", 2), ("sum", 5), ("slfm", 2),
                                     ("slfm", 5), ("bt", 0)])
-def test_fourier_range_is_the_slice_of_the_full_range(dev, dtype, D, rep, K,
-                                                      monkeypatch):
+def test_fourier_range_is_the_slice_of_the_full_range(dev, dtype, nb, D, rep,
+                                                      K, monkeypatch):
     """K10 and its backward on Fourier ranges of an odd F (a grid mesh
-    rank's contraction), the small instance and the generic kernel: the
+    rank's contraction), the small instance and the generic kernel, at
+    one and at several of the backward's chunks of batch rows: the
     operand read in place from f0, each range's output the full range's
     slice to the bit, and its plain version's values."""
-    vf, mat, sym, diag = _fourier_args(rep, dtype, dev, nb=6, D=D,
+    vf, mat, sym, diag = _fourier_args(rep, dtype, dev, nb=nb, D=D,
                                        K=max(K, 1), F=129, seed=D + K + 40)
-    G = _fourier_args("bt", dtype, dev, nb=6, D=D, F=129, seed=D + K)[0]
+    G = _fourier_args("bt", dtype, dev, nb=nb, D=D, F=129, seed=D + K)[0]
     full = fourier.fourier_contract(rep, vf, mat, sym, diag)
     Hfull = fourier.fourier_contract_bwd(G, vf)
     for f0, f1 in ((0, 65), (65, 129), (17, 18), (0, 129)):
@@ -416,7 +418,7 @@ def test_fourier_range_is_the_slice_of_the_full_range(dev, dtype, D, rep, K,
 
         args = (rep, vf, mat, cut(sym), cut(diag))
         got = fourier.fourier_contract(*args, f0=f0)
-        assert got.shape == (6, D, f1 - f0)
+        assert got.shape == (nb, D, f1 - f0)
         assert torch.equal(got, full[..., f0:f1])
         _close(torch.view_as_real(got), torch.view_as_real(
             fourier.fourier_contract_plain(*args, f0=f0)), dtype)
@@ -450,6 +452,35 @@ def test_fourier_weather_widths_every_batch_count(dev, dtype, nb,
     _generic(monkeypatch, fourier, "fourier_instance", fourier.GENERIC)
     assert torch.equal(fourier.fourier_contract(*args), got)
     assert torch.equal(fourier.fourier_contract(*adj), got_adj)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", [1, 3, 16, 17, 128])
+@pytest.mark.parametrize("D", [1, 4, 9])
+def test_fourier_bwd_every_batch_count_and_range(dev, dtype, nb, D):
+    """K10's backward at the weather width (F = 4097) on the full range,
+    both ranges of two and odd-offset ranges, at every batch count the
+    selector stages differently (one stage, chunks in two buffers):
+    the plain version's values (1e-12 / 1e-5 of the largest magnitude),
+    a range the full range's slice to the bit, relaunches bit-identical,
+    one launch a call."""
+    F = 4097
+    vf = _fourier_args("bt", dtype, dev, nb=nb, D=D, F=F, seed=nb + D)[0]
+    G = _fourier_args("bt", dtype, dev, nb=nb, D=D, F=F, seed=nb + D + 1)[0]
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    before = fourier.fourier_contract_bwd.launches[sfx]
+    Hfull = fourier.fourier_contract_bwd(G, vf)
+    assert fourier.fourier_contract_bwd.launches[sfx] == before + 1
+    assert torch.equal(Hfull, fourier.fourier_contract_bwd(G, vf))
+    for f0, f1 in ((0, F), (0, 2049), (2049, F), (1, 2050), (17, 18),
+                   (4001, F)):
+        Gr = G[..., f0:f1].contiguous()
+        H = fourier.fourier_contract_bwd(Gr, vf, f0=f0)
+        assert H.shape == (D, D, f1 - f0)
+        assert torch.equal(H, Hfull[..., f0:f1])
+        assert torch.equal(H, fourier.fourier_contract_bwd(Gr, vf, f0=f0))
+        _close(torch.view_as_real(H), torch.view_as_real(
+            fourier.fourier_contract_bwd_plain(Gr, vf, f0)), dtype)
 
 
 def _gather_problem(dtype, dev, dims, seed):

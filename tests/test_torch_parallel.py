@@ -260,6 +260,7 @@ def test_fourier_wrappers_pass_the_range_and_the_operand_stride(monkeypatch):
     monkeypatch.setattr(build, "require_cuda", lambda what, *ts: None)
     monkeypatch.setattr(build, "function", fake_function)
     monkeypatch.setattr(build, "stream_ptr", lambda device=None: None)
+    monkeypatch.setattr(build, "sm_count", lambda index: build.H100_SMS)
     vf, mat, sym, diag = _k10_args("slfm", nb=4, D=4, K=2, F=57)
     g = fourier.fourier_contract("slfm", vf, mat, sym[..., 29:].contiguous(),
                                  diag[..., 29:].contiguous(), f0=29)
@@ -271,6 +272,7 @@ def test_fourier_wrappers_pass_the_range_and_the_operand_stride(monkeypatch):
     assert g.shape == (4, 4, 28) and af[3] == g.data_ptr()
     assert sb == "fourier_bwd_f64" and ab[1].value == vf.data_ptr()
     assert ab[3:8] == (4, 4, 28, 29, 57) and H.shape == (4, 4, 28)
+    assert ab[8:10] == fourier.bwd_tile(4, 4, 28, vf.dtype)
 
 
 # ---- two ranks over Gloo
